@@ -6,20 +6,30 @@ CUDA card.
 
 Phases, each printing its own lines; any failure raises (exit code != 0):
 
-  1. card   — nvidia-smi name and power limit; TF32 off for the references.
-  2. build  — nvcc builds K1-K3 from threedhumangan_tpu_torch/csrc.
-  3. check  — each kernel against its plain PyTorch version at the slice's
-              shapes (and K2/K3 pointwise at a narrow width), with the
-              tolerance and its reason; kernel and plain times from CUDA
-              events after a warm-up.
-  4. slice  — MAP3DBN512L generation at batch 8 in bf16 with seeded random
-              weights: 2 warm-up + 5 timed batches through
-              ``generator_forward``, per-stage ms/batch, imgs/s; the output
-              must be (8, 512, 256, 3), finite and not constant, every
-              kernel's launch count must rise, and a small config run on
-              the card must agree with the same run on the CPU.
-  5. result — a JSON line of the kernels, the card line, and the final
-              {"ok": true, "device": ...} line.
+  1. card     — nvidia-smi name and power limit; TF32 off for the references.
+  2. build    — nvcc builds K1-K3 and K7-K9 from threedhumangan_tpu_torch/csrc,
+                one process per source.
+  3. check    — K1-K3 against their plain PyTorch versions at the generation
+                slice's shapes (and K2/K3 pointwise at a narrow width), with
+                the tolerance and its reason; kernel and plain times from
+                CUDA events after a warm-up.
+  4. generate — MAP3DBN512L generation at batch 8 in bf16 with seeded random
+                weights: 2 warm-up + 5 timed batches through
+                ``generator_forward``, per-stage ms/batch, imgs/s; the output
+                must be (8, 512, 256, 3), finite and not constant, K1-K3's
+                launch counts must rise, and a small config run on the card
+                must agree with the same run on the CPU.
+  5. check    — K7, K8 and K9 against their plain versions at the training
+                slice's shapes (K8/K9 also pointwise at a narrow width, and
+                against autograd through the plain unfolded render).
+  6. train    — the MAP3DBN D+G+R1 step at batch 8 in bf16, phase slot 3
+                (R1 on), nerf noise 0.5, lr_d 4e-4 / lr_g 1e-4: 2 warm-up + 5
+                timed pair steps through ``train_step_pair``, per-stage
+                ms/pair, imgs/s, peak memory; losses finite, parameters moved,
+                K1, K2, K7, K8 and K9 launched; and a small config's D+G step
+                on the card against the same step on the CPU.
+  7. result   — a JSON line of the kernels, the card line, and the final
+                {"ok": true, "device": ...} line.
 """
 
 import contextlib
@@ -314,6 +324,301 @@ def check_small_config():
         raise AssertionError("the card disagrees with the CPU plain path")
 
 
+class PairTimer(StageTimer):
+    """CUDA-event timer for the trainer's ``stage`` hook: ms per pair step."""
+
+    def per_pair_ms(self, pairs):
+        import torch
+
+        torch.cuda.synchronize()
+        return {k: sum(s.elapsed_time(e) for s, e in v) / pairs for k, v in self.events.items()}
+
+
+def train_meta():
+    from threedhumangan_tpu_torch import configs
+
+    meta = dict(configs.extract_metadata(configs.MAP3DBN, 0))
+    meta.update(dataset_length=BATCH)
+    return meta
+
+
+def rel_l2(got, ref):
+    import torch
+
+    got, ref = got.float(), ref.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError("non-finite values in a kernel/plain comparison")
+    return float((got - ref).norm() / (ref.norm() + 1e-30))
+
+
+def check_raster(pre, cond, meta):
+    import torch
+
+    from threedhumangan_tpu_torch.ops import rasterize as ras
+
+    H, W, tile = meta["gen_height"], meta["gen_width"], pre.raster_tile
+    F = pre.faces.shape[0]
+    K = -(-min(pre.raster_faces_per_tile, F) // 128) * 128
+    _, tiles_x, xs, ys, span = ras._grid((H, W), tile)
+    tri = ras.bin_candidates(pre.screen_vertices(cond), pre.faces.cuda(), (H, W), tile, K)
+    run_k = lambda: ras.rasterize_tiles_cuda(tri, tiles_x, tile, xs, ys, span)
+    run_p = lambda: ras.rasterize_tiles_plain(tri, tiles_x, tile, xs, ys, span)
+    (fk, bk, zk), (fp, bp, zp) = run_k(), run_p()
+    torch.cuda.synchronize()
+    agree = float((fk == fp).float().mean())
+    cover = fp >= 0
+    bmx = float((bk - bp).abs().max())
+    zmx = float(torch.where(cover, (zk - zp).abs(), torch.zeros_like(zk)).max())
+    log(f"check K7 rasterizer {tuple(tri.shape)} candidates, {F} faces: face-id agreement "
+        f"{agree * 100:.6f}% (coverage {float(cover.float().mean()) * 100:.2f}%), bary max|d| "
+        f"{bmx:.3e}, z max|d| {zmx:.3e}")
+    log("  tolerance: 100% face-id agreement and bary/z max|d| == 0 (the kernel rounds every "
+        "step in the plain version's op order, and the lowest candidate row wins z ties)")
+    if agree != 1.0 or bmx > 0 or zmx > 0:
+        raise AssertionError("K7 disagrees with its plain version")
+    ms = cuda_ms(run_k, 5)
+    plain_ms = cuda_ms(run_p, 1)
+    log(f"  time: kernel {ms:.3f} ms  plain {plain_ms:.3f} ms")
+    return dict(max_abs_err=bmx, ms=ms, plain_ms=plain_ms)
+
+
+def _random_field_case(H, NB, noise, gcuda, B=2, R=256, S=32, F=24):
+    import torch
+
+    from threedhumangan_tpu_torch.models.siren import CoordConcatSiren
+
+    field = CoordConcatSiren(3, H, 31, F, NB, generator=torch.Generator().manual_seed(SEED + H))
+    with torch.no_grad():  # a positive density, or a random field may sit below the clamp
+        field.sigma_layer.bias.fill_(0.5)
+    pk = torch.randn(B, R * S, 37 + noise, generator=gcuda, device="cuda") * 0.5
+    pk[..., 34:37] = pk.view(B, R, S, -1)[:, :, :1, 34:37].expand(B, R, S, 3).reshape(B, R * S, 3)
+    zv = torch.sort(torch.rand(B, R, S, generator=gcuda, device="cuda") + 1.0, -1).values
+    fr = 0.1 * torch.randn(B, NB * H, generator=gcuda, device="cuda")
+    ph = 0.1 * torch.randn(B, NB * H, generator=gcuda, device="cuda")
+    go = torch.randn(B, R, F + 3, generator=gcuda, device="cuda")
+    gd = torch.randn(B, R, 1, generator=gcuda, device="cuda")
+    return field.cuda(), pk.to(torch.bfloat16), zv, fr, ph, go, gd
+
+
+def _bwd_compare(w, pk, fr, ph, zv, go, gd, S, white_back, last_back, exact):
+    """Kernel K8/K9 against their plain versions on the same tables."""
+    import torch
+
+    from threedhumangan_tpu_torch.ops import raymarch_bwd as rb
+
+    bf16 = torch.bfloat16
+    NB = sum(k.startswith("w_net") for k in w)
+    fk, pk_ = rb._film_tables(fr, ph, NB)
+    sk, gk = rb.field_stats_cuda(w, pk, fk, pk_, go, S, exact_sin=exact)
+    sp, gp = rb.field_stats_plain(w, pk, fk, pk_, go, S, compute_dtype=bf16, exact_sin=exact)
+    coef, dsig = rb.backward_tables(sp, gp, zv, go, gd, white_back, last_back)
+    gr_k, df_k, dp_k = rb.field_bwd_step_cuda(w, pk, fk, pk_, go, coef, dsig, S, exact_sin=exact)
+    gr_p, df_p, dp_p = rb.field_bwd_step_plain(w, pk, fk, pk_, go, coef, dsig, S,
+                                               compute_dtype=bf16, exact_sin=exact)
+    torch.cuda.synchronize()
+    errs = {k: rel_l2(gr_k[k], gr_p[k]) for k in gr_p}
+    errs["freq"], errs["phase"] = rel_l2(df_k, df_p), rel_l2(dp_k, dp_p)
+    smx = float((sk - sp).abs().max())
+    gmx = float((gk - gp).abs().max())
+    k9mx = max(float((gr_k[k] - gr_p[k]).abs().max()) for k in gr_p)
+    return smx, gmx, errs, k9mx, (fk, pk_, coef, dsig)
+
+
+def check_field_bwd(G, meta, cond, gcuda):
+    import torch
+
+    from threedhumangan_tpu_torch.models import volume_rendering as vr
+    from threedhumangan_tpu_torch.models.smpl import get_geo_features
+    from threedhumangan_tpu_torch.ops import raymarch as rm
+    from threedhumangan_tpu_torch.ops import raymarch_bwd as rb
+
+    bf16 = torch.bfloat16
+    # narrow, exact sine: pointwise, with and without noise, both residual
+    # routings; hidden 40 pads to 48 channels
+    for hidden, noise, last_back in ((32, False, False), (32, True, False), (40, True, True),
+                                     (32, False, True)):
+        field, pk, zv, fr, ph, go, gd = _random_field_case(hidden, 4, noise, gcuda)
+        smx, gmx, errs, k9mx, _ = _bwd_compare(rb.flat_weights(field), pk, fr, ph, zv, go, gd, 32,
+                                               not last_back, last_back, True)
+        worst = max(errs, key=errs.get)
+        log(f"check K8/K9 narrow (hidden {hidden}, exact sin, noise {noise}, last_back "
+            f"{last_back}): "
+            f"K8 sigma max|d| {smx:.3e} f.g max|d| {gmx:.3e}; K9 worst rel L2 {errs[worst]:.3e} "
+            f"({worst}), max|d| {k9mx:.3e}")
+        log("  tolerance: K8 max|d| <= 5e-3 (sigma) and 2e-2 (f.g, |f.g| ~ 1), K9 rel L2 <= 5e-3 "
+            "per tensor (bf16 activations: f32 sums in another order flip occasional roundings)")
+        if smx > 5e-3 or gmx > 2e-2 or errs[worst] > 5e-3:
+            raise AssertionError("K8/K9 (narrow) disagree with their plain versions")
+
+    # full width: the slice's field, inputs and nerf noise
+    S, W, H = meta["num_steps"], meta["render_width"], meta["render_height"]
+    B = cond["scales"].shape[0]
+    field = G.neural_field
+    with torch.no_grad():
+        z = torch.randn(B, meta["latent_dim"], generator=gcuda, device="cuda")
+        fr, ph = G.neural_field_mapping_network(z, bf16)
+        pts_cam, z_vals, d_cam = vr.get_initial_rays_weak_perspective(
+            cond["intrinsics"][:, 0, 0], cond["scales"].float(), S, (W, H), meta["ray_start"],
+            meta["ray_end"])
+        pts, z_vals, _ = vr.transform_sampled_points(pts_cam, z_vals, d_cam,
+                                                     cond["cam2world_matrices"], gcuda, True)
+        pts = pts.reshape(B, -1, 3)
+        geo = get_geo_features(pts, cond["skeletons_xyz"], cond["vertices"],
+                               cond["tpose_vertices"], cond["fk_matrices"], cond["lbs_weights"])
+        dirs = torch.zeros_like(pts)
+        dirs[..., -1] = -1.0
+        noise = 0.5 * torch.randn(B, pts.shape[1], 1, generator=gcuda, device="cuda")
+        pk = rm.pack_field_inputs(pts, geo, dirs, 2.0 / meta["side_length"], noise).to(bf16)
+    zv = z_vals.reshape(B, W * H, S).contiguous()
+    go = torch.randn(B, W * H, meta["feature_dim"] + 3, generator=gcuda, device="cuda")
+    gd = torch.randn(B, W * H, 1, generator=gcuda, device="cuda")
+    w = rb.flat_weights(field)
+    exact = not meta["fast_math"]
+    wb, lb = meta["white_back"], meta["last_back"]
+    smx, gmx, errs, k9mx, (fk, pk_, coef, dsig) = _bwd_compare(w, pk, fr, ph, zv, go, gd, S, wb,
+                                                               lb, exact)
+    log(f"check K8/K9 full width (hidden {meta['hidden_dim']}, {meta['neural_field_blocks']} "
+        f"blocks, B {B}, R {W * H}, S {S}, noise 0.5): K8 sigma max|d| {smx:.3e} f.g max|d| "
+        f"{gmx:.3e}")
+    log("  K9 rel L2 vs plain: " + " ".join(f"{k} {v:.2e}" for k, v in sorted(errs.items())))
+    # against autograd through the plain unfolded render on the same inputs
+    grads_k, dfr_k, dph_k = rb.fused_field_render_bwd(w, pk, fr, ph, zv, go, gd, S, wb, lb,
+                                                      bf16, exact)
+    frq, phs = fr.clone().requires_grad_(), ph.clone().requires_grad_()
+    out, depth = rb.field_render_unfolded(field, pk.float(), frq, phs, zv, S, wb, lb, bf16, exact)
+    names = [n for n, _ in field.named_parameters()]
+    ag = torch.autograd.grad((out * go).sum() + (depth * gd).sum(),
+                             list(field.parameters()) + [frq, phs])
+    del out, depth
+    layer = rb._layer_names(field)
+    aerr = {}
+    for n, g in zip(names, ag):
+        path, kind = n.rsplit(".", 1)
+        key = ("w_" if kind == "weight" else "b_") + layer[path]
+        aerr[key] = rel_l2(grads_k[key].t() if kind == "weight" else grads_k[key], g)
+    aerr["freq"], aerr["phase"] = rel_l2(dfr_k, ag[-2]), rel_l2(dph_k, ag[-1])
+    log("  K8+K9 rel L2 vs autograd through the unfolded render: "
+        + " ".join(f"{k} {v:.2e}" for k, v in sorted(aerr.items())))
+    log("  tolerance: K8 sigma max|d| <= 5e-2, K9 rel L2 <= 2e-2 per tensor vs plain and <= 5e-2 "
+        "vs autograd (statistical: at width 384 bf16 roundings of activations flip, and the "
+        "omega-30 SIREN amplifies a flip; autograd's forward runs the products in another "
+        "order)")
+    if smx > 5e-2 or max(errs.values()) > 2e-2 or max(aerr.values()) > 5e-2:
+        raise AssertionError("K8/K9 (full width) disagree with their references")
+    ms8 = cuda_ms(lambda: rb.field_stats_cuda(w, pk, fk, pk_, go, S, exact_sin=exact), 3)
+    plain8 = cuda_ms(lambda: rb.field_stats_plain(w, pk, fk, pk_, go, S, exact_sin=exact), 1)
+    ms9 = cuda_ms(lambda: rb.field_bwd_step_cuda(w, pk, fk, pk_, go, coef, dsig, S,
+                                                 exact_sin=exact), 3)
+    plain9 = cuda_ms(lambda: rb.field_bwd_step_plain(w, pk, fk, pk_, go, coef, dsig, S,
+                                                     exact_sin=exact), 1)
+    log(f"  time: K8 kernel {ms8:.3f} ms plain {plain8:.3f} ms; K9 kernel {ms9:.3f} ms plain "
+        f"{plain9:.3f} ms")
+    return (dict(max_abs_err=smx, ms=ms8, plain_ms=plain8),
+            dict(max_abs_err=k9mx, ms=ms9, plain_ms=plain9))
+
+
+def check_small_train():
+    """A TINY D+G pair on the card (kernels) and on the CPU (plain
+    versions): same weights, batch and draws."""
+    import torch
+
+    from threedhumangan_tpu_torch import configs
+    from threedhumangan_tpu_torch.data.dataset import (
+        SyntheticSHHQDataset, iterate_batches, to_tensors)
+    from threedhumangan_tpu_torch.data.preprocessor import get_preprocessor
+    from threedhumangan_tpu_torch.models.smpl import synthetic_smpl_model
+    from threedhumangan_tpu_torch.trainers.phase_trainer import init_train_state, train_step_pair
+
+    meta = dict(configs.extract_metadata(configs.MAP3DBN_TINY, 0))
+    meta.update(nerf_noise=0, perturb_rays=False, use_mixed_precision=True)
+    smpl = synthetic_smpl_model(num_verts=384, num_faces=512)
+    batch = next(iterate_batches(SyntheticSHHQDataset(smpl_model=smpl, **meta), 2, shuffle=False))
+    gz = torch.Generator().manual_seed(SEED)
+    draws = {"z": torch.randn(2, meta["latent_dim"], generator=gz), "coin": torch.tensor(0.3),
+             "h_rotation": torch.zeros(2), "v_rotation": torch.zeros(2)}
+    res = {}
+    for dev in ("cuda", "cpu"):
+        ts = init_train_state(meta, torch.Generator().manual_seed(SEED), dev)
+        with torch.no_grad():  # a positive density, so that the G step reaches the field
+            ts.G.neural_field.sigma_layer.bias.fill_(0.5)
+        dd = {k: v.to(dev) for k, v in draws.items()}
+        _, stats = train_step_pair(ts, to_tensors(batch, dev), torch.Generator(device=dev), meta,
+                                   get_preprocessor(meta, smpl), meta["phases"][3], 1e-4, 4e-4,
+                                   0.0, draws={"d": dd, "g": dd})
+        res[dev] = {k: float(v[1]) for k, v in stats.items()
+                    if k in ("d_loss", "g_loss") or "grad_norm" in k}
+    worst = {k: abs(res["cuda"][k] - res["cpu"][k]) / (abs(res["cpu"][k]) + 1e-12)
+             for k in res["cpu"] if res["cpu"][k] != 0}
+    log("check small config (TINY D+G, R1, bf16) card vs CPU plain: "
+        + " ".join(f"{k} {res['cuda'][k]:.5g}/{res['cpu'][k]:.5g}" for k in sorted(res["cpu"])))
+    log("  tolerance: losses within 2% and grad group norms within 10% relative (bf16 end to "
+        "end; the kernels, cuDNN and the CPU sum in other orders)")
+    for k, v in worst.items():
+        if v > (0.02 if k.endswith("loss") else 0.10):
+            raise AssertionError(f"the card disagrees with the CPU plain path on {k}: {v:.3e}")
+    if res["cuda"]["g_grad_norm/neural_field"] <= 0:
+        raise AssertionError("the small config's G step did not reach the field")
+
+
+def run_train_slice(ts, batch, pre, meta, gcuda):
+    import torch
+
+    from threedhumangan_tpu_torch.ops import geo, rasterize, raymarch, raymarch_bwd
+    from threedhumangan_tpu_torch.trainers.phase_trainer import train_step_pair
+
+    phase = meta["phases"][3]
+    timer = PairTimer()
+    before = [p.detach().clone() for p in list(ts.G.parameters()) + list(ts.D.parameters())]
+    torch.cuda.reset_peak_memory_stats()
+    mods = (geo, raymarch, rasterize)
+    for mod in mods:
+        mod.launches = 0
+    raymarch_bwd.launches_stats = raymarch_bwd.launches_bwd = 0
+    walls = []
+    for it in range(WARMUP + TIMED):
+        timer.on = it >= WARMUP
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, stats = train_step_pair(ts, batch, gcuda, meta, pre, phase, 1e-4, 4e-4, 0.5,
+                                    stage=timer.stage)
+        torch.cuda.synchronize()
+        if timer.on:
+            walls.append(time.perf_counter() - t0)
+    counts = {"K1": geo.launches, "K2": raymarch.launches, "K7": rasterize.launches,
+              "K8": raymarch_bwd.launches_stats, "K9": raymarch_bwd.launches_bwd}
+    stage_ms = timer.per_pair_ms(TIMED)
+    log(f"train: MAP3DBN D+G+R1 batch {BATCH} bf16, phase slot 3, {TIMED} timed pair steps "
+        f"after {WARMUP} warm-up")
+    labels = {"preprocess": "preprocess (camera + K7), D and G", "d_fakes": "D-step fakes",
+              "d_step": "D fwd + R1 + bwd", "d_r1": "  of which R1", "d_optimizer": "D optimizer",
+              "g_forward": "G fwd (G + D)", "g_backward": "G bwd",
+              "g_optimizer": "G optimizer + EMA"}
+    for k, lab in labels.items():
+        log(f"  stage {lab:<36} {stage_ms.get(k, float('nan')):9.3f} ms/pair")
+    total = sum(walls) / len(walls)
+    top = sum(v for k, v in stage_ms.items() if k != "d_r1")
+    log(f"  total {total * 1e3:.3f} ms/pair (host clock)  {BATCH / total:.3f} imgs/s  "
+        f"stage sum {top:.3f} ms")
+    log(f"  launches during the slice: {counts}")
+    log(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    losses = {k: float(stats[k][1]) for k in ("d_loss", "g_loss", "r1")}
+    log(f"  last pair: {losses}")
+    if not all(math.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"non-finite losses {losses}")
+    names = ([f"G.{n}" for n, _ in ts.G.named_parameters()]
+             + [f"D.{n}" for n, _ in ts.D.named_parameters()])
+    after = list(ts.G.parameters()) + list(ts.D.parameters())
+    still = [n for n, a, b in zip(names, before, after) if torch.equal(a, b)]
+    moved = len(after) - len(still)
+    log(f"  parameter tensors moved: {moved} of {len(after)}; not moved (no gradient on this "
+        f"path): {', '.join(still)}")
+    if moved < len(after) // 2:
+        raise AssertionError("the parameters did not move")
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"a kernel did not launch during the training slice: {counts}")
+    return counts
+
+
 def main():
     import torch
 
@@ -334,6 +639,7 @@ def main():
     from threedhumangan_tpu_torch.models.generator import generator_forward, init_generator
     from threedhumangan_tpu_torch.models.smpl import synthetic_smpl_model
     from threedhumangan_tpu_torch.ops import geo, raymarch, synthesis_kernel
+    from threedhumangan_tpu_torch.trainers.phase_trainer import init_train_state
 
     # ---- 2. build
     t0 = time.perf_counter()
@@ -342,7 +648,7 @@ def main():
     if _build.BUILD_INFO.get("log"):
         with open(_build.BUILD_INFO["log"]) as f:
             for line in f:
-                if "registers" in line or "spill" in line:
+                if "registers" in line or "spill" in line or "Function properties" in line:
                     log("  ptxas: " + line.strip())
 
     # ---- 3. kernels against their plain versions, at the slice's shapes
@@ -404,16 +710,49 @@ def main():
         raise AssertionError(f"a kernel did not launch during the slice: {counts}")
     log(f"  output {tuple(rgbs.shape)} mean {float(rgbs.mean()):.4f} std {float(rgbs.std()):.4f}")
     check_small_config()
+    del gen, out, rgbs, cond
+    torch.cuda.empty_cache()
 
-    # ---- 5. result
+    # ---- 5. training-path kernels against their plain versions
+    tmeta = train_meta()
+    tds = SyntheticSHHQDataset(smpl_model=smpl, **tmeta)
+    tbatch = to_tensors(next(iterate_batches(tds, BATCH, shuffle=False)), dev)
+    tpre = get_preprocessor(tmeta, smpl)
+    ts = init_train_state(tmeta, torch.Generator().manual_seed(SEED), dev)
+    tcond = tpre(tbatch, rotate=True, generator=gcuda)
+    k7 = check_raster(tpre, tcond, tmeta)
+    k8, k9 = check_field_bwd(ts.G, tmeta, tcond, gcuda)
+    del tcond
+    torch.cuda.empty_cache()
+
+    # ---- 6. the training slice through the port's entry point
+    tcounts = run_train_slice(ts, tbatch, tpre, tmeta, gcuda)
+    del ts
+    torch.cuda.empty_cache()
+    check_small_train()
+
+    # ---- 7. result
     src = "threedhumangan_tpu_torch/csrc/"
+    both = lambda k: {"generation": counts.get(k, 0), "training": tcounts.get(k, 0)}
     kernels = [
         dict(name="K1 geo features", route="cuda", source=src + "geo.cu",
-             replaces="threedhumangan_tpu/ops/geo.py:94", launches=counts["K1"], **k1),
+             replaces="threedhumangan_tpu/ops/geo.py:94", launches=counts["K1"],
+             launches_by_path=both("K1"), **k1),
         dict(name="K2 folded field render", route="cuda", source=src + "raymarch.cu",
-             replaces="threedhumangan_tpu/ops/raymarch.py:525", launches=counts["K2"], **k2),
+             replaces="threedhumangan_tpu/ops/raymarch.py:525", launches=counts["K2"],
+             launches_by_path=both("K2"), **k2),
         dict(name="K3 fused SPADE synthesis", route="cuda", source=src + "synthesis.cu",
-             replaces="threedhumangan_tpu/ops/synthesis_kernel.py:91", launches=counts["K3"], **k3),
+             replaces="threedhumangan_tpu/ops/synthesis_kernel.py:91", launches=counts["K3"],
+             launches_by_path=both("K3"), **k3),
+        dict(name="K7 rasterizer tile z-test", route="cuda", source=src + "rasterize.cu",
+             replaces="threedhumangan_tpu/ops/rasterize.py:335", launches=tcounts["K7"],
+             launches_by_path=both("K7"), **k7),
+        dict(name="K8 field backward stats", route="cuda", source=src + "raymarch_bwd.cu",
+             replaces="threedhumangan_tpu/ops/raymarch_bwd.py:132", launches=tcounts["K8"],
+             launches_by_path=both("K8"), **k8),
+        dict(name="K9 field backward step", route="cuda", source=src + "raymarch_bwd.cu",
+             replaces="threedhumangan_tpu/ops/raymarch_bwd.py:154", launches=tcounts["K9"],
+             launches_by_path=both("K9"), **k9),
     ]
     for k in kernels:
         for key in ("max_abs_err", "ms", "plain_ms"):

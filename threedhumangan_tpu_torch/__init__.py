@@ -2,13 +2,17 @@
 
 The JAX package beside this one is the reference; this package reproduces
 its pose-conditioned generation path (SMPL posing, mapping networks, the
-FiLM-SIREN field render and the SPADE synthesis stack) in PyTorch, with
-hand-written Hopper (sm_90a) kernels for the three stages the JAX package
-runs as Pallas kernels:
+FiLM-SIREN field render and the SPADE synthesis stack) and its D+G+R1
+training step (mesh rasterization, the U-Net discriminator, losses, Adam,
+EMA) in PyTorch, with hand-written Hopper (sm_90a) kernels for the stages
+the JAX package runs as Pallas kernels:
 
   ops/geo.py               K1  1-NN geo features      csrc/geo.cu
   ops/raymarch.py          K2  folded field render    csrc/raymarch.cu
   ops/synthesis_kernel.py  K3  fused SPADE synthesis  csrc/synthesis.cu
+  ops/rasterize.py         K7  tile rasterizer        csrc/rasterize.cu
+  ops/raymarch_bwd.py      K8  field-backward stats   csrc/raymarch_bwd.cu
+                           K9  field-backward step    csrc/raymarch_bwd.cu
 
 Each kernel wrapper launches its kernel on a CUDA tensor and serves a CPU
 tensor with a plain PyTorch version of the same math.  Module paths mirror

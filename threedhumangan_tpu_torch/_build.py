@@ -1,10 +1,13 @@
 """Build the port's CUDA kernels and bind them with ctypes.
 
-At first use, ``library()`` compiles every ``csrc/*.cu`` of this package
-into one shared library with a plain C interface:
+At first use, ``library()`` compiles every ``csrc/*.cu`` of this package,
+one nvcc process per source, all started together:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/threedhumangan_tpu_torch/libkernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
+         -Xptxas -v -c -o build/threedhumangan_tpu_torch/<hash>/<name>.o csrc/<name>.cu
+
+and links the objects into one shared library with a plain C interface
+(``nvcc -shared -o libkernels_<hash>.so *.o``)
 
 and loads it with ``ctypes`` (pointers and the stream as ``c_void_p``).  The
 library name carries a hash of the sources and flags, so an edited source
@@ -26,9 +29,9 @@ _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "threedhumangan_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: argument types; every one returns cudaGetLastError()
 SIGNATURES = {
     # pts, verts, vfeat, skel, out, idx, B, P, V, J, legacy, stream
@@ -42,6 +45,19 @@ SIGNATURES = {
     # bt_w, bt_b, rgb_w, rgb_b, rgb_out,
     # B, H, W, F, fp, hp, num_blocks, n_gab, add_fixed, mod_mask, stream
     "thgt_synthesis": [_P] * 16 + [_I] * 10 + [_P],
+    # packed, go, w_first, b_first, w_net0, w_net_stk, b_net, freq, phase,
+    # w_color_x, w_color_d, b_color, w_sigma, b_sigma, w_head, b_head, sigma,
+    # gdot, B, P, S, n_cols, n_in, k0p, n0p, hp, n_blocks, width, headp,
+    # exact_sin, stream
+    "thgt_field_stats": [_P] * 18 + [_I] * 12 + [_P],
+    # packed, go, coef, dsig, the 14 tables of thgt_field_stats, wT_head,
+    # wT_color_x, wT_net_stk, wT_net0, x0, xs0, xsk, xcol, xc, du, dv, dcol,
+    # dyh, U, V, VC, part, then the ints of thgt_field_stats, stream
+    "thgt_field_bwd": [_P] * 35 + [_I] * 12 + [_P],
+    # X, Y, part, K, N, rows, chunk_rows, n_chunks, stream
+    "thgt_wgrad": [_P] * 3 + [_I] * 5 + [_P],
+    # tri, face, bary, zbuf, B, T, K, tiles_x, tile, x_step, y_step, span, stream
+    "thgt_rasterize": [_P] * 4 + [_I] * 5 + [_F] * 3 + [_P],
 }
 
 _LIB = None
@@ -79,14 +95,35 @@ def build() -> str:
     if os.path.exists(lib_path):
         BUILD_INFO.update(path=lib_path)
         return lib_path
+    obj_dir = os.path.join(BUILD_DIR, f"obj_{_source_hash()}_{os.getpid()}")
+    os.makedirs(obj_dir, exist_ok=True)
+    nvcc = _nvcc()
+    jobs = []
+    for src in _sources():
+        obj = os.path.join(obj_dir, os.path.basename(src)[:-3] + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    log = []
+    failed = []
+    for cmd, _, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} (rc {proc.returncode}):\n{out[-4000:]}")
     tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", tmp, *[obj for _, obj, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link (rc {proc.returncode}):\n{proc.stderr[-4000:]}")
     log_path = os.path.join(BUILD_DIR, "build.log")
     with open(log_path, "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (rc {proc.returncode}):\n{proc.stderr[-4000:]}")
+        f.write("\n".join(log))
+    shutil.rmtree(obj_dir, ignore_errors=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, lib_path)
     BUILD_INFO.update(path=lib_path, log=log_path)
     return lib_path

@@ -7,7 +7,8 @@
 // sigmoid-RGB + feature head; per ray: alpha-compositing over the steps in
 // order (T *= 1 - alpha + 1e-12, delta 1e9 on the last step), residual
 // transmittance to the last sample (last_back) and/or white (white_back),
-// and the depth.
+// and the depth.  A packed width of n_in + 4 carries the training-time nerf
+// noise, added to sigma before the relu clamp.
 //
 // What bounds it on an H100: ~2.5 MFLOP of matrix products per sample at
 // width 420 (3.0 TFLOP per batch of 8 x 147,456 samples) plus ~2,900 sines
@@ -135,7 +136,11 @@ __global__ void __launch_bounds__(kThreads, 1) raymarch_kernel(Args a) {
     for (int c = lane; c < hp; c += 32) s += __bfloat162float(cur[r * ldb + c]) * a.w_sigma[c];
 #pragma unroll
     for (int o = 16; o; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (lane == 0) sigma[r] = s + a.b_sigma[0];
+    if (lane == 0) {
+      float noise = 0.f;
+      if (a.n_cols > a.n_in + 3) noise = __bfloat162float(a.packed[(row0 + r) * a.n_cols + a.n_in + 3]);
+      sigma[r] = s + a.b_sigma[0] + noise;
+    }
   }
   __syncthreads();
   // front-to-back compositing weights, one thread per ray

@@ -1,18 +1,27 @@
-"""Map3DGenerator: pose-mapping field + volume render + 2D synthesis, eval
-path (threedhumangan_tpu/models/generator.py).
+"""Map3DGenerator: pose-mapping field + volume render + 2D synthesis
+(threedhumangan_tpu/models/generator.py).
 
-``generator_forward`` / ``staged_forward`` run: the mapping networks, weak-
-perspective rays, K1 geo features (``models.smpl.get_geo_features``), K2
-field render (``ops.raymarch.fused_field_render``), a bilinear resize of the
-feature map, and K3 synthesis (``ops.synthesis_kernel.fused_synthesis``).
+``generator_forward`` / ``staged_forward`` (eval) run: the mapping
+networks, weak-perspective rays, K1 geo features
+(``models.smpl.get_geo_features``), K2 field render
+(``ops.raymarch.fused_field_render``), a bilinear resize of the feature map,
+and K3 synthesis (``ops.synthesis_kernel.fused_synthesis``), under no-grad.
+
+``generator_forward(train=True)`` is the training forward: the nerf noise
+(``noise_std * randn`` from the generator) rides as K2's noise column, the
+synthesis runs per op in train mode (batch moments; BN running stats and
+spectral-norm ``u`` updated in place), and it returns (outputs, the
+synthesis state).  ``pallas_ok=True`` (the D step's fakes, under no-grad)
+renders with K2 alone; ``pallas_ok=False`` (the G step) renders through
+``ops.raymarch_bwd.FieldRender``, K2 forward with the K8/K9 backward.
+
 On a CUDA device every kernel launches; on the CPU each wrapper runs its
 plain PyTorch version.  The JAX meta flags that pick Pallas paths
-(``pallas_*``) have no meaning here.
-
-Not ported (training path or unused in generation): nerf noise, hierarchical
-sampling, ``disable_render`` (it needs the rasterizer), ``disable_synthesis``,
-2D label/latent inputs, latent-pool indices and the train-mode synthesis.
-Each config flag among them raises ``NotImplementedError``.
+(``pallas_*``) have no meaning here.  Not ported: hierarchical sampling,
+``disable_render`` (the condition-image style head), ``disable_synthesis``,
+2D label/latent inputs, and nerf noise at eval; each raises
+``NotImplementedError``.  ``remat_synthesis`` changes memory only and is
+not applied.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from threedhumangan_tpu_torch.models.mapping import MappingNetwork, TwoPartMappi
 from threedhumangan_tpu_torch.models.siren import NEURAL_FIELD_REGISTRY
 from threedhumangan_tpu_torch.models.smpl import get_geo_features
 from threedhumangan_tpu_torch.ops.raymarch import fused_field_render, pack_field_inputs
+from threedhumangan_tpu_torch.ops.raymarch_bwd import field_render_trainable
 from threedhumangan_tpu_torch.ops.synthesis_kernel import fold_synthesis_params, fused_synthesis
 
 
@@ -97,12 +107,16 @@ def resize_feature_maps(x: torch.Tensor, height: int, width: int) -> torch.Tenso
 
 def render(gen: Map3DGenerator, freq, phase, conditions: Dict, meta: Dict,
            generator: Optional[torch.Generator] = None, compute_dtype=torch.float32,
-           stage: Callable = _no_stage):
+           stage: Callable = _no_stage, train: bool = False, nerf_noise=None,
+           grad_field: bool = False):
     """Volume-render the pose-conditioned field.  Returns (rgb_render NHWC,
-    feature_maps NHWC, depths (B, rays, 1))."""
+    feature_maps NHWC, depths (B, rays, 1)).  ``train`` draws the nerf
+    noise (``nerf_noise``, else meta's); ``grad_field`` renders through
+    ``FieldRender`` so that gradients reach the field and freq/phase."""
     if meta.get("hierarchical_sample", False) or meta["clamp_mode"] != "relu":
         raise NotImplementedError("hierarchical sampling / softplus clamp")
-    if meta.get("nerf_noise", 0.5) != 0:
+    noise_std = meta.get("nerf_noise", 0.5) if nerf_noise is None else nerf_noise
+    if noise_std != 0 and not train:
         raise NotImplementedError("nerf noise belongs to training; set meta['nerf_noise'] = 0")
     render_w, render_h, S = meta["render_width"], meta["render_height"], meta["num_steps"]
     B = freq.shape[0]
@@ -128,8 +142,13 @@ def render(gen: Map3DGenerator, freq, phase, conditions: Dict, meta: Dict,
                 conditions["tpose_vertices"].float(), conditions["fk_matrices"].float(),
                 conditions["lbs_weights"].float(), legacy_mode=meta.get("legacy_mode", False))
     with stage("field"):
-        packed = pack_field_inputs(points, geo, dirs, 2.0 / meta["side_length"])
-        render_out, depths = fused_field_render(
+        noise = None
+        if noise_std != 0:
+            noise = noise_std * torch.randn(B, points.shape[1], 1, generator=generator,
+                                            device=points.device)
+        packed = pack_field_inputs(points, geo, dirs, 2.0 / meta["side_length"], noise=noise)
+        render_fn = field_render_trainable if grad_field else fused_field_render
+        render_out, depths = render_fn(
             gen.neural_field, packed, freq, phase,
             z_vals.reshape(B, render_w * render_h, S), S,
             white_back=meta.get("white_back", False), last_back=meta.get("last_back", False),
@@ -148,20 +167,68 @@ def generate_avg_latent(gen: Map3DGenerator, meta: Dict, generator: torch.Genera
     return tuple(t.mean(0, keepdim=True) for t in (z, freq, phase, styles))
 
 
-@torch.no_grad()
 def generator_forward(gen: Map3DGenerator, z, conditions: Dict, meta: Dict,
                       generator: Optional[torch.Generator] = None,
                       compute_dtype=torch.float32, truncation_psi: float = 1.0,
                       avg_latent=None, with_depth: bool = False,
-                      stage: Callable = _no_stage) -> Dict:
-    """Eval forward; returns {'rgbs', 'rgbs_render'} NHWC in [-1, 1], plus
-    'depths' and 'skeletons' when ``with_depth``.  ``stage(name)`` returns
-    a context manager wrapped around each stage (for timing)."""
+                      stage: Callable = _no_stage, train: bool = False, nerf_noise=None,
+                      latent_indices=None, pallas_ok: bool = True):
+    """Eval forward (``train=False``): returns {'rgbs', 'rgbs_render'} NHWC
+    in [-1, 1], plus 'depths' and 'skeletons' when ``with_depth``.  Train
+    forward: returns ({'rgbs', 'rgbs_render'}, synthesis state), see the
+    module docstring.  ``stage(name)`` returns a context manager wrapped
+    around each stage (for timing)."""
+    if train:
+        return _train_forward(gen, z, conditions, meta, generator, compute_dtype, nerf_noise,
+                              latent_indices, pallas_ok, stage)
+    return _eval_forward(gen, z, conditions, meta, generator, compute_dtype, truncation_psi,
+                         avg_latent, with_depth, stage)
+
+
+def _check_synthesis(meta: Dict):
+    norm = meta.get("spatial_normalization")
+    if (meta.get("disable_synthesis", False) or meta.get("2d_label_input", False)
+            or meta.get("2d_latent_input", False)
+            or norm not in ("batch_norm", "adaptive_batch_norm")):
+        raise NotImplementedError("synthesis needs batch-norm SPADE without 2D label/latent inputs")
+    if meta.get("disable_render", False):
+        raise NotImplementedError("disable_render (the condition-image style head)")
+    if meta.get("feature_map_interpolation", "bilinear") != "bilinear":
+        raise NotImplementedError("only bilinear feature-map interpolation is ported")
+    return norm
+
+
+def _train_forward(gen, z, conditions, meta, generator, compute_dtype, nerf_noise,
+                   latent_indices, pallas_ok, stage):
+    _check_synthesis(meta)
+    B = z.shape[0]
+    latent = z if latent_indices is None else gen.latent_pool.latents[latent_indices.long()]
+    with stage("mapping"):
+        field_latent = (latent if meta.get("neural_field_latent_input", True)
+                        else torch.zeros_like(latent))
+        freq, phase = gen.neural_field_mapping_network(field_latent, compute_dtype)
+        _, styles = gen.synthesis_mapping_network(latent, compute_dtype)
+    rgb_render, feature_maps, _ = render(gen, freq, phase, conditions, meta, generator,
+                                         compute_dtype, stage, train=True, nerf_noise=nerf_noise,
+                                         grad_field=not pallas_ok)
+    gen_h, gen_w = meta["gen_height"], meta["gen_width"]
+    with stage("resize"):
+        feature_maps = resize_feature_maps(feature_maps.to(compute_dtype), gen_h, gen_w)
+    with stage("synthesis"):
+        coords = syn.get_2d_coords(B, gen_h, gen_w, device=z.device)
+        x = gen.synthesis_input(coords, compute_dtype)
+        rgbs = gen.synthesis_network(x, feature_maps, styles, compute_dtype, train=True)
+    return ({"rgbs": rgbs, "rgbs_render": rgb_render},
+            dict(gen.synthesis_network.named_buffers()))
+
+
+@torch.no_grad()
+def _eval_forward(gen, z, conditions, meta, generator, compute_dtype, truncation_psi,
+                  avg_latent, with_depth, stage):
     B = z.shape[0]
     gen_h, gen_w = meta["gen_height"], meta["gen_width"]
     render_h, render_w = meta["render_height"], meta["render_width"]
-    if meta.get("disable_render", False):
-        raise NotImplementedError("disable_render needs the rasterizer")
+    norm = _check_synthesis(meta)
     latent = z
     with stage("mapping"):
         field_latent = (latent if meta.get("neural_field_latent_input", True)
@@ -179,16 +246,9 @@ def generator_forward(gen: Map3DGenerator, z, conditions: Dict, meta: Dict,
     rgb_render, feature_maps, depths = render(
         gen, freq, phase, conditions, meta, generator, compute_dtype, stage)
 
-    if meta.get("feature_map_interpolation", "bilinear") != "bilinear":
-        raise NotImplementedError("only bilinear feature-map interpolation is ported")
     with stage("resize"):
         feature_maps = resize_feature_maps(feature_maps.to(compute_dtype), gen_h, gen_w)
 
-    norm = meta.get("spatial_normalization")
-    if (meta.get("disable_synthesis", False) or meta.get("2d_label_input", False)
-            or meta.get("2d_latent_input", False)
-            or norm not in ("batch_norm", "adaptive_batch_norm")):
-        raise NotImplementedError("synthesis needs batch-norm SPADE without 2D label/latent inputs")
     with stage("synthesis"):
         folded = fold_synthesis_params(gen.synthesis_network, gen.synthesis_input, norm)
         rgbs = fused_synthesis(folded, feature_maps, styles, meta["synthesis_blocks"],

@@ -1,14 +1,22 @@
-"""2D synthesis stack, eval path (threedhumangan_tpu/models/synthesis.py).
+"""2D synthesis stack (threedhumangan_tpu/models/synthesis.py).
 
-SPADE blocks with batch-norm running stats and spectral norm with a frozen
-``u``, the Fourier-feature input head, the condition-image style head and
-ToRGB.  NHWC throughout; a 1x1 conv is a matmul over flattened pixels whose
-result is stored in the compute dtype, as in the JAX package.
+SPADE blocks with batch norm and spectral-norm 1x1 convs, the
+Fourier-feature input head, the condition-image style head and ToRGB.
+NHWC throughout; a 1x1 conv is a matmul over flattened pixels whose result
+is stored in the compute dtype, as in the JAX package.
+
+Eval mode normalises by the running stats and a frozen ``u``.  Train mode
+(``train=True``, the per-op path the JAX package runs with
+``pallas_synthesis_train=False``) normalises by the batch moments, which
+gradients flow through, and updates the state in place under no-grad:
+the BN running stats (momentum 0.1, unbiased variance, ``num_batches_tracked``)
+and one power iteration of each ``u``.  Train mode is ported for batch
+norm only (the MAP3DBN family); adaptive batch norm and instance norm raise.
 
 Keys follow the reference torch modules: ``network.m3d_{i}.conv_0.weight_orig``
 / ``.weight_u`` (spectral norm), ``spade_{s}.first_norm.*`` (SyncBatchNorm),
 ``spade_{s}.mlp_shared.0``, ``to_rgbs.m3d_{i}.linear``; conv weights are
-(out, in, 1, 1).  Training mode (batch moments, u updates) is not ported.
+(out, in, 1, 1).
 """
 
 from __future__ import annotations
@@ -52,8 +60,29 @@ class Conv1x1(nn.Module):
         return (mm(x, self.w, compute_dtype) + self.bias.float()).to(compute_dtype)
 
 
+def spectral_normalize(w2d: torch.Tensor, u: torch.Tensor, train: bool,
+                       eps: float = 1e-12) -> torch.Tensor:
+    """w2d (in, out) divided by its spectral-norm estimate (torch semantics,
+    JAX ``spectral_normalize``): when training, one power iteration updates
+    the buffer ``u`` (out,) in place under no-grad first; then
+    sigma = v . (w2d u) with v = W u / |W u| from the detached weight, so
+    the gradient flows through ``w2d @ u`` only."""
+    w = w2d.detach()
+    if train:
+        with torch.no_grad():
+            v = w @ u.float()
+            v = v / (torch.linalg.norm(v) + eps)
+            u_new = w.t() @ v
+            u.copy_(u_new / (torch.linalg.norm(u_new) + eps))
+    u = u.float().clone()  # the buffer changes in place at the next update
+    wu = w2d @ u
+    v = w @ u
+    v = v / (torch.linalg.norm(v) + eps)
+    return w2d / torch.dot(v, wu)
+
+
 class SNConv1x1(nn.Module):
-    """Spectral-normalised 1x1 conv (eval: power-iteration vector frozen)."""
+    """Spectral-normalised 1x1 conv."""
 
     def __init__(self, in_dim: int, out_dim: int):
         super().__init__()
@@ -69,15 +98,12 @@ class SNConv1x1(nn.Module):
             u = torch.randn(self.weight_u.shape, generator=generator)
             self.weight_u.copy_(u / (torch.linalg.norm(u) + 1e-12))
 
-    def normalized_weight(self, eps: float = 1e-12) -> torch.Tensor:
+    def normalized_weight(self, train: bool = False) -> torch.Tensor:
         """(in, out) weight divided by sigma = v.(W u), v = W u / |W u|."""
-        w = self.weight_orig[:, :, 0, 0].t().float()
-        wu = w @ self.weight_u.float()
-        v = wu / (torch.linalg.norm(wu) + eps)
-        return w / torch.dot(v, wu)
+        return spectral_normalize(self.weight_orig[:, :, 0, 0].t().float(), self.weight_u, train)
 
-    def forward(self, x, compute_dtype=torch.float32):
-        y = mm(x, self.normalized_weight(), compute_dtype) + self.bias.float()
+    def forward(self, x, compute_dtype=torch.float32, train: bool = False):
+        y = mm(x, self.normalized_weight(train), compute_dtype) + self.bias.float()
         return y.to(compute_dtype)
 
 
@@ -92,12 +118,31 @@ def norm_affine(norm: nn.BatchNorm2d, normalization: str, eps: float = 1e-5):
     raise ValueError(f"unsupported normalization {normalization!r}")
 
 
+@torch.no_grad()
+def _update_running_stats(norm: nn.BatchNorm2d, mean, var, n: int, momentum: float):
+    norm.running_mean.mul_(1 - momentum).add_(momentum * mean)
+    norm.running_var.mul_(1 - momentum).add_(momentum * var * n / max(n - 1, 1))
+    norm.num_batches_tracked.add_(1)
+
+
+def sync_bn_moments(norm: nn.BatchNorm2d, x: torch.Tensor, momentum: float = 0.1):
+    """Train-mode batch moments of NHWC ``x`` in float32 (differentiable)
+    and the in-place running-stat update (unbiased variance, no grad).  One
+    process: the JAX pmean over replicas is the identity."""
+    x32 = x.float()
+    mean = x32.mean((0, 1, 2))
+    var = torch.square(x32 - mean).mean((0, 1, 2))
+    _update_running_stats(norm, mean.detach(), var.detach(),
+                          x.shape[0] * x.shape[1] * x.shape[2], momentum)
+    return mean, var
+
+
 class SPADE2d(nn.Module):
     def __init__(self, input_dim: int, feature_dim: int, normalization: str = "batch_norm"):
         super().__init__()
         self.normalization = normalization
         if normalization not in ("batch_norm", "adaptive_batch_norm"):
-            raise NotImplementedError(f"eval SPADE with {normalization!r}")
+            raise NotImplementedError(f"SPADE with {normalization!r}")
         self.first_norm = nn.BatchNorm2d(input_dim, affine=normalization == "batch_norm")
         self.mlp_shared = nn.Sequential(Conv1x1(feature_dim, SPADE_HIDDEN), nn.ReLU())
         self.mlp_gamma = Conv1x1(SPADE_HIDDEN, input_dim)
@@ -107,11 +152,17 @@ class SPADE2d(nn.Module):
         for conv in (self.mlp_shared[0], self.mlp_gamma, self.mlp_beta):
             conv.reset_parameters(generator)
 
-    def forward(self, x, feature_maps, compute_dtype=torch.float32):
+    def forward(self, x, feature_maps, compute_dtype=torch.float32, train: bool = False):
         """x, feature_maps: NHWC (feature_maps may be (B, 1, 1, C))."""
         norm = self.first_norm
         x32 = x.float()
-        y = (x32 - norm.running_mean.float()) * torch.rsqrt(norm.running_var.float() + 1e-5)
+        if train:
+            if self.normalization != "batch_norm":
+                raise NotImplementedError(f"train-mode SPADE with {self.normalization!r}")
+            mean, var = sync_bn_moments(norm, x)
+        else:
+            mean, var = norm.running_mean.float(), norm.running_var.float()
+        y = (x32 - mean) * torch.rsqrt(var + 1e-5)
         if self.normalization == "batch_norm":
             y = y * norm.weight.float() + norm.bias.float()
         normalized = y.to(x.dtype)
@@ -133,12 +184,12 @@ class SPADEBlock(nn.Module):
         for m in (self.conv_0, self.conv_1, self.spade_0, self.spade_1):
             m.reset_parameters(generator)
 
-    def forward(self, x, style, skip=False, compute_dtype=torch.float32):
+    def forward(self, x, style, skip=False, compute_dtype=torch.float32, train: bool = False):
         if style.ndim == 3:  # (B, 1, C) global style: rank-1 over pixels
             style = style[:, :, None, :]
         x_orig = x
-        x = self.conv_0(lrelu(self.spade_0(x, style, compute_dtype)), compute_dtype)
-        x = self.conv_1(lrelu(self.spade_1(x, style, compute_dtype)), compute_dtype)
+        x = self.conv_0(lrelu(self.spade_0(x, style, compute_dtype, train)), compute_dtype, train)
+        x = self.conv_1(lrelu(self.spade_1(x, style, compute_dtype, train)), compute_dtype, train)
         if skip and x.shape[-1] == x_orig.shape[-1]:
             x = x + x_orig
         return x
@@ -194,15 +245,15 @@ class SynthesisNetwork(nn.Module):
             return style if idx in self.mod_blocks else fixed_style
         raise ValueError(f"invalid map3d_mode {self.map3d_mode!r}")
 
-    def forward(self, x, style, fixed_style, compute_dtype=torch.float32):
-        """Eval forward (JAX apply_synthesis_network(train=False)).
-        x: NHWC input features; style: NHWC spatial style; fixed_style
-        (B, 1, C).  Returns the NHWC rgb."""
+    def forward(self, x, style, fixed_style, compute_dtype=torch.float32, train: bool = False):
+        """Per-op forward (JAX apply_synthesis_network).  x: NHWC input
+        features; style: NHWC spatial style; fixed_style (B, 1, C).  Returns
+        the NHWC rgb; in train mode the state is updated in place."""
         rgb = None
         for idx in range(self.num_blocks):
             skip = idx >= self.num_blocks // 2
             x = self.network[f"m3d_{idx}"](x, self.block_style(idx, style, fixed_style),
-                                           skip, compute_dtype)
+                                           skip, compute_dtype, train)
             if idx >= self.num_blocks // 2 - 1:
                 rgb = self.to_rgbs[f"m3d_{idx}"](x, rgb, compute_dtype)
         return rgb

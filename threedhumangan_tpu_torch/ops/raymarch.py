@@ -8,7 +8,9 @@ trunk, a sigma head, a colour layer whose view-direction term is hoisted
 per ray (directions are constant along a ray), and sigmoid-RGB and feature
 heads; the per-step outputs are alpha-composited front to back with delta
 1e9 on the last step and the residual transmittance routed to the last
-sample (``last_back``) and/or a white background (``white_back``).
+sample (``last_back``) and/or a white background (``white_back``).  An
+optional 38th packed column carries the training-time nerf noise, added to
+sigma before the density clamp.
 
 ``fused_field_render`` launches csrc/raymarch.cu on CUDA tensors and runs
 ``field_render_plain`` — the same math on the same folded tables, in
@@ -26,7 +28,7 @@ from threedhumangan_tpu_torch import _build
 from threedhumangan_tpu_torch.models.volume_rendering import ray_integration
 from threedhumangan_tpu_torch.utils.misc import mm, pad_to, round16
 
-INPUT_PACK = 37  # 3 coords + 31 geo + 3 ray dirs
+INPUT_PACK = 37  # 3 coords + 31 geo + 3 ray dirs (+1 optional sigma noise)
 
 # degree-9 odd minimax sine on [-pi, pi] after a 2*pi range reduction
 # (the JAX package's coefficients)
@@ -49,10 +51,20 @@ def fast_sin(x: torch.Tensor) -> torch.Tensor:
     return y * (_SIN_C1 + y2 * (_SIN_C3 + y2 * (_SIN_C5 + y2 * (_SIN_C7 + y2 * _SIN_C9))))
 
 
-def pack_field_inputs(points, geo, dirs, input_scaler: float) -> torch.Tensor:
+def pack_field_inputs(points, geo, dirs, input_scaler: float, noise=None) -> torch.Tensor:
     """(B, P, 3/31/3) -> (B, P, 37) with the coordinate scale folded in.
-    P is ray-major (p = ray * num_steps + step)."""
-    return torch.cat([points * input_scaler, geo, dirs], -1)
+    P is ray-major (p = ray * num_steps + step).  ``noise`` (B, P, 1), when
+    given, rides as a 38th column that is added to sigma before the clamp."""
+    cols = [points * input_scaler, geo, dirs] + ([noise] if noise is not None else [])
+    return torch.cat(cols, -1)
+
+
+def check_packed_width(n_cols: int) -> bool:
+    """True when the packed inputs carry the noise column."""
+    if n_cols not in (INPUT_PACK, INPUT_PACK + 1):
+        raise ValueError(f"packed inputs need {INPUT_PACK} or {INPUT_PACK + 1} columns, "
+                         f"got {n_cols}")
+    return n_cols == INPUT_PACK + 1
 
 
 def fold_film_tables(field, freq, phase, compute_dtype=torch.bfloat16):
@@ -111,6 +123,7 @@ def field_render_plain(shared: Dict, per_image: Dict, packed, z_vals, num_steps:
     _sin = torch.sin if exact_sin else fast_sin
     cd = compute_dtype
     B, P, n_cols = packed.shape
+    with_noise = check_packed_width(n_cols)
     S = num_steps
     R = P // S
     n_in = shared["w_first"].shape[0]
@@ -130,6 +143,8 @@ def field_render_plain(shared: Dict, per_image: Dict, packed, z_vals, num_steps:
                 x = _sin(mm(x, per_image["w_net_stk"][b, i], cd)
                          + per_image["b_net"][b, i + 1]).to(cd)
             sigma = mm(x, shared["w_sigma"], cd) + shared["b_sigma"]
+            if with_noise:
+                sigma = sigma + slab[:, n_in + 3:n_in + 4].float()
             dirs = slab.reshape(nr, S, n_cols)[:, 0, n_in:n_in + 3]
             dpart = mm(dirs, per_image["w_color_d"][b], cd) + per_image["b_color"][b]
             xc = mm(x, per_image["w_color_x"][b], cd).reshape(nr, S, -1) + dpart[:, None]
@@ -147,7 +162,7 @@ def field_render_plain(shared: Dict, per_image: Dict, packed, z_vals, num_steps:
 def fused_field_render(field, packed, freq, phase, z_vals, num_steps: int,
                        white_back: bool = False, last_back: bool = False,
                        compute_dtype=torch.bfloat16, exact_sin: bool = False):
-    """Render the field: packed (B, R*S, 37) ray-major inputs, freq/phase
+    """Render the field: packed (B, R*S, 37[+1]) ray-major inputs, freq/phase
     (B, NB*H) raw mapping outputs, z_vals (B, R, S).  Returns (rendered
     (B, R, F+3), depth (B, R, 1)) float32.  CUDA tensors launch K2 (bf16
     only); CPU tensors take ``field_render_plain``."""
@@ -175,8 +190,7 @@ def field_render_cuda(shared, per_image, packed, z_vals, num_steps, white_back=F
     S = num_steps
     R = P // S
     dev = packed.device
-    if n_cols != INPUT_PACK:
-        raise ValueError(f"packed inputs need {INPUT_PACK} columns, got {n_cols}")
+    check_packed_width(n_cols)
     if P != R * S or ROWS_PER_CTA % S or R % (ROWS_PER_CTA // S):
         raise ValueError(f"field kernel needs num_steps dividing {ROWS_PER_CTA} and "
                          f"rays divisible by {ROWS_PER_CTA} // num_steps (R={R}, S={S})")

@@ -1,4 +1,4 @@
-"""Move JAX generator weights into the port.
+"""Move JAX weights and training state into the port.
 
 ``from_jax_params(params, state)`` takes the JAX package's generator pytrees
 (``init_generator`` / ``convert_generator_state_dict`` layout) as numpy
@@ -6,8 +6,11 @@ arrays and returns the port's ``state_dict`` — the reference torch key space,
 so ``threedhumangan_tpu.utils.torch_convert.convert_generator_state_dict``
 maps it straight back.  Layouts: JAX Linear / 1x1-conv weights are (in, out)
 and become (out, in[, 1, 1]); the equalised-lr FC weights stay (out, in)
-(their gains are recomputed from the shapes).  No JAX import: any array
-with ``numpy.asarray`` support is accepted.
+(their gains are recomputed from the shapes).  ``discriminator_state``
+does the same for the U-Net discriminator (HWIO convs become OIHW, with
+their spectral-norm ``u``), and ``train_state_from_jax`` builds the port's
+G, D, optimizers and EMA from a JAX ``TrainState``.  No JAX import: any
+array with ``numpy.asarray`` support is accepted.
 """
 
 from __future__ import annotations
@@ -107,3 +110,44 @@ def from_jax_params(params: Dict, state: Dict, module: torch.nn.Module | None = 
     if module is not None:
         module.load_state_dict(sd, strict=True)
     return sd
+
+
+def _hwio(sd, prefix, p, u=None):
+    name = "weight" if u is None else "weight_orig"
+    sd[f"{prefix}.{name}"] = _t(np.asarray(p["w"]).transpose(3, 2, 0, 1))
+    sd[prefix + ".bias"] = _t(p["b"])
+    if u is not None:
+        sd[prefix + ".weight_u"] = _t(u["u"])
+
+
+def discriminator_state(params: Dict, state: Dict) -> Dict[str, torch.Tensor]:
+    """JAX discriminator (params, state) -> ``UNetDiscriminator`` state_dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    for part in ("down", "up"):
+        for i, (bp, bs) in enumerate(zip(params[part], state[part])):
+            for c in ("conv1", "conv2", "conv_s"):
+                if c in bp:
+                    _hwio(sd, f"{part}.{i}.{c}", bp[c], bs[c])
+    for head in ("layer_up_last", "output_layer", "latent_layer"):
+        _hwio(sd, head, params[head])
+    return sd
+
+
+def train_state_from_jax(ts, meta: Dict, device=None):
+    """A JAX ``TrainState`` (params_G, state_G, params_D, state_D, ema, step;
+    any array type) -> the port's ``TrainState`` on ``device``, with fresh
+    optimizers (the JAX Adam moments are not carried over)."""
+    from threedhumangan_tpu_torch.models.discriminator import UNetDiscriminator
+    from threedhumangan_tpu_torch.models.generator import Map3DGenerator
+    from threedhumangan_tpu_torch.trainers.phase_trainer import TrainState, make_optimizers
+
+    G = Map3DGenerator(meta)
+    from_jax_params(ts.params_G, ts.state_G, G)
+    D = UNetDiscriminator(meta)
+    D.load_state_dict(discriminator_state(ts.params_D, ts.state_D), strict=True)
+    G, D = G.to(device), D.to(device)
+    ema_sd = from_jax_params(ts.ema["params"], ts.state_G)
+    ema = {"params": {k: ema_sd[k].to(device) for k, _ in G.named_parameters()},
+           "count": int(np.asarray(ts.ema["count"]))}
+    opt_G, opt_D = make_optimizers(G, D, meta)
+    return TrainState(G, D, opt_G, opt_D, ema, int(np.asarray(ts.step)))
