@@ -19,9 +19,10 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
                 must be (8, 512, 256, 3), finite and not constant, K1-K3's
                 launch counts must rise, and a small config run on the card
                 must agree with the same run on the CPU.
-  5. check    — K7, K8 and K9 against their plain versions at the training
-                slice's shapes (K8/K9 also pointwise at a narrow width, and
-                against autograd through the plain unfolded render).
+  5. check    — K7, K2 (with the nerf-noise column), K8 and K9 against their
+                plain versions at the training slice's shapes (K8/K9 also
+                pointwise at a narrow width, and against autograd through the
+                plain unfolded render).
   6. train    — the MAP3DBN D+G+R1 step at batch 8 in bf16, phase slot 3
                 (R1 on), nerf noise 0.5, lr_d 4e-4 / lr_g 1e-4: 2 warm-up + 5
                 timed pair steps through ``train_step_pair``, per-stage
@@ -184,22 +185,26 @@ def check_field(gen, inp, geo_feats, meta):
     small = CoordConcatSiren(3, 32, 31, 32, 4, generator=torch.Generator().manual_seed(SEED + 1))
     small = small.cuda()
     Bn, Rn = 2, 256
-    pk = torch.randn(Bn, Rn * S, rm.INPUT_PACK, generator=g, device="cuda") * 0.5
-    pk[..., 34:] = pk.view(Bn, Rn, S, -1)[:, :, :1, 34:].expand(Bn, Rn, S, 3).reshape(Bn, Rn * S, 3)
+    # 37 columns, or 38 with the nerf-noise column of the training path
+    pk38 = torch.randn(Bn, Rn * S, rm.INPUT_PACK + 1, generator=g, device="cuda") * 0.5
+    pk38[..., 34:37] = (pk38.view(Bn, Rn, S, -1)[:, :, :1, 34:37].expand(Bn, Rn, S, 3)
+                        .reshape(Bn, Rn * S, 3))
     zv = torch.sort(torch.rand(Bn, Rn, S, generator=g, device="cuda") + 1.0, -1).values
     fr = 0.1 * torch.randn(Bn, 4 * 32, generator=g, device="cuda")
     ph = 0.1 * torch.randn(Bn, 4 * 32, generator=g, device="cuda")
     with torch.no_grad():
         sh, pi = rm.fold_film_tables(small, fr, ph, bf16)
-    # both residual routings: the bench's last_back=False, the sampler's True
-    for last_back in (False, True):
+    # both residual routings (the bench's last_back=False, the sampler's
+    # True), and the noise column
+    for last_back, noise in ((False, False), (True, False), (False, True)):
+        pk = pk38 if noise else pk38[..., :rm.INPUT_PACK].contiguous()
         nkw = dict(white_back=meta["white_back"], last_back=last_back)
         o_k, d_k = rm.field_render_cuda(sh, pi, pk, zv, S, exact_sin=True, **nkw)
         o_p, d_p = rm.field_render_plain(sh, pi, pk, zv, S, compute_dtype=bf16, exact_sin=True,
                                          **nkw)
         mx, mean, p99 = diff_stats(torch.cat([o_k, d_k], -1), torch.cat([o_p, d_p], -1))
         log(f"check K2 field narrow (hidden 32, exact sin, bf16 operands, last_back "
-            f"{last_back}): max|d| {mx:.3e} mean|d| {mean:.3e} p99|d| {p99:.3e}")
+            f"{last_back}, noise {noise}): max|d| {mx:.3e} mean|d| {mean:.3e} p99|d| {p99:.3e}")
         log("  tolerance: max|d| <= 5e-3, mean|d| <= 1e-5 (f32 sums in another order flip "
             "occasional bf16 roundings of activations, which the omega-30 SIREN amplifies)")
         if mx > 5e-3 or mean > 1e-5:
@@ -475,6 +480,26 @@ def check_field_bwd(G, meta, cond, gcuda):
     w = rb.flat_weights(field)
     exact = not meta["fast_math"]
     wb, lb = meta["white_back"], meta["last_back"]
+    # K2 forward on the training path's 38-column inputs, as FieldRender and
+    # the D step's fakes launch it
+    with torch.no_grad():
+        sh, pi = rm.fold_film_tables(field, fr, ph, bf16)
+    run_k = lambda: rm.field_render_cuda(sh, pi, pk, zv, S, wb, lb, exact)
+    run_p = lambda: rm.field_render_plain(sh, pi, pk, zv, S, wb, lb, bf16, exact)
+    (o_k, d_k), (o_p, d_p) = run_k(), run_p()
+    mx, mean, p99 = diff_stats(o_k, o_p)
+    dmx, dmean, _ = diff_stats(d_k, d_p)
+    log(f"check K2 field training shapes {tuple(pk.shape)} packed, noise 0.5: map max|d| "
+        f"{mx:.3e} mean|d| {mean:.3e} p99|d| {p99:.3e}; depth max|d| {dmx:.3e} "
+        f"mean|d| {dmean:.3e}")
+    log("  tolerance: as the generation check, map mean|d| <= 2e-3 and p99|d| <= 5e-3, depth "
+        "mean|d| <= 1e-4")
+    if mean > 2e-3 or p99 > 5e-3 or dmean > 1e-4:
+        raise AssertionError("K2 (training shapes, noise column) disagrees with its plain version")
+    k2_train = dict(max_abs_err=mx, ms=cuda_ms(run_k, 3), plain_ms=cuda_ms(run_p, 1))
+    log(f"  time: kernel {k2_train['ms']:.3f} ms  plain {k2_train['plain_ms']:.3f} ms")
+    del o_k, d_k, o_p, d_p, sh, pi
+
     smx, gmx, errs, k9mx, (fk, pk_, coef, dsig) = _bwd_compare(w, pk, fr, ph, zv, go, gd, S, wb,
                                                                lb, exact)
     log(f"check K8/K9 full width (hidden {meta['hidden_dim']}, {meta['neural_field_blocks']} "
@@ -499,11 +524,11 @@ def check_field_bwd(G, meta, cond, gcuda):
     aerr["freq"], aerr["phase"] = rel_l2(dfr_k, ag[-2]), rel_l2(dph_k, ag[-1])
     log("  K8+K9 rel L2 vs autograd through the unfolded render: "
         + " ".join(f"{k} {v:.2e}" for k, v in sorted(aerr.items())))
-    log("  tolerance: K8 sigma max|d| <= 5e-2, K9 rel L2 <= 2e-2 per tensor vs plain and <= 5e-2 "
-        "vs autograd (statistical: at width 384 bf16 roundings of activations flip, and the "
-        "omega-30 SIREN amplifies a flip; autograd's forward runs the products in another "
-        "order)")
-    if smx > 5e-2 or max(errs.values()) > 2e-2 or max(aerr.values()) > 5e-2:
+    log("  tolerance: K8 sigma max|d| <= 5e-2 and f.g max|d| <= 5e-2 (|f.g| ~ 5; about 3x the "
+        "1.6e-2 read on an H100), K9 rel L2 <= 2e-2 per tensor vs plain and <= 5e-2 vs autograd "
+        "(statistical: at width 384 bf16 roundings of activations flip, and the omega-30 SIREN "
+        "amplifies a flip; autograd's forward runs the products in another order)")
+    if smx > 5e-2 or gmx > 5e-2 or max(errs.values()) > 2e-2 or max(aerr.values()) > 5e-2:
         raise AssertionError("K8/K9 (full width) disagree with their references")
     ms8 = cuda_ms(lambda: rb.field_stats_cuda(w, pk, fk, pk_, go, S, exact_sin=exact), 3)
     plain8 = cuda_ms(lambda: rb.field_stats_plain(w, pk, fk, pk_, go, S, exact_sin=exact), 1)
@@ -513,7 +538,7 @@ def check_field_bwd(G, meta, cond, gcuda):
                                                      exact_sin=exact), 1)
     log(f"  time: K8 kernel {ms8:.3f} ms plain {plain8:.3f} ms; K9 kernel {ms9:.3f} ms plain "
         f"{plain9:.3f} ms")
-    return (dict(max_abs_err=smx, ms=ms8, plain_ms=plain8),
+    return (k2_train, dict(max_abs_err=smx, ms=ms8, plain_ms=plain8),
             dict(max_abs_err=k9mx, ms=ms9, plain_ms=plain9))
 
 
@@ -551,10 +576,10 @@ def check_small_train():
              for k in res["cpu"] if res["cpu"][k] != 0}
     log("check small config (TINY D+G, R1, bf16) card vs CPU plain: "
         + " ".join(f"{k} {res['cuda'][k]:.5g}/{res['cpu'][k]:.5g}" for k in sorted(res["cpu"])))
-    log("  tolerance: losses within 2% and grad group norms within 10% relative (bf16 end to "
-        "end; the kernels, cuDNN and the CPU sum in other orders)")
+    log("  tolerance: losses within 2% and grad group norms within 3% relative (bf16 end to "
+        "end; the kernels, cuDNN and the CPU sum in other orders; up to 0.8% read on an H100)")
     for k, v in worst.items():
-        if v > (0.02 if k.endswith("loss") else 0.10):
+        if v > (0.02 if k.endswith("loss") else 0.03):
             raise AssertionError(f"the card disagrees with the CPU plain path on {k}: {v:.3e}")
     if res["cuda"]["g_grad_norm/neural_field"] <= 0:
         raise AssertionError("the small config's G step did not reach the field")
@@ -573,7 +598,7 @@ def run_train_slice(ts, batch, pre, meta, gcuda):
     mods = (geo, raymarch, rasterize)
     for mod in mods:
         mod.launches = 0
-    raymarch_bwd.launches_stats = raymarch_bwd.launches_bwd = 0
+    raymarch_bwd.launches_stats = raymarch_bwd.launches_bwd = raymarch_bwd.launches_wgrad = 0
     walls = []
     for it in range(WARMUP + TIMED):
         timer.on = it >= WARMUP
@@ -585,7 +610,8 @@ def run_train_slice(ts, batch, pre, meta, gcuda):
         if timer.on:
             walls.append(time.perf_counter() - t0)
     counts = {"K1": geo.launches, "K2": raymarch.launches, "K7": rasterize.launches,
-              "K8": raymarch_bwd.launches_stats, "K9": raymarch_bwd.launches_bwd}
+              "K8": raymarch_bwd.launches_stats, "K9": raymarch_bwd.launches_bwd,
+              "K9 weight-gradient reduction": raymarch_bwd.launches_wgrad}
     stage_ms = timer.per_pair_ms(TIMED)
     log(f"train: MAP3DBN D+G+R1 batch {BATCH} bf16, phase slot 3, {TIMED} timed pair steps "
         f"after {WARMUP} warm-up")
@@ -721,7 +747,7 @@ def main():
     ts = init_train_state(tmeta, torch.Generator().manual_seed(SEED), dev)
     tcond = tpre(tbatch, rotate=True, generator=gcuda)
     k7 = check_raster(tpre, tcond, tmeta)
-    k8, k9 = check_field_bwd(ts.G, tmeta, tcond, gcuda)
+    k2_train, k8, k9 = check_field_bwd(ts.G, tmeta, tcond, gcuda)
     del tcond
     torch.cuda.empty_cache()
 
@@ -740,7 +766,7 @@ def main():
              launches_by_path=both("K1"), **k1),
         dict(name="K2 folded field render", route="cuda", source=src + "raymarch.cu",
              replaces="threedhumangan_tpu/ops/raymarch.py:525", launches=counts["K2"],
-             launches_by_path=both("K2"), **k2),
+             launches_by_path=both("K2"), training_shapes=k2_train, **k2),
         dict(name="K3 fused SPADE synthesis", route="cuda", source=src + "synthesis.cu",
              replaces="threedhumangan_tpu/ops/synthesis_kernel.py:91", launches=counts["K3"],
              launches_by_path=both("K3"), **k3),
@@ -752,7 +778,8 @@ def main():
              launches_by_path=both("K8"), **k8),
         dict(name="K9 field backward step", route="cuda", source=src + "raymarch_bwd.cu",
              replaces="threedhumangan_tpu/ops/raymarch_bwd.py:154", launches=tcounts["K9"],
-             launches_by_path=both("K9"), **k9),
+             launches_by_path=both("K9"),
+             weight_gradient_reduction_launches=tcounts["K9 weight-gradient reduction"], **k9),
     ]
     for k in kernels:
         for key in ("max_abs_err", "ms", "plain_ms"):

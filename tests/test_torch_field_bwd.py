@@ -169,7 +169,7 @@ def test_bwd_cpu_path_launches_no_kernel():
     packed, freq, phase, z_vals, g_out, g_depth = map(torch.as_tensor, _inputs(4))
     rb.fused_field_render_bwd(rb.flat_weights(field), packed, freq, phase, z_vals, g_out, g_depth,
                               S, compute_dtype=torch.float32)
-    assert (rb.launches_stats, rb.launches_bwd) == (0, 0)
+    assert (rb.launches_stats, rb.launches_bwd, rb.launches_wgrad) == (0, 0, 0)
 
 
 def test_bwd_kernel_wrappers_reject_malformed_input():

@@ -391,5 +391,5 @@ def test_cpu_train_step_runs_and_launches_no_kernel(batch_split):
     assert stats["g_loss"][0] == batch_split  # one loss moment per micro-batch
     assert all(bool(torch.isfinite(v).all()) for v in stats.values())
     counts = (geo.launches, raymarch.launches, raymarch_bwd.launches_stats,
-              raymarch_bwd.launches_bwd, rasterize.launches)
-    assert counts == (0, 0, 0, 0, 0)
+              raymarch_bwd.launches_bwd, raymarch_bwd.launches_wgrad, rasterize.launches)
+    assert counts == (0, 0, 0, 0, 0, 0)

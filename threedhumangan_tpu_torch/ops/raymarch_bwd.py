@@ -43,6 +43,7 @@ from threedhumangan_tpu_torch.utils.misc import mm, pad_to, round16
 
 launches_stats = 0  # K8 launches (the CUDA path only)
 launches_bwd = 0    # K9 launches (the CUDA path only)
+launches_wgrad = 0  # K9's weight-gradient reduction launches (the CUDA path only)
 
 # field module attribute -> the JAX package's flat weight name stem
 _LAYERS = {"first_layer_coord.layer": "coord", "first_layer_mod.layer": "geo",
@@ -329,6 +330,10 @@ def field_render_unfolded(field, packed, freq, phase, z_vals, num_steps: int,
 # ---------------------------------------------------------------------------
 
 ROWS_PER_CTA = 64
+# K9 takes the batch in groups of this many images, so that the per-sample
+# operands of the weight-gradient products (bf16) and the saved
+# pre-activations (f32) stay a few GB at full width
+IMAGES_PER_LAUNCH = 2
 
 
 def _kernel_tables(w, freq_k, phase_k):
@@ -415,6 +420,7 @@ def field_stats_cuda(w, packed, freq_k, phase_k, g_out, num_steps: int, exact_si
 def _wgrad(X, Y, stream):
     """sum over rows of X^T Y: X (rows, K), Y (rows, N) bf16 -> (K, N) f32.
     Per-CTA partials over row chunks, reduced here in a fixed order."""
+    global launches_wgrad
     rows, K = X.shape
     N = Y.shape[1]
     tiles = -(-K // 64) * -(-N // 64)
@@ -425,15 +431,14 @@ def _wgrad(X, Y, stream):
     part = torch.empty(n_chunks, K, N, dtype=torch.float32, device=X.device)
     _launch("thgt_wgrad", X.data_ptr(), Y.data_ptr(), part.data_ptr(), K, N, rows, chunk_rows,
             n_chunks, stream)
+    launches_wgrad += 1
     return part.sum(0)
 
 
 def field_bwd_step_cuda(w, packed, freq_k, phase_k, g_out, coef, dsigma, num_steps: int,
-                        exact_sin=False, images_per_launch: int = 2):
-    """Launch K9; same contract as ``field_bwd_step_plain``.  Images go
-    through in groups of ``images_per_launch`` so the per-sample operands of
-    the weight-gradient products (bf16) and the saved pre-activations (f32)
-    stay a few GB at full width."""
+                        exact_sin=False):
+    """Launch K9 once per ``IMAGES_PER_LAUNCH`` images, then its
+    weight-gradient reduction; same contract as ``field_bwd_step_plain``."""
     global launches_bwd
     _check_rows(packed, num_steps)
     B, P, n_cols = packed.shape
@@ -453,8 +458,8 @@ def field_bwd_step_cuda(w, packed, freq_k, phase_k, g_out, coef, dsigma, num_ste
               wT_net0=t["w_net0"].t().contiguous())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        for b0 in range(0, B, images_per_launch):
-            b1 = min(B, b0 + images_per_launch)
+        for b0 in range(0, B, IMAGES_PER_LAUNCH):
+            b1 = min(B, b0 + IMAGES_PER_LAUNCH)
             Bc = b1 - b0
             rows = Bc * P
             e = lambda *shape, dt=bf16: torch.empty(*shape, dtype=dt, device=dev)
@@ -470,6 +475,7 @@ def field_bwd_step_cuda(w, packed, freq_k, phase_k, g_out, coef, dsigma, num_ste
                             x0, xs0, xsk, xcol, xc, du, dv, dcol, dyh, U, V, VC, part])
             _launch("thgt_field_bwd", *args, Bc, P, num_steps, n_cols, d["n_in"], k0p, n0p,
                     hp, NB, d["F"] + 3, headp, int(exact_sin), stream)
+            launches_bwd += 1
             prods = {"first": (x0, du), "net0": (xs0, dv[0]), "color": (xcol, dcol),
                      "head": (xc, dyh)}
             prods.update({f"net{i}": (xsk[i - 1], dv[i]) for i in range(1, NB)})
@@ -477,7 +483,6 @@ def field_bwd_step_cuda(w, packed, freq_k, phase_k, g_out, coef, dsigma, num_ste
                 g = _wgrad(X, Y, stream)
                 gw[k] = gw[k] + g if k in gw else g
             parts.append(part.reshape(Bc, -1, n_part).sum(1))
-    launches_bwd += 1
     part = torch.cat(parts, 0)  # (B, n_part): per-image column sums
     tot = part.sum(0)
     G = d["n_in"] - 3

@@ -101,14 +101,6 @@ def _choose_segments(coin, rotate: bool, rasterized, body, p: float = 0.5):
     return torch.where(use_raster.to(rasterized.device), rasterized, body)
 
 
-def _disc_input_real(real_images, phase, meta):
-    return real_images
-
-
-def _disc_input_gen(gen_out, phase, meta):
-    return gen_out[phase["gen_modal"]]
-
-
 @contextlib.contextmanager
 def _swapped_buffers(module: torch.nn.Module, buffers: Dict[str, torch.Tensor]):
     """Run with ``buffers`` in place of the module's, then restore."""
@@ -167,7 +159,7 @@ def d_train_step(ts: TrainState, data: Dict, generator: torch.Generator, lr: flo
 
     with stage("preprocess"):
         data = _preprocess(preprocessor, data, phase["rotate"], generator, draws)
-    real_images = _disc_input_real(data["images"], phase, meta)
+    real_images = data["images"]
     B = real_images.shape[0]
     z = _draw(draws, "z", lambda: torch.randn(B, meta["latent_dim"], generator=generator,
                                               device=dev))
@@ -184,7 +176,7 @@ def d_train_step(ts: TrainState, data: Dict, generator: torch.Generator, lr: flo
                 G, _split(z, n_split, i), data_c, meta, generator, cdt, train=True,
                 nerf_noise=nerf_noise,
                 latent_indices=None if phase["uncond"] else data_c["indices"])
-            outs.append(_disc_input_gen(out, phase, meta))
+            outs.append(out[phase["gen_modal"]])
         fake_images = torch.cat(outs, 0)
 
     with stage("d_step"):
@@ -271,7 +263,7 @@ def g_train_step(ts: TrainState, data: Dict, generator: torch.Generator, lr: flo
             gen_out, _ = generator_forward(
                 G, z_c, data_c, meta, generator, cdt, train=True, nerf_noise=nerf_noise,
                 latent_indices=None if phase["uncond"] else data_c["indices"], pallas_ok=False)
-            out = D(_disc_input_gen(gen_out, phase, meta), cdt, train=True)
+            out = D(gen_out[phase["gen_modal"]], cdt, train=True)
             pred = out["prediction"].float()
             st = {}
             if gan_lambda > 0:
