@@ -7,30 +7,41 @@ CUDA card.
 Phases, each printing its own lines; any failure raises (exit code != 0):
 
   1. card     — nvidia-smi name and power limit; TF32 off for the references.
-  2. build    — nvcc builds K1-K3 and K7-K9 from threedhumangan_tpu_torch/csrc,
+  2. build    — nvcc builds K1-K3 and K7-K11 from threedhumangan_tpu_torch/csrc,
                 one process per source.
   3. check    — K1-K3 against their plain PyTorch versions at the generation
                 slice's shapes (and K2/K3 pointwise at a narrow width), with
-                the tolerance and its reason; kernel and plain times from
-                CUDA events after a warm-up.
+                the tolerance and its reason; kernel, plain and bound times.
   4. generate — MAP3DBN512L generation at batch 8 in bf16 with seeded random
                 weights: 2 warm-up + 5 timed batches through
                 ``generator_forward``, per-stage ms/batch, imgs/s; the output
-                must be (8, 512, 256, 3), finite and not constant, K1-K3's
-                launch counts must rise, and a small config run on the card
-                must agree with the same run on the CPU.
+                must be (8, 512, 256, 3), finite and not constant, K1-K3 must
+                launch, and a small config run on the card must agree with
+                the same run on the CPU.
   5. check    — K7, K2 (with the nerf-noise column), K8 and K9 against their
                 plain versions at the training slice's shapes (K8/K9 also
                 pointwise at a narrow width, and against autograd through the
                 plain unfolded render).
   6. train    — the MAP3DBN D+G+R1 step at batch 8 in bf16, phase slot 3
-                (R1 on), nerf noise 0.5, lr_d 4e-4 / lr_g 1e-4: 2 warm-up + 5
+                (R1 on), nerf noise 0.5, lr_d 4e-4 / lr_g 1e-4, per-op
+                synthesis (``pallas_synthesis_train=False``): 2 warm-up + 5
                 timed pair steps through ``train_step_pair``, per-stage
-                ms/pair, imgs/s, peak memory; losses finite, parameters moved,
-                K1, K2, K7, K8 and K9 launched; and a small config's D+G step
-                on the card against the same step on the CPU.
-  7. result   — a JSON line of the kernels, the card line, and the final
-                {"ok": true, "device": ...} line.
+                ms/pair, imgs/s, peak memory; losses finite, parameters
+                moved, K1, K2, K7, K8 and K9 launched; and a TINY D+G step on
+                the card against the same step on the CPU.
+  7. check    — K10/K11 against their plain versions (and K11 against
+                autograd through the plain forward) at the training shapes,
+                spatial with the fixed row and rank-1, and pointwise on a
+                narrow case with a ragged last tile.
+  8. train    — phase 6 on the fused half-blocks
+                (``pallas_synthesis_train=True``): 36 K10 and 18 K11 launches
+                a pair; and the TINY card-vs-CPU step on them.
+  9. trainer  — ``Trainer`` on MAP3DBN at full width, batch 8: 4 steps with
+                checkpoints and EMA samples, then a second ``Trainer`` resumes
+                at step 4 and runs to 6; finite metrics; K1-K3 and K7-K11
+                launched.
+ 10. result   — a JSON line of the kernels (times, bounds, launches by path),
+                the card line, and the final {"ok": true, "device": ...} line.
 """
 
 import contextlib
@@ -166,8 +177,13 @@ def check_geo(inp, meta):
     ms = cuda_ms(lambda: geo.geo_features(*args, legacy_mode=legacy), 3)
     plain_ms = cuda_ms(lambda: geo.geo_features_plain(*args, legacy_mode=legacy,
                                                       point_chunk=1024), 1)
-    log(f"  time: kernel {ms:.3f} ms  plain {plain_ms:.3f} ms")
-    return feats, dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms)
+    B, P, _ = inp["points"].shape
+    V, Cf = inp["vfeat"].shape[1:]
+    # ~9 float32 operations a (point, vertex) distance (csrc/geo.cu)
+    bd = bound(9 * B * P * V, 4 * (B * P * (3 + 31 + 1) + B * V * (3 + Cf)), PEAK_F32)
+    log(f"  time: kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound {bd['bound_ms']:.3f} ms "
+        f"({bd['bound_by']})")
+    return feats, dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms, **bd)
 
 
 def check_field(gen, inp, geo_feats, meta):
@@ -231,8 +247,24 @@ def check_field(gen, inp, geo_feats, meta):
         raise AssertionError("K2 (full width) disagrees with its plain version")
     ms = cuda_ms(run_k, 3)
     plain_ms = cuda_ms(run_p, 1)
-    log(f"  time: kernel {ms:.3f} ms  plain {plain_ms:.3f} ms")
-    return dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms)
+    bd = field_bound(packed, o_k, meta, backward=0)
+    log(f"  time: kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound {bd['bound_ms']:.3f} ms "
+        f"({bd['bound_by']})")
+    return dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms, **bd)
+
+
+def field_bound(packed, out, meta, backward):
+    """Bound of a field pass over ``packed`` samples: K2 (backward 0: the
+    render), K8 (1: the recompute) or K9 (2: recompute, backprop and weight
+    products, 3x the forward's), products in bf16."""
+    H, NB, F = meta["hidden_dim"], meta["neural_field_blocks"], meta["feature_dim"]
+    n_in = 3 + meta["geo_feature_dim"]
+    samples = packed.shape[0] * packed.shape[1]
+    per = 2 * (n_in * H + 2 * H * H + (NB - 1) * H * H + (H + 3) * H + H + H * (3 + F))
+    nbytes = packed.numel() * packed.element_size() + out.numel() * out.element_size()
+    if backward:
+        nbytes += 8 * samples  # (sigma, f.g) out of K8, (coef, dsigma) into K9
+    return bound(per * samples * (3 if backward == 2 else 1), nbytes)
 
 
 def check_synthesis(gen, meta, styles, gcuda):
@@ -290,8 +322,15 @@ def check_synthesis(gen, meta, styles, gcuda):
         raise AssertionError("K3 (full width) disagrees with its plain version")
     ms = cuda_ms(run_k, 3)
     plain_ms = cuda_ms(run_p, 1)
-    log(f"  time: kernel {ms:.3f} ms  plain {plain_ms:.3f} ms")
-    return dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms)
+    H, F = meta["hidden_dim"], meta["feature_dim"]
+    n_mod = NB if mode == "all" else len(mods)
+    per_px = 2 * (2 * H + NB * 2 * H * H + n_mod * 2 * (F * 128 + 2 * 128 * H)
+                  + (NB - NB // 2 + 1) * 3 * H)
+    bd = bound(per_px * style.shape[0] * style.shape[1] * style.shape[2],
+               style.numel() * style.element_size() + r_k.numel() * r_k.element_size())
+    log(f"  time: kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound {bd['bound_ms']:.3f} ms "
+        f"({bd['bound_by']})")
+    return dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms, **bd)
 
 
 def check_small_config():
@@ -347,6 +386,20 @@ def train_meta():
     return meta
 
 
+# published dense peaks of one H100 SXM at 700 W (NVIDIA H100 datasheet)
+PEAK_BF16 = 989e12  # FLOP/s, bf16 tensor cores
+PEAK_F32 = 67e12    # FLOP/s, float32 outside the tensor cores
+HBM_BPS = 3.35e12   # bytes/s
+
+
+def bound(flops, nbytes, peak=PEAK_BF16):
+    """Least time (ms) for the work: operations over the peak of their type
+    or bytes over the memory rate, whichever is larger."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BPS * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
 def rel_l2(got, ref):
     import torch
 
@@ -383,8 +436,12 @@ def check_raster(pre, cond, meta):
         raise AssertionError("K7 disagrees with its plain version")
     ms = cuda_ms(run_k, 5)
     plain_ms = cuda_ms(run_p, 1)
-    log(f"  time: kernel {ms:.3f} ms  plain {plain_ms:.3f} ms")
-    return dict(max_abs_err=bmx, ms=ms, plain_ms=plain_ms)
+    # ~20 float32 operations a (pixel, valid candidate) pair (csrc/rasterize.cu)
+    n_valid = int((tri[..., 9] > 0).sum())
+    bd = bound(20 * n_valid * tile * tile, tri.numel() * 4 + fk.numel() * 4 * 5, PEAK_F32)
+    log(f"  time: kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound {bd['bound_ms']:.3f} ms "
+        f"({bd['bound_by']}, {n_valid} valid candidates)")
+    return dict(max_abs_err=bmx, ms=ms, plain_ms=plain_ms, **bd)
 
 
 def _random_field_case(H, NB, noise, gcuda, B=2, R=256, S=32, F=24):
@@ -496,8 +553,10 @@ def check_field_bwd(G, meta, cond, gcuda):
         "mean|d| <= 1e-4")
     if mean > 2e-3 or p99 > 5e-3 or dmean > 1e-4:
         raise AssertionError("K2 (training shapes, noise column) disagrees with its plain version")
-    k2_train = dict(max_abs_err=mx, ms=cuda_ms(run_k, 3), plain_ms=cuda_ms(run_p, 1))
-    log(f"  time: kernel {k2_train['ms']:.3f} ms  plain {k2_train['plain_ms']:.3f} ms")
+    k2_train = dict(max_abs_err=mx, ms=cuda_ms(run_k, 3), plain_ms=cuda_ms(run_p, 1),
+                    **field_bound(pk, o_k, meta, backward=0))
+    log(f"  time: kernel {k2_train['ms']:.3f} ms  plain {k2_train['plain_ms']:.3f} ms  bound "
+        f"{k2_train['bound_ms']:.3f} ms ({k2_train['bound_by']})")
     del o_k, d_k, o_p, d_p, sh, pi
 
     smx, gmx, errs, k9mx, (fk, pk_, coef, dsig) = _bwd_compare(w, pk, fr, ph, zv, go, gd, S, wb,
@@ -536,15 +595,18 @@ def check_field_bwd(G, meta, cond, gcuda):
                                                  exact_sin=exact), 3)
     plain9 = cuda_ms(lambda: rb.field_bwd_step_plain(w, pk, fk, pk_, go, coef, dsig, S,
                                                      exact_sin=exact), 1)
-    log(f"  time: K8 kernel {ms8:.3f} ms plain {plain8:.3f} ms; K9 kernel {ms9:.3f} ms plain "
-        f"{plain9:.3f} ms")
-    return (k2_train, dict(max_abs_err=smx, ms=ms8, plain_ms=plain8),
-            dict(max_abs_err=k9mx, ms=ms9, plain_ms=plain9))
+    b8, b9 = field_bound(pk, go, meta, backward=1), field_bound(pk, go, meta, backward=2)
+    log(f"  time: K8 kernel {ms8:.3f} ms plain {plain8:.3f} ms bound {b8['bound_ms']:.3f} ms "
+        f"({b8['bound_by']}); K9 kernel {ms9:.3f} ms plain {plain9:.3f} ms bound "
+        f"{b9['bound_ms']:.3f} ms ({b9['bound_by']})")
+    return (k2_train, dict(max_abs_err=smx, ms=ms8, plain_ms=plain8, **b8),
+            dict(max_abs_err=k9mx, ms=ms9, plain_ms=plain9, **b9))
 
 
-def check_small_train():
+def check_small_train(fused=False):
     """A TINY D+G pair on the card (kernels) and on the CPU (plain
-    versions): same weights, batch and draws."""
+    versions): same weights, batch and draws; the synthesis per op or on
+    the fused half-blocks (K10/K11)."""
     import torch
 
     from threedhumangan_tpu_torch import configs
@@ -555,7 +617,8 @@ def check_small_train():
     from threedhumangan_tpu_torch.trainers.phase_trainer import init_train_state, train_step_pair
 
     meta = dict(configs.extract_metadata(configs.MAP3DBN_TINY, 0))
-    meta.update(nerf_noise=0, perturb_rays=False, use_mixed_precision=True)
+    meta.update(nerf_noise=0, perturb_rays=False, use_mixed_precision=True,
+                pallas_synthesis_train=fused)
     smpl = synthetic_smpl_model(num_verts=384, num_faces=512)
     batch = next(iterate_batches(SyntheticSHHQDataset(smpl_model=smpl, **meta), 2, shuffle=False))
     gz = torch.Generator().manual_seed(SEED)
@@ -574,10 +637,12 @@ def check_small_train():
                     if k in ("d_loss", "g_loss") or "grad_norm" in k}
     worst = {k: abs(res["cuda"][k] - res["cpu"][k]) / (abs(res["cpu"][k]) + 1e-12)
              for k in res["cpu"] if res["cpu"][k] != 0}
-    log("check small config (TINY D+G, R1, bf16) card vs CPU plain: "
+    log(f"check small config (TINY D+G, R1, bf16, {'fused' if fused else 'per-op'} synthesis) "
+        "card vs CPU plain: "
         + " ".join(f"{k} {res['cuda'][k]:.5g}/{res['cpu'][k]:.5g}" for k in sorted(res["cpu"])))
     log("  tolerance: losses within 2% and grad group norms within 3% relative (bf16 end to "
-        "end; the kernels, cuDNN and the CPU sum in other orders; up to 0.8% read on an H100)")
+        "end; the kernels, cuDNN and the CPU sum in other orders; up to 2.6% read on an H100, "
+        "on the synthesis mapping network's norm of ~1e-4 with the fused synthesis)")
     for k, v in worst.items():
         if v > (0.02 if k.endswith("loss") else 0.03):
             raise AssertionError(f"the card disagrees with the CPU plain path on {k}: {v:.3e}")
@@ -585,20 +650,176 @@ def check_small_train():
         raise AssertionError("the small config's G step did not reach the field")
 
 
-def run_train_slice(ts, batch, pre, meta, gcuda):
+# ---------------------------------------------------------------------------
+# K10/K11: the trainable SPADE half-blocks
+# ---------------------------------------------------------------------------
+
+
+def _half_block_case(B, H, W, ci, co, cs, hid, spatial, with_fixed, gcuda):
+    """Seeded random inputs of one half-block: h and style bf16, the batch
+    moments of h, BN affine, SPADE MLP (or per-image rows), conv and g."""
     import torch
 
-    from threedhumangan_tpu_torch.ops import geo, rasterize, raymarch, raymarch_bwd
+    bf16 = torch.bfloat16
+    rn = lambda *s: torch.randn(*s, generator=gcuda, device="cuda")
+    un = lambda fan, *s: (torch.rand(*s, generator=gcuda, device="cuda") * 2 - 1) * fan ** -0.5
+    h = (1.5 * rn(B, H, W, ci) + 0.3).to(bf16)
+    x = h.float()
+    m = x.mean((0, 1, 2))
+    r = torch.rsqrt(torch.square(x - m).mean((0, 1, 2)) + 1e-5)
+    args = dict(h=h, style=None, fixed=None, gam=None, bet=None, m=m, r=r,
+                a=1.0 + 0.2 * rn(ci), b=0.2 * rn(ci), mlp=None, w=un(ci, ci, co), c=un(ci, co))
+    if spatial:
+        args["style"] = rn(B, H, W, cs).to(bf16)
+        args["fixed"] = rn(B, cs) if with_fixed else None
+        args["mlp"] = dict(sh_w=un(cs, cs, hid), sh_b=un(cs, hid), g_w=un(hid, hid, ci),
+                           g_b=un(hid, ci), bt_w=un(hid, hid, ci), bt_b=un(hid, ci))
+    else:
+        args["gam"] = (1.0 + 0.3 * rn(B, ci)).to(bf16)
+        args["bet"] = (0.3 * rn(B, ci)).to(bf16)
+    return args, rn(B, H, W, co).to(bf16)
+
+
+def _half_block_autograd(args, g):
+    """Gradients of sum(out * g) by autograd through the plain forward."""
+    import torch
+
+    from threedhumangan_tpu_torch.ops import synthesis_train as st
+
+    leaves = {k: v.detach().clone().requires_grad_() for k, v in args.items()
+              if isinstance(v, torch.Tensor)}
+    mlp = None
+    if args["mlp"] is not None:
+        mlp = {k: v.detach().clone().requires_grad_() for k, v in args["mlp"].items()}
+        leaves.update({f"mlp_{k}": v for k, v in mlp.items()})
+    a = {**args, **{k: v for k, v in leaves.items() if not k.startswith("mlp_")}, "mlp": mlp}
+    out = st.half_block_forward(**a)
+    names = list(leaves)
+    grads = torch.autograd.grad((out.float() * g.float()).sum(), [leaves[n] for n in names])
+    rename = {"style": "dsty", "mlp_sh_w": "dsh_w", "mlp_sh_b": "dsh_b", "mlp_g_w": "dg_w",
+              "mlp_g_b": "dg_b", "mlp_bt_w": "dbt_w", "mlp_bt_b": "dbt_b"}
+    return {rename.get(n, "d" + n): gr for n, gr in zip(names, grads)}
+
+
+def _half_block_flops(P, ci, co, cs, hid, spatial):
+    """Products of K10 and K11 (recompute, dt, MLP backward, weight grads) a call."""
+    mlp = cs * hid + 2 * hid * ci if spatial else 0
+    return 2 * P * (ci * co + mlp), 2 * P * (2 * ci * co + 3 * mlp)
+
+
+def check_half_blocks(gcuda, B, H, W, C, hid):
+    """K10/K11 against their plain versions (and K11 against autograd through
+    the plain forward): narrow cases pointwise, the training shapes by
+    statistics; kernel, plain and bound times at the training shapes."""
+    import torch
+
+    from threedhumangan_tpu_torch.ops import synthesis_train as st
+
+    # narrow: Ci 40 / Cs 24 pad to 48 / 32; 5 x 30 = 150 pixels, a ragged
+    # last tile of 22; and MAP3DBN512L's width 420 (padded to 432, K11's
+    # largest shared-memory layout)
+    for ci, cs, spatial, with_fixed in ((40, 24, True, True), (40, 24, True, False),
+                                        (40, 24, False, False), (420, 420, True, True)):
+        args, g = _half_block_case(2, 5, 30, ci, ci, cs, 128, spatial, with_fixed, gcuda)
+        o_k = st.half_block_forward_cuda(**args)
+        o_p = st.half_block_forward(**args)
+        d_k = st.half_block_backward_cuda(**{k: v for k, v in args.items() if k != "c"}, g=g)
+        d_p = st.half_block_backward(**{k: v for k, v in args.items() if k != "c"}, g=g)
+        torch.cuda.synchronize()
+        fmx = float((o_k.float() - o_p.float()).abs().max() / o_p.float().abs().max())
+        bmx = {k: float((d_k[k].float() - d_p[k].float()).abs().max()
+                        / (d_p[k].float().abs().max() + 1e-30)) for k in d_p if d_p[k] is not None}
+        worst = max(bmx, key=bmx.get)
+        log(f"check K10/K11 pointwise (Ci {ci}, Cs {cs}, 150 px, "
+            f"{'spatial' if spatial else 'rank-1'}"
+            f"{', fixed row' if with_fixed else ''}): K10 max|d|/max|ref| {fmx:.3e}; K11 worst "
+            f"max|d|/max|ref| {bmx[worst]:.3e} ({worst})")
+        log("  tolerance: K10 <= 1e-2 and K11 <= 2e-2 of each tensor's max (bf16 outputs: an "
+            "f32 sum in another order flips a bf16 rounding, one ulp 4e-3 relative)")
+        if fmx > 1e-2 or bmx[worst] > 2e-2:
+            raise AssertionError("K10/K11 (narrow) disagree with their plain versions")
+
+    res = {}
+    P = B * H * W
+    for spatial, name in ((True, "spatial"), (False, "rank1")):
+        args, g = _half_block_case(B, H, W, C, C, C, hid, spatial, spatial, gcuda)
+        bargs = {k: v for k, v in args.items() if k != "c"}
+        run_fk = lambda: st.half_block_forward_cuda(**args)
+        run_fp = lambda: st.half_block_forward(**args)
+        run_bk = lambda: st.half_block_backward_cuda(**bargs, g=g)
+        run_bp = lambda: st.half_block_backward(**bargs, g=g)
+        mx, mean, _ = diff_stats(run_fk(), run_fp())
+        d_k, d_p = run_bk(), run_bp()
+        errs = {k: rel_l2(d_k[k], d_p[k]) for k in d_p if d_p[k] is not None}
+        del d_p
+        ag = _half_block_autograd(args, g)
+        aerr = {k: rel_l2(d_k[k], ag[k]) for k in ag}
+        del ag, d_k
+        log(f"check K10/K11 training shapes ({B}, {H}, {W}, {C}), hidden {hid}, {name}"
+            f"{' with the fixed row' if spatial else ''}: K10 max|d| {mx:.3e} mean|d| {mean:.3e}")
+        log("  K11 rel L2 vs plain: " + " ".join(f"{k} {v:.2e}" for k, v in sorted(errs.items())))
+        log("  K11 rel L2 vs autograd through the plain forward: "
+            + " ".join(f"{k} {v:.2e}" for k, v in sorted(aerr.items())))
+        log("  tolerance: K10 mean|d| <= 2e-3; K11 rel L2 <= 1e-2 per tensor vs plain, <= 5e-2 "
+            "vs autograd (bf16 activations flip roundings; autograd also rounds its gradients "
+            "to bf16 at every bf16 tensor)")
+        if mean > 2e-3 or max(errs.values()) > 1e-2 or max(aerr.values()) > 5e-2:
+            raise AssertionError(f"K10/K11 ({name}) disagree with their references")
+        fl, bl = _half_block_flops(P, C, C, C if spatial else 0, hid if spatial else 0, spatial)
+        io = 2 * P * C * (3 if spatial else 2)  # K10: h (, style), out
+        io_bwd = io + 2 * P * C * (2 if spatial else 1)  # K11: h (, style), g, dh (, dsty)
+        r = dict(
+            k10=dict(max_abs_err=mx, ms=cuda_ms(run_fk, 3), plain_ms=cuda_ms(run_fp, 1),
+                     **bound(fl, io)),
+            k11=dict(max_abs_err=max(errs.values()), ms=cuda_ms(run_bk, 3),
+                     plain_ms=cuda_ms(run_bp, 1), **bound(bl, io_bwd)))
+        log(f"  time: K10 kernel {r['k10']['ms']:.3f} ms plain {r['k10']['plain_ms']:.3f} ms "
+            f"bound {r['k10']['bound_ms']:.3f} ms ({r['k10']['bound_by']}); K11 (with its "
+            f"weight-gradient products) kernel {r['k11']['ms']:.3f} ms plain "
+            f"{r['k11']['plain_ms']:.3f} ms bound {r['k11']['bound_ms']:.3f} ms "
+            f"({r['k11']['bound_by']})")
+        res[name] = r
+        del args, g
+        torch.cuda.empty_cache()
+    return res
+
+
+def reset_counts():
+    from threedhumangan_tpu_torch.ops import (geo, rasterize, raymarch, raymarch_bwd,
+                                              synthesis_kernel, synthesis_train)
+
+    for mod in (geo, raymarch, rasterize, synthesis_kernel):
+        mod.launches = 0
+    raymarch_bwd.launches_stats = raymarch_bwd.launches_bwd = raymarch_bwd.launches_wgrad = 0
+    synthesis_train.launches_fwd = synthesis_train.launches_bwd = 0
+    synthesis_train.launches_wgrad = 0
+
+
+def read_counts():
+    from threedhumangan_tpu_torch.ops import (geo, rasterize, raymarch, raymarch_bwd,
+                                              synthesis_kernel, synthesis_train)
+
+    return {"K1": geo.launches, "K2": raymarch.launches, "K3": synthesis_kernel.launches,
+            "K7": rasterize.launches, "K8": raymarch_bwd.launches_stats,
+            "K9": raymarch_bwd.launches_bwd,
+            "K9 weight-gradient reduction": raymarch_bwd.launches_wgrad,
+            "K10": synthesis_train.launches_fwd, "K11": synthesis_train.launches_bwd,
+            "K11 weight-gradient reduction": synthesis_train.launches_wgrad}
+
+
+def run_train_slice(ts, batch, pre, meta, gcuda):
+    """WARMUP + TIMED pair steps through ``train_step_pair``; the per-op or
+    fused synthesis as ``meta['pallas_synthesis_train']`` says."""
+    import torch
+
     from threedhumangan_tpu_torch.trainers.phase_trainer import train_step_pair
 
+    fused = meta.get("pallas_synthesis_train", False)
     phase = meta["phases"][3]
     timer = PairTimer()
     before = [p.detach().clone() for p in list(ts.G.parameters()) + list(ts.D.parameters())]
     torch.cuda.reset_peak_memory_stats()
-    mods = (geo, raymarch, rasterize)
-    for mod in mods:
-        mod.launches = 0
-    raymarch_bwd.launches_stats = raymarch_bwd.launches_bwd = raymarch_bwd.launches_wgrad = 0
+    reset_counts()
     walls = []
     for it in range(WARMUP + TIMED):
         timer.on = it >= WARMUP
@@ -609,12 +830,10 @@ def run_train_slice(ts, batch, pre, meta, gcuda):
         torch.cuda.synchronize()
         if timer.on:
             walls.append(time.perf_counter() - t0)
-    counts = {"K1": geo.launches, "K2": raymarch.launches, "K7": rasterize.launches,
-              "K8": raymarch_bwd.launches_stats, "K9": raymarch_bwd.launches_bwd,
-              "K9 weight-gradient reduction": raymarch_bwd.launches_wgrad}
+    counts = read_counts()
     stage_ms = timer.per_pair_ms(TIMED)
-    log(f"train: MAP3DBN D+G+R1 batch {BATCH} bf16, phase slot 3, {TIMED} timed pair steps "
-        f"after {WARMUP} warm-up")
+    log(f"train ({'fused K10/K11' if fused else 'per-op'} synthesis): MAP3DBN D+G+R1 batch "
+        f"{BATCH} bf16, phase slot 3, {TIMED} timed pair steps after {WARMUP} warm-up")
     labels = {"preprocess": "preprocess (camera + K7), D and G", "d_fakes": "D-step fakes",
               "d_step": "D fwd + R1 + bwd", "d_r1": "  of which R1", "d_optimizer": "D optimizer",
               "g_forward": "G fwd (G + D)", "g_backward": "G bwd",
@@ -640,8 +859,81 @@ def run_train_slice(ts, batch, pre, meta, gcuda):
         f"path): {', '.join(still)}")
     if moved < len(after) // 2:
         raise AssertionError("the parameters did not move")
-    if min(counts.values()) <= 0:
+    path = ("K1", "K2", "K7", "K8", "K9") + (("K10", "K11") if fused else ())
+    if min(counts[k] for k in path) <= 0:
         raise AssertionError(f"a kernel did not launch during the training slice: {counts}")
+    pairs = WARMUP + TIMED
+    if fused and (counts["K10"] != 36 * pairs or counts["K11"] != 18 * pairs):
+        raise AssertionError(f"expected 36 K10 and 18 K11 launches a pair: {counts}")
+    if not fused and counts["K10"] + counts["K11"]:
+        raise AssertionError(f"the per-op path launched K10/K11: {counts}")
+    return dict(counts=counts, ms_per_pair=total * 1e3, imgs_per_s=BATCH / total,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30, stage_ms=stage_ms)
+
+
+def run_trainer(smpl):
+    """``Trainer`` on MAP3DBN at full width, batch 8, 32 synthetic images:
+    4 steps with a checkpoint every 2 and EMA samples at step 4, then a
+    second ``Trainer`` in the same directory resumes at step 4 and runs to 6.
+    Returns the launch counts of both runs."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    import types
+
+    import torch
+
+    from threedhumangan_tpu_torch import configs
+    from threedhumangan_tpu_torch.trainers.base_trainer import Trainer
+
+    config = configs.get_config(types.SimpleNamespace(config="MAP3DBN", tune="", variant=0))
+    for k in config:
+        if isinstance(k, int) and config[k]:
+            config[k]["batch_size"] = BATCH
+    config.update(dataset_length=32, dataroot="synthetic")
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        opt = types.SimpleNamespace(output_dir=tmp, device="cuda", model_save_interval=2,
+                                    model_keep_interval=4, sample_interval=4, n_epochs=100,
+                                    seed=SEED, tensorboard=1)
+        walls = []
+        for max_steps in (4, 6):
+            t0 = time.perf_counter()
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                trainer = Trainer(0, 1, opt, config, smpl_model=smpl)
+                trainer.run(max_steps=max_steps)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            for line in out.getvalue().splitlines():
+                log("  trainer: " + line)
+            if trainer.step != max_steps:
+                raise AssertionError(f"the trainer stopped at step {trainer.step}")
+            del trainer
+            torch.cuda.empty_cache()
+        if "resumed from" not in out.getvalue() or "at step 4" not in out.getvalue():
+            raise AssertionError("the second trainer did not resume at step 4")
+        run_dir = os.path.join(tmp, config["name"])
+        files = sorted(os.listdir(run_dir))
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        bad = [r for r in rows if not all(math.isfinite(v) for v in r.values())]
+        if not rows or bad:
+            raise AssertionError(f"metrics.jsonl: {len(rows)} rows, non-finite: {bad}")
+        for want in ("00000004_checkpoint.npz", "00000006_checkpoint.npz",
+                     "00000004_fixed_ema.png", "00000004_tilted_dseg.png"):
+            if want not in files:
+                raise AssertionError(f"{want} missing from {files}")
+    counts = read_counts()
+    log(f"trainer: MAP3DBN batch {BATCH} bf16, 32 synthetic images, fused synthesis: steps "
+        f"0-4 (checkpoints at 2 and 4, EMA samples at 4) in {walls[0]:.1f} s, resumed at 4 and "
+        f"ran to 6 in {walls[1]:.1f} s (set-up included); files {files}")
+    log(f"  metrics.jsonl: {rows}")
+    log(f"  launches during both runs: {counts}")
+    need = ("K1", "K2", "K3", "K7", "K8", "K9", "K10", "K11")
+    if min(counts[k] for k in need) <= 0:
+        raise AssertionError(f"a kernel did not launch in the trainer: {counts}")
     return counts
 
 
@@ -664,7 +956,6 @@ def main():
     from threedhumangan_tpu_torch.data.preprocessor import get_preprocessor
     from threedhumangan_tpu_torch.models.generator import generator_forward, init_generator
     from threedhumangan_tpu_torch.models.smpl import synthetic_smpl_model
-    from threedhumangan_tpu_torch.ops import geo, raymarch, synthesis_kernel
     from threedhumangan_tpu_torch.trainers.phase_trainer import init_train_state
 
     # ---- 2. build
@@ -701,8 +992,7 @@ def main():
 
     # ---- 4. the slice through the port's entry point
     timer = StageTimer()
-    for mod in (geo, raymarch, synthesis_kernel):
-        mod.launches = 0
+    reset_counts()
     walls = []
     for it in range(WARMUP + TIMED):
         timer.on = it >= WARMUP
@@ -715,7 +1005,7 @@ def main():
         torch.cuda.synchronize()
         if timer.on:
             walls.append(time.perf_counter() - t0)
-    counts = {"K1": geo.launches, "K2": raymarch.launches, "K3": synthesis_kernel.launches}
+    counts = read_counts()
     stage_ms = timer.mean_ms()
     rgbs = out["rgbs"]
     log(f"slice: MAP3DBN512L batch {BATCH} bf16, {TIMED} timed batches after {WARMUP} warm-up")
@@ -732,7 +1022,7 @@ def main():
         raise AssertionError("non-finite output")
     if float(rgbs.float().std()) <= 0.0:
         raise AssertionError("constant output")
-    if min(counts.values()) <= 0:
+    if min(counts[k] for k in ("K1", "K2", "K3")) <= 0:
         raise AssertionError(f"a kernel did not launch during the slice: {counts}")
     log(f"  output {tuple(rgbs.shape)} mean {float(rgbs.mean()):.4f} std {float(rgbs.std()):.4f}")
     check_small_config()
@@ -751,38 +1041,65 @@ def main():
     del tcond
     torch.cuda.empty_cache()
 
-    # ---- 6. the training slice through the port's entry point
-    tcounts = run_train_slice(ts, tbatch, tpre, tmeta, gcuda)
-    del ts
-    torch.cuda.empty_cache()
+    # ---- 6. the training slice through the port's entry point, per-op synthesis
+    per_op = run_train_slice(ts, tbatch, tpre, tmeta, gcuda)
     check_small_train()
 
-    # ---- 7. result
+    # ---- 7. K10/K11 against their plain versions at the training shapes
+    hb = check_half_blocks(gcuda, BATCH, tmeta["gen_height"], tmeta["gen_width"],
+                           tmeta["hidden_dim"], 128)
+
+    # ---- 8. the training slice on the fused half-blocks (the trainer's default)
+    fmeta = dict(tmeta, pallas_synthesis_train=True)
+    fused = run_train_slice(ts, tbatch, tpre, fmeta, gcuda)
+    log(f"  fused vs per-op synthesis: {fused['ms_per_pair']:.3f} vs {per_op['ms_per_pair']:.3f} "
+        f"ms/pair, peak {fused['peak_gib']:.2f} vs {per_op['peak_gib']:.2f} GiB")
+    del ts, tbatch
+    torch.cuda.empty_cache()
+    check_small_train(fused=True)
+
+    # ---- 9. the training loop: save, resume
+    trainer_counts = run_trainer(smpl)
+
+    # ---- 10. result
     src = "threedhumangan_tpu_torch/csrc/"
-    both = lambda k: {"generation": counts.get(k, 0), "training": tcounts.get(k, 0)}
+    paths = {"generation": counts, "training_per_op": per_op["counts"],
+             "training_fused": fused["counts"], "trainer": trainer_counts}
+    by_path = lambda k: {p: c.get(k, 0) for p, c in paths.items()}
+    tc, fc = per_op["counts"], fused["counts"]
     kernels = [
         dict(name="K1 geo features", route="cuda", source=src + "geo.cu",
-             replaces="threedhumangan_tpu/ops/geo.py:94", launches=counts["K1"],
-             launches_by_path=both("K1"), **k1),
+             replaces="threedhumangan_tpu/ops/geo.py:94", launches=counts["K1"], **k1),
         dict(name="K2 folded field render", route="cuda", source=src + "raymarch.cu",
              replaces="threedhumangan_tpu/ops/raymarch.py:525", launches=counts["K2"],
-             launches_by_path=both("K2"), training_shapes=k2_train, **k2),
+             training_shapes=k2_train, **k2),
         dict(name="K3 fused SPADE synthesis", route="cuda", source=src + "synthesis.cu",
              replaces="threedhumangan_tpu/ops/synthesis_kernel.py:91", launches=counts["K3"],
-             launches_by_path=both("K3"), **k3),
+             **k3),
         dict(name="K7 rasterizer tile z-test", route="cuda", source=src + "rasterize.cu",
-             replaces="threedhumangan_tpu/ops/rasterize.py:335", launches=tcounts["K7"],
-             launches_by_path=both("K7"), **k7),
+             replaces="threedhumangan_tpu/ops/rasterize.py:335", launches=tc["K7"], **k7),
         dict(name="K8 field backward stats", route="cuda", source=src + "raymarch_bwd.cu",
-             replaces="threedhumangan_tpu/ops/raymarch_bwd.py:132", launches=tcounts["K8"],
-             launches_by_path=both("K8"), **k8),
+             replaces="threedhumangan_tpu/ops/raymarch_bwd.py:132", launches=tc["K8"], **k8),
         dict(name="K9 field backward step", route="cuda", source=src + "raymarch_bwd.cu",
-             replaces="threedhumangan_tpu/ops/raymarch_bwd.py:154", launches=tcounts["K9"],
-             launches_by_path=both("K9"),
-             weight_gradient_reduction_launches=tcounts["K9 weight-gradient reduction"], **k9),
+             replaces="threedhumangan_tpu/ops/raymarch_bwd.py:154", launches=tc["K9"],
+             weight_gradient_reduction_launches=tc["K9 weight-gradient reduction"], **k9),
+        dict(name="K10 fused SPADE half-block forward", route="cuda",
+             source=src + "synthesis_train.cu",
+             replaces="threedhumangan_tpu/ops/synthesis_train.py:185", launches=fc["K10"],
+             case="spatial with the fixed row", rank1=hb["rank1"]["k10"],
+             **hb["spatial"]["k10"]),
+        dict(name="K11 fused SPADE half-block backward", route="cuda",
+             source=src + "synthesis_train.cu",
+             replaces="threedhumangan_tpu/ops/synthesis_train.py:225", launches=fc["K11"],
+             weight_gradient_reduction_launches=fc["K11 weight-gradient reduction"],
+             case="spatial with the fixed row", rank1=hb["rank1"]["k11"],
+             **hb["spatial"]["k11"]),
     ]
     for k in kernels:
-        for key in ("max_abs_err", "ms", "plain_ms"):
+        # no single PyTorch call computes any of these functions (PERF.md)
+        k["library_ms"] = None
+        k["launches_by_path"] = by_path(k["name"].split()[0])
+        for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
             if not math.isfinite(k[key]):
                 raise AssertionError(f"{k['name']}: {key} is not finite")
     print(json.dumps({"kernels": kernels}))

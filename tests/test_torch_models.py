@@ -119,7 +119,7 @@ def test_camera_preprocessor_matches_jax(mode):
     rs = np.random.RandomState(4)
     h, v, r = (rs.uniform(-0.5, 0.5, 2).astype(np.float32) for _ in range(3))
     p = pre.get_preprocessor(meta)
-    got = p.forward_with_rotation(ds.to_tensors(batch), T(h), T(v), T(r))
+    got = p.forward_with_rotation(ds.to_tensors(batch, "cpu"), T(h), T(v), T(r))
     jp = jpre.get_preprocessor(meta, smpl_model=jsmpl.synthetic_smpl_model(96, 64))
     jb = {k: J(x) for k, x in batch.items()}
     step = jp._forward_fix_body if mode == "fix_body" else jp._forward_fix_camera
@@ -196,17 +196,21 @@ def test_weight_bridge_round_trip():
 
 
 def test_configs_are_shared_with_the_jax_package():
+    """The port keeps its own copy of the configs (it imports nothing of the
+    JAX package); the copy holds the same values
+    (tests/test_torch_trainer.py compares the metadata and the sweeps)."""
     from threedhumangan_tpu_torch import configs as port_configs
 
     for name in ("MAP3DBN", "MAP3DBN512", "MAP3DBN512L", "MAP3DBN_TINY", "MAP3DBN_NANO"):
-        assert getattr(port_configs, name) is getattr(configs, name)
-    assert port_configs.extract_metadata is configs.extract_metadata
+        assert getattr(port_configs, name) == getattr(configs, name)
+        assert getattr(port_configs, name) is not getattr(configs, name)
+    assert port_configs.extract_metadata.__module__ == "threedhumangan_tpu_torch.configs"
 
 
 def test_port_init_shapes_match_jax_init():
     meta = _tiny_meta()
     params, state = jgen.init_generator(jax.random.PRNGKey(9), meta)
-    mine = gen.init_generator(meta, torch.Generator().manual_seed(0)).state_dict()
+    mine = gen.init_generator(meta, torch.Generator().manual_seed(0), "cpu").state_dict()
     ref = from_jax_params(params, state)
     shapes = lambda sd: {k: tuple(v.shape) for k, v in sd.items()}
     assert shapes(mine) == shapes(ref)

@@ -122,7 +122,7 @@ def test_forward_rasterize_matches_jax_preprocessor():
     h, v = (rs.uniform(-0.3, 0.3, B).astype(np.float32) for _ in range(2))
     r = np.zeros(B, np.float32)
     got = get_preprocessor(meta, smpl).forward_with_rotation(
-        ds.to_tensors(batch), *map(torch.as_tensor, (h, v, r)))
+        ds.to_tensors(batch, "cpu"), *map(torch.as_tensor, (h, v, r)))
     jp = jpre.get_preprocessor(meta, smpl_model=jsmpl.synthetic_smpl_model(num_verts=256, num_faces=512))
     ref = jp.forward_with_rotation({k: jnp.asarray(x) for k, x in batch.items()},
                                    *map(jnp.asarray, (h, v, r)))

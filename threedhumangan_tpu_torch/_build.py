@@ -58,6 +58,13 @@ SIGNATURES = {
     "thgt_wgrad": [_P] * 3 + [_I] * 5 + [_P],
     # tri, face, bary, zbuf, B, T, K, tiles_x, tile, x_step, y_step, span, stream
     "thgt_rasterize": [_P] * 4 + [_I] * 5 + [_F] * 3 + [_P],
+    # h, style, fixed, gam, bet, m, r, a, b, sh_w, sh_b, g_w, g_b, bt_w, bt_b,
+    # w, c, out, B, HW, ci, cs, co, cip, csp, cop, hidp, spatial, add_fixed,
+    # stream
+    "thgt_half_block_fwd": [_P] * 18 + [_I] * 11 + [_P],
+    # the 15 inputs of thgt_half_block_fwd, wT, gbT, shT, g, dh, dsty, xt, yg,
+    # xst, xact, ygb, ydact, part, then its ints, stream
+    "thgt_half_block_bwd": [_P] * 28 + [_I] * 11 + [_P],
 }
 
 _LIB = None

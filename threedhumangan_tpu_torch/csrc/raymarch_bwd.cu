@@ -118,34 +118,6 @@ __device__ __forceinline__ void copy_tile(bf16* g, int ldg, const bf16* s, int l
   }
 }
 
-// One dense layer over the CTA's rows whose epilogue also reduces NS column
-// sums: epi(row, col, value, s) adds its contributions to s[0..NS).  A warp
-// owns each 16-column tile, so colacc[j * acc_ld + col] is written by one
-// warp: a lane sums its 8 rows of a column tile, the two lanes sharing a
-// column combine, and lane < 16 adds to the accumulator.
-template <int NS, typename Epi>
-__device__ __forceinline__ void layer_colsum(const bf16* src, int lds, const bf16* W, int ldw, int K,
-                                             int N, bf16* ring, float* scratch, float* colacc,
-                                             int acc_ld, Epi epi) {
-  const int lane = threadIdx.x & 31;
-  gemm_staged(src, lds, W, ldw, K, N, ring, [&](int n0, FragC(&acc)[kRowTiles]) {
-    float s[NS];
-#pragma unroll
-    for (int j = 0; j < NS; ++j) s[j] = 0.f;
-#pragma unroll
-    for (int m = 0; m < kRowTiles; ++m) {
-      stage(scratch, acc[m]);
-      for (int e = lane; e < 256; e += 32) epi(m * 16 + (e >> 4), n0 + (e & 15), scratch[e], s);
-      __syncwarp();
-    }
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      s[j] += __shfl_xor_sync(0xffffffffu, s[j], 16);
-      if (lane < 16) colacc[j * acc_ld + n0 + lane] += s[j];
-    }
-  });
-}
-
 __host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
 // floats of the per-CTA column-sum accumulator
 __host__ __device__ constexpr int col_acc(int n0p, int hp, int headp) {

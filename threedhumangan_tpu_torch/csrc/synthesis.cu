@@ -59,10 +59,6 @@ struct Args {
   unsigned mod_mask;   // bit i: block i reads the style map; else rank-1 rows
 };
 
-// lrelu as the JAX kernel's bf16 min/max algebra: max(x,0) + bf(s*min(x,0)),
-// its weakly typed slope 0.2 taken in bf16 (0.2001953125)
-__device__ __forceinline__ float lrelu_bf(float v) { return v >= 0.f ? v : bf(0.2001953125f * v); }
-
 __global__ void __launch_bounds__(kThreads, 1) synthesis_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int hp = a.hp, ld = smem_ld(max(a.hp, a.fp)), lda = smem_ld(kSpade);

@@ -1,7 +1,8 @@
-// Tile-GEMM helpers shared by the field (raymarch.cu) and synthesis
-// (synthesis.cu) kernels: one CTA holds a 64-row activation tile in shared
-// memory (bf16) and multiplies it by each layer's weights on tensor cores
-// through nvcuda::wmma bf16 16x16x16 fragments with float32 accumulation.
+// Tile-GEMM helpers shared by the field (raymarch.cu, raymarch_bwd.cu) and
+// synthesis (synthesis.cu, synthesis_train.cu) kernels: one CTA holds a
+// 64-row activation tile in shared memory (bf16) and multiplies it by each
+// layer's weights on tensor cores through nvcuda::wmma bf16 16x16x16
+// fragments with float32 accumulation.
 //
 // Weights (L2-resident: every CTA of a launch reads the same ones) are
 // copied by the whole CTA, 16 rows at a time, into a double-buffered
@@ -158,6 +159,38 @@ __device__ __forceinline__ void layer(const bf16* src, int lds, const bf16* W, i
   });
 }
 
+// One dense layer over the CTA's rows whose epilogue also reduces NS column
+// sums: epi(row, col, value, s) adds its contributions to s[0..NS).  A warp
+// owns each 16-column tile, so colacc[j * acc_ld + col] is written by one
+// warp: a lane sums its 8 rows of a column tile, the two lanes sharing a
+// column combine, and lane < 16 adds to the accumulator.
+template <int NS, typename Epi>
+__device__ __forceinline__ void layer_colsum(const bf16* src, int lds, const bf16* W, int ldw, int K,
+                                             int N, bf16* ring, float* scratch, float* colacc,
+                                             int acc_ld, Epi epi) {
+  const int lane = threadIdx.x & 31;
+  gemm_staged(src, lds, W, ldw, K, N, ring, [&](int n0, FragC(&acc)[kRowTiles]) {
+    float s[NS];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) s[j] = 0.f;
+#pragma unroll
+    for (int m = 0; m < kRowTiles; ++m) {
+      stage(scratch, acc[m]);
+      for (int e = lane; e < 256; e += 32) epi(m * 16 + (e >> 4), n0 + (e & 15), scratch[e], s);
+      __syncwarp();
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      s[j] += __shfl_xor_sync(0xffffffffu, s[j], 16);
+      if (lane < 16) colacc[j * acc_ld + n0 + lane] += s[j];
+    }
+  });
+}
+
 __device__ __forceinline__ float bf(float x) { return __bfloat162float(__float2bfloat16(x)); }
+
+// lrelu as the JAX kernels' bf16 min/max algebra: max(x,0) + bf(s*min(x,0)),
+// their weakly typed slope 0.2 taken in bf16 (0.2001953125)
+__device__ __forceinline__ float lrelu_bf(float v) { return v >= 0.f ? v : bf(0.2001953125f * v); }
 
 }  // namespace thgt

@@ -4,16 +4,22 @@ in numpy and PyTorch only.
 ``SyntheticSHHQDataset`` poses the synthetic SMPL model with a seeded mild
 random pose per index and canonicalises it with ``preprocess_smpl_fix_body``;
 batches are numpy dicts (``to_tensors`` moves one to a device).
+``make_dataset`` / ``get_dataset_distributed`` resolve a config's dataset
+for one process: the synthetic one when the config names no assets or the
+asset directory is absent.  The real SHHQ data (``SHHQDataset``) is not
+ported: a config whose assets exist raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Iterator, List
 
 import numpy as np
 import torch
 
 from threedhumangan_tpu_torch.models.smpl import SMPLModel, batch_rodrigues, synthetic_smpl_model
+from threedhumangan_tpu_torch.utils.misc import resolve_device
 
 FOV = np.pi * 12 / 180
 FOCAL = 1.0 / np.tan(FOV / 2)
@@ -85,6 +91,10 @@ class SyntheticSHHQDataset:
     def __len__(self):
         return self.length
 
+    def get_all_latents(self) -> np.ndarray:
+        """Latent-pool initial values (the JAX dataset's RandomState(1234) draw)."""
+        return np.random.RandomState(1234).randn(len(self), self.latent_dim).astype(np.float32)
+
     def __getitem__(self, index) -> Dict:
         rs = np.random.RandomState(index)
         J = self.smpl_model.num_joints
@@ -118,15 +128,58 @@ def _collate(items: List[Dict]) -> Dict:
 
 
 def iterate_batches(dataset, batch_size: int, *, shuffle: bool = True,
-                    seed: int = 0) -> Iterator[Dict]:
-    """One epoch of numpy batches (the last partial batch is dropped)."""
+                    seed: int = 0, start: int = 0) -> Iterator[Dict]:
+    """One epoch of numpy batches from batch ``start`` on (the last partial
+    batch is dropped)."""
     order = np.arange(len(dataset))
     if shuffle:
         np.random.RandomState(seed).shuffle(order)
-    for start in range(0, (len(order) // batch_size) * batch_size, batch_size):
-        yield _collate([dataset[int(i)] for i in order[start:start + batch_size]])
+    for i0 in range(start * batch_size, (len(order) // batch_size) * batch_size, batch_size):
+        yield _collate([dataset[int(i)] for i in order[i0:i0 + batch_size]])
 
 
-def to_tensors(batch: Dict, device=None) -> Dict:
-    """numpy batch -> torch tensors on ``device``."""
-    return {k: torch.as_tensor(np.asarray(v)).to(device) for k, v in batch.items()}
+_RESERVED_KEYS = ("name", "dataset", "batch_size", "world_size", "rank", "trainer")
+
+
+def make_dataset(kind: str, **meta):
+    """Resolve by class name: the synthetic dataset when the config names no
+    assets (``dataroot`` "synthetic") or they are absent."""
+    meta = {k: v for k, v in meta.items() if k not in _RESERVED_KEYS}
+    root = meta.get("dataroot")
+    if kind == "SyntheticSHHQDataset" or root in (None, "", "synthetic"):
+        return SyntheticSHHQDataset(**meta)
+    if not any(os.path.isdir(os.path.join(root, d)) for d in ("images", "smpl")):
+        return SyntheticSHHQDataset(**meta)
+    raise NotImplementedError(f"{kind} on real assets ({root}) is not ported yet")
+
+
+def get_dataset_distributed(kind: str, world_size: int, rank: int, batch_size: int, **meta):
+    """(loader factory, dataset) for one process; ``loader(seed, shuffle,
+    start)`` yields one epoch of numpy batches."""
+    if world_size != 1 or rank != 0:
+        raise NotImplementedError("more than one training process")
+    ds = make_dataset(kind, **meta)
+
+    def loader(seed: int = 0, shuffle: bool = True, start: int = 0):
+        return iterate_batches(ds, batch_size, shuffle=shuffle, seed=seed, start=start)
+
+    return loader, ds
+
+
+def to_tensors(batch: Dict, device="cuda") -> Dict:
+    """numpy batch -> torch tensors on ``device``.  For a CUDA device each
+    array is copied into pinned host memory and sent with
+    ``non_blocking=True``.  The copy is queued on the calling thread's
+    current stream, which for the trainer's prefetch worker is the device's
+    default stream; the train step launches its kernels on that same
+    default stream, so stream order makes every kernel that reads the batch
+    wait for its copy.  The pinned buffers come from PyTorch's caching host
+    allocator, which keeps each until its copy has completed."""
+    device = resolve_device(device)
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(np.asarray(v))
+        if device.type == "cuda":
+            t = t.pin_memory()
+        out[k] = t.to(device, non_blocking=device.type == "cuda")
+    return out

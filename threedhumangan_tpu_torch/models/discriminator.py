@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from threedhumangan_tpu_torch.models.synthesis import spectral_normalize
-from threedhumangan_tpu_torch.utils.misc import lrelu, normal_, uniform_
+from threedhumangan_tpu_torch.utils.misc import lrelu, normal_, resolve_device, uniform_
 
 CHANNELS = [128, 128, 256, 256, 512, 512, 512, 512]
 
@@ -178,5 +178,6 @@ class UNetDiscriminator(nn.Module):
         return out
 
 
-def init_discriminator(meta: Dict, generator: torch.Generator, device=None) -> UNetDiscriminator:
-    return UNetDiscriminator(meta, generator).to(device)
+def init_discriminator(meta: Dict, generator: torch.Generator,
+                       device="cuda") -> UNetDiscriminator:
+    return UNetDiscriminator(meta, generator).to(resolve_device(device))

@@ -9,19 +9,21 @@ and K3 synthesis (``ops.synthesis_kernel.fused_synthesis``), under no-grad.
 
 ``generator_forward(train=True)`` is the training forward: the nerf noise
 (``noise_std * randn`` from the generator) rides as K2's noise column, the
-synthesis runs per op in train mode (batch moments; BN running stats and
-spectral-norm ``u`` updated in place), and it returns (outputs, the
-synthesis state).  ``pallas_ok=True`` (the D step's fakes, under no-grad)
-renders with K2 alone; ``pallas_ok=False`` (the G step) renders through
+synthesis runs in train mode (batch moments; BN running stats and
+spectral-norm ``u`` updated in place), per op or, with
+``meta['pallas_synthesis_train']``, on the fused half-blocks (K10 forward,
+K11 backward), and it returns (outputs, the synthesis state).
+``pallas_ok=True`` (the D step's fakes, under no-grad) renders with K2
+alone; ``pallas_ok=False`` (the G step) renders through
 ``ops.raymarch_bwd.FieldRender``, K2 forward with the K8/K9 backward.
 
 On a CUDA device every kernel launches; on the CPU each wrapper runs its
-plain PyTorch version.  The JAX meta flags that pick Pallas paths
-(``pallas_*``) have no meaning here.  Not ported: hierarchical sampling,
-``disable_render`` (the condition-image style head), ``disable_synthesis``,
-2D label/latent inputs, and nerf noise at eval; each raises
-``NotImplementedError``.  ``remat_synthesis`` changes memory only and is
-not applied.
+plain PyTorch version.  Of the JAX meta flags that pick Pallas paths
+(``pallas_*``) only ``pallas_synthesis_train`` has a meaning here.  Not
+ported: hierarchical sampling, ``disable_render`` (the condition-image
+style head), ``disable_synthesis``, 2D label/latent inputs, and nerf noise
+at eval; each raises ``NotImplementedError``.  ``remat_synthesis`` changes
+memory only and is not applied.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from threedhumangan_tpu_torch.models.smpl import get_geo_features
 from threedhumangan_tpu_torch.ops.raymarch import fused_field_render, pack_field_inputs
 from threedhumangan_tpu_torch.ops.raymarch_bwd import field_render_trainable
 from threedhumangan_tpu_torch.ops.synthesis_kernel import fold_synthesis_params, fused_synthesis
+from threedhumangan_tpu_torch.utils.misc import resolve_device
 
 
 class LatentPool(nn.Module):
@@ -87,10 +90,10 @@ class Map3DGenerator(nn.Module):
             m.reset_parameters(generator)
 
 
-def init_generator(meta: Dict, generator: torch.Generator, device=None) -> Map3DGenerator:
+def init_generator(meta: Dict, generator: torch.Generator, device="cuda") -> Map3DGenerator:
     """Random generator weights drawn from ``generator`` (JAX init_generator's
     distributions), in eval mode on ``device``."""
-    return Map3DGenerator(meta, generator).to(device).eval()
+    return Map3DGenerator(meta, generator).to(resolve_device(device)).eval()
 
 
 def _no_stage(name: str):
@@ -159,9 +162,9 @@ def render(gen: Map3DGenerator, freq, phase, conditions: Dict, meta: Dict,
 
 @torch.no_grad()
 def generate_avg_latent(gen: Map3DGenerator, meta: Dict, generator: torch.Generator,
-                        n: int = 10000, device=None):
+                        n: int = 10000, device="cuda"):
     """Mean (z, freq, phase, style) over n latents."""
-    z = torch.randn(n, meta["latent_dim"], generator=generator, device=device)
+    z = torch.randn(n, meta["latent_dim"], generator=generator, device=resolve_device(device))
     freq, phase = gen.neural_field_mapping_network(z)
     _, styles = gen.synthesis_mapping_network(z)
     return tuple(t.mean(0, keepdim=True) for t in (z, freq, phase, styles))
@@ -217,7 +220,11 @@ def _train_forward(gen, z, conditions, meta, generator, compute_dtype, nerf_nois
     with stage("synthesis"):
         coords = syn.get_2d_coords(B, gen_h, gen_w, device=z.device)
         x = gen.synthesis_input(coords, compute_dtype)
-        rgbs = gen.synthesis_network(x, feature_maps, styles, compute_dtype, train=True)
+        # pallas_synthesis_train (the JAX key) picks the fused half-blocks,
+        # K10 forward / K11 backward; the JAX TPU-only keys
+        # pallas_synthesis_train_tile_rows and pallas_interpret have no role here
+        rgbs = gen.synthesis_network(x, feature_maps, styles, compute_dtype, train=True,
+                                     fused=meta.get("pallas_synthesis_train", False))
     return ({"rgbs": rgbs, "rgbs_render": rgb_render},
             dict(gen.synthesis_network.named_buffers()))
 

@@ -6,12 +6,14 @@ NHWC throughout; a 1x1 conv is a matmul over flattened pixels whose result
 is stored in the compute dtype, as in the JAX package.
 
 Eval mode normalises by the running stats and a frozen ``u``.  Train mode
-(``train=True``, the per-op path the JAX package runs with
-``pallas_synthesis_train=False``) normalises by the batch moments, which
-gradients flow through, and updates the state in place under no-grad:
-the BN running stats (momentum 0.1, unbiased variance, ``num_batches_tracked``)
-and one power iteration of each ``u``.  Train mode is ported for batch
-norm only (the MAP3DBN family); adaptive batch norm and instance norm raise.
+(``train=True``) normalises by the batch moments, which gradients flow
+through, and updates the state in place under no-grad: the BN running stats
+(momentum 0.1, unbiased variance, ``num_batches_tracked``) and one power
+iteration of each ``u``.  It runs per op (the JAX package's
+``pallas_synthesis_train=False`` path) or, with ``fused=True``, on the fused
+half-blocks of ``ops/synthesis_train.py`` (K10/K11; the JAX fused path).
+Train mode is ported for batch norm only (the MAP3DBN family); adaptive
+batch norm and instance norm raise.
 
 Keys follow the reference torch modules: ``network.m3d_{i}.conv_0.weight_orig``
 / ``.weight_u`` (spectral norm), ``spade_{s}.first_norm.*`` (SyncBatchNorm),
@@ -152,6 +154,14 @@ class SPADE2d(nn.Module):
         for conv in (self.mlp_shared[0], self.mlp_gamma, self.mlp_beta):
             conv.reset_parameters(generator)
 
+    def mlp_weights(self):
+        """The SPADE MLP as (in, out) matrices and biases (ops/synthesis_train.MLP_NAMES)."""
+        convs = (self.mlp_shared[0], self.mlp_gamma, self.mlp_beta)
+        out = {}
+        for stem, conv in zip(("sh", "g", "bt"), convs):
+            out[f"{stem}_w"], out[f"{stem}_b"] = conv.w, conv.bias
+        return out
+
     def forward(self, x, feature_maps, compute_dtype=torch.float32, train: bool = False):
         """x, feature_maps: NHWC (feature_maps may be (B, 1, 1, C))."""
         norm = self.first_norm
@@ -193,6 +203,43 @@ class SPADEBlock(nn.Module):
         if skip and x.shape[-1] == x_orig.shape[-1]:
             x = x + x_orig
         return x
+
+    def forward_fused(self, x, style, fixed_row=None, skip=False, compute_dtype=torch.bfloat16):
+        """Train-mode block on the fused half-blocks (JAX ``apply_spade_block_fused``):
+        moments, running stats and the spectral-norm ``u`` update stay here in
+        torch, the normalise/modulate/lrelu/conv chain runs in
+        ``ops.synthesis_train`` (K10 forward, K11 backward on CUDA).
+        ``style``: (B, H, W, Cs) map, or a (B, 1, Cs) row (the SPADE MLP then
+        runs pre-broadcast and the half-blocks take per-image gamma/beta);
+        ``fixed_row``: optional (B, Cs) row added to a spatial style in-kernel."""
+        from threedhumangan_tpu_torch.ops.synthesis_train import (
+            spade_half_block_rank1,
+            spade_half_block_spatial,
+        )
+
+        cd = compute_dtype
+        B = x.shape[0]
+        h = x.to(cd)
+        for spade, conv in ((self.spade_0, self.conv_0), (self.spade_1, self.conv_1)):
+            if spade.normalization != "batch_norm":
+                raise NotImplementedError(f"fused train-mode SPADE with {spade.normalization!r}")
+            norm = spade.first_norm
+            mean, var = sync_bn_moments(norm, h)
+            r = torch.rsqrt(var + 1e-5)
+            w = conv.normalized_weight(train=True)
+            if style.ndim == 4:
+                h = spade_half_block_spatial(h, style.to(cd), fixed_row, mean, r, norm.weight,
+                                             norm.bias, spade.mlp_weights(), w, conv.bias, cd)
+            else:
+                srow = style.reshape(B, 1, -1)
+                actv = torch.relu(spade.mlp_shared[0](srow, cd))
+                gam = 1.0 + spade.mlp_gamma(actv, cd)
+                bet = spade.mlp_beta(actv, cd)
+                h = spade_half_block_rank1(h, gam.reshape(B, -1), bet.reshape(B, -1), mean, r,
+                                           norm.weight, norm.bias, w, conv.bias, cd)
+        if skip and h.shape[-1] == x.shape[-1]:
+            h = h + x
+        return h
 
 
 class ToRGB(nn.Module):
@@ -245,15 +292,37 @@ class SynthesisNetwork(nn.Module):
             return style if idx in self.mod_blocks else fixed_style
         raise ValueError(f"invalid map3d_mode {self.map3d_mode!r}")
 
-    def forward(self, x, style, fixed_style, compute_dtype=torch.float32, train: bool = False):
-        """Per-op forward (JAX apply_synthesis_network).  x: NHWC input
-        features; style: NHWC spatial style; fixed_style (B, 1, C).  Returns
-        the NHWC rgb; in train mode the state is updated in place."""
+    def fused_block_style(self, idx, style, fixed_style):
+        """(style, fixed_row) of block ``idx`` on the fused path (JAX
+        apply_synthesis_network with fused_train): the spatial map with the
+        fixed row added in-kernel (mixed mod blocks, 'all'), the map alone
+        (isolated mod blocks), or a (B, 1, C) row for the rank-1 blocks."""
+        fs = fixed_style[:, 0]
+        if self.map3d_mode == "all":
+            return style, fs
+        if self.map3d_mode == "mixed":
+            return (style, fs) if idx in self.mod_blocks else (fs[:, None, :], None)
+        if self.map3d_mode == "isolated":
+            return (style if idx in self.mod_blocks else fixed_style), None
+        raise ValueError(f"invalid map3d_mode {self.map3d_mode!r}")
+
+    def forward(self, x, style, fixed_style, compute_dtype=torch.float32, train: bool = False,
+                fused: bool = False):
+        """Forward (JAX apply_synthesis_network).  x: NHWC input features;
+        style: NHWC spatial style; fixed_style (B, 1, C).  Returns the NHWC
+        rgb; in train mode the state is updated in place.  ``fused`` (train
+        mode, batch norm) runs each block on the fused half-blocks
+        (``SPADEBlock.forward_fused``), else every op in PyTorch."""
+        fused = fused and train and self.spatial_normalization == "batch_norm"
         rgb = None
         for idx in range(self.num_blocks):
             skip = idx >= self.num_blocks // 2
-            x = self.network[f"m3d_{idx}"](x, self.block_style(idx, style, fixed_style),
-                                           skip, compute_dtype, train)
+            block = self.network[f"m3d_{idx}"]
+            if fused:
+                st, fixed_row = self.fused_block_style(idx, style, fixed_style)
+                x = block.forward_fused(x, st, fixed_row, skip, compute_dtype)
+            else:
+                x = block(x, self.block_style(idx, style, fixed_style), skip, compute_dtype, train)
             if idx >= self.num_blocks // 2 - 1:
                 rgb = self.to_rgbs[f"m3d_{idx}"](x, rgb, compute_dtype)
         return rgb

@@ -417,10 +417,11 @@ def field_stats_cuda(w, packed, freq_k, phase_k, g_out, num_steps: int, exact_si
     return sigma.reshape(B, R, num_steps), gdot.reshape(B, R, num_steps)
 
 
-def _wgrad(X, Y, stream):
-    """sum over rows of X^T Y: X (rows, K), Y (rows, N) bf16 -> (K, N) f32.
-    Per-CTA partials over row chunks, reduced here in a fixed order."""
-    global launches_wgrad
+def wgrad(X, Y, stream):
+    """sum over rows of X^T Y: X (rows, K), Y (rows, N) bf16 -> (K, N) f32,
+    rows a multiple of 64.  Per-CTA partials over row chunks, reduced here in
+    a fixed order.  Callers count the launch (K9 here, K11 in
+    ops/synthesis_train.py)."""
     rows, K = X.shape
     N = Y.shape[1]
     tiles = -(-K // 64) * -(-N // 64)
@@ -431,8 +432,14 @@ def _wgrad(X, Y, stream):
     part = torch.empty(n_chunks, K, N, dtype=torch.float32, device=X.device)
     _launch("thgt_wgrad", X.data_ptr(), Y.data_ptr(), part.data_ptr(), K, N, rows, chunk_rows,
             n_chunks, stream)
-    launches_wgrad += 1
     return part.sum(0)
+
+
+def _wgrad(X, Y, stream):
+    global launches_wgrad
+    out = wgrad(X, Y, stream)
+    launches_wgrad += 1
+    return out
 
 
 def field_bwd_step_cuda(w, packed, freq_k, phase_k, g_out, coef, dsigma, num_steps: int,

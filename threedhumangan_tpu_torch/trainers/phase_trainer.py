@@ -43,7 +43,7 @@ from threedhumangan_tpu_torch.trainers.optim import (
     param_groups,
 )
 from threedhumangan_tpu_torch.utils.ema import ema_init, ema_update
-from threedhumangan_tpu_torch.utils.misc import normalize_2nd_moment
+from threedhumangan_tpu_torch.utils.misc import normalize_2nd_moment, resolve_device
 
 
 @dataclasses.dataclass
@@ -62,8 +62,9 @@ def make_optimizers(G, D, meta: Dict):
             make_adam(param_groups(D), betas))
 
 
-def init_train_state(meta: Dict, generator: torch.Generator, device=None) -> TrainState:
-    """Random G and D from ``generator`` (the JAX inits' distributions)."""
+def init_train_state(meta: Dict, generator: torch.Generator, device="cuda") -> TrainState:
+    """Random G and D from ``generator`` (the JAX inits' distributions) on ``device``."""
+    device = resolve_device(device)
     G = Map3DGenerator(meta, generator).to(device)
     D = UNetDiscriminator(meta, generator).to(device)
     opt_G, opt_D = make_optimizers(G, D, meta)

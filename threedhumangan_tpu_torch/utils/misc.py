@@ -6,6 +6,16 @@ from __future__ import annotations
 import torch
 
 
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point puts its tensors on: CUDA unless the caller
+    names another.  Raises when CUDA is asked for and there is none, so no
+    caller carries on on the CPU without having asked for it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
+    return dev
+
+
 def mm(x: torch.Tensor, w: torch.Tensor, compute_dtype=torch.float32) -> torch.Tensor:
     """``x @ w`` with both operands rounded to ``compute_dtype`` and the
     product accumulated in float32 — the JAX package's

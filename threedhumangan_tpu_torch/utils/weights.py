@@ -20,6 +20,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from threedhumangan_tpu_torch.utils.misc import resolve_device
+
 
 def _t(a) -> torch.Tensor:
     return torch.as_tensor(np.array(a))
@@ -133,7 +135,7 @@ def discriminator_state(params: Dict, state: Dict) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def train_state_from_jax(ts, meta: Dict, device=None):
+def train_state_from_jax(ts, meta: Dict, device="cuda"):
     """A JAX ``TrainState`` (params_G, state_G, params_D, state_D, ema, step;
     any array type) -> the port's ``TrainState`` on ``device``, with fresh
     optimizers (the JAX Adam moments are not carried over)."""
@@ -141,6 +143,7 @@ def train_state_from_jax(ts, meta: Dict, device=None):
     from threedhumangan_tpu_torch.models.generator import Map3DGenerator
     from threedhumangan_tpu_torch.trainers.phase_trainer import TrainState, make_optimizers
 
+    device = resolve_device(device)
     G = Map3DGenerator(meta)
     from_jax_params(ts.params_G, ts.state_G, G)
     D = UNetDiscriminator(meta)
