@@ -333,9 +333,63 @@ def check_synthesis(gen, meta, styles, gcuda):
     return dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms, **bd)
 
 
-def check_small_config():
+def run_generation(gen, pre, batch, z0, meta, gen_rng, label, need, forbid):
+    """WARMUP + TIMED batches through ``generator_forward`` with the counts
+    set to 0 just before and read just after: per-stage ms, imgs/s, peak
+    memory; the output must be (8, 512, 256, 3), finite and not constant,
+    every kernel of ``need`` must launch and none of ``forbid``."""
+    import torch
+
+    from threedhumangan_tpu_torch.models.generator import generator_forward
+
+    timer = StageTimer()
+    reset_counts()
+    walls = []
+    for it in range(WARMUP + TIMED):
+        timer.on = it >= WARMUP
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with timer.stage("conditions"):
+            cond = pre(batch, rotate=True, generator=gen_rng)
+        out = generator_forward(gen, z0 + 0.01 * it, cond, meta, gen_rng,
+                                compute_dtype=torch.bfloat16, stage=timer.stage)
+        torch.cuda.synchronize()
+        if timer.on:
+            walls.append(time.perf_counter() - t0)
+    counts = read_counts()
+    stage_ms = timer.mean_ms()
+    rgbs = out["rgbs"]
+    log(f"{label}: MAP3DBN512L batch {BATCH} bf16, {TIMED} timed batches after {WARMUP} warm-up")
+    for k in ("conditions", "mapping", "rays", "geo", "field", "resize", "synthesis"):
+        log(f"  stage {k:<10} {stage_ms[k]:9.3f} ms/batch")
+    total = sum(walls) / len(walls)
+    log(f"  total {total * 1e3:.3f} ms/batch (host clock)  {BATCH / total:.3f} imgs/s  "
+        f"stage sum {sum(stage_ms.values()):.3f} ms")
+    log(f"  launches during the slice: {counts}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  peak memory {peak:.2f} GiB")
+    if tuple(rgbs.shape) != (BATCH, meta["gen_height"], meta["gen_width"], 3):
+        raise AssertionError(f"bad output shape {tuple(rgbs.shape)}")
+    if not torch.isfinite(rgbs).all() or not torch.isfinite(out["rgbs_render"]).all():
+        raise AssertionError("non-finite output")
+    if float(rgbs.float().std()) <= 0.0:
+        raise AssertionError("constant output")
+    if min(counts[k] for k in need) <= 0:
+        raise AssertionError(f"a kernel did not launch during the slice: {counts}")
+    if any(counts[k] for k in forbid):
+        raise AssertionError(f"the slice launched a kernel its selection replaces: {counts}")
+    log(f"  output {tuple(rgbs.shape)} mean {float(rgbs.mean()):.4f} std {float(rgbs.std()):.4f}")
+    return dict(counts=counts, ms_per_batch=total * 1e3, imgs_per_s=BATCH / total,
+                stage_ms=stage_ms, peak_gib=peak)
+
+
+def check_small_config(flags=None, sigma_bias=None):
     """A small legacy/isolated config through generator_forward on the card
-    (kernels) and on the CPU (plain versions), same weights and inputs."""
+    (kernels) and on the CPU (plain versions), same weights and inputs.
+    ``flags`` select the generator's kernels.  ``sigma_bias`` (0.5) sets the
+    field's density bias: at these random weights every density otherwise
+    sits below the clamp and the render is the empty background on both
+    devices (as it is in the call with neither, kept as it was)."""
     import torch
 
     from threedhumangan_tpu_torch import configs
@@ -346,13 +400,17 @@ def check_small_config():
     from threedhumangan_tpu_torch.models.smpl import synthetic_smpl_model
 
     meta = dict(configs.extract_metadata(configs.MAP3DBN_TINY, 0))
-    meta.update(nerf_noise=0, perturb_rays=False, legacy_mode=True, map3d_mode="isolated")
+    meta.update(nerf_noise=0, perturb_rays=False, legacy_mode=True, map3d_mode="isolated",
+                **(flags or {}))
     smpl = synthetic_smpl_model(num_verts=384, num_faces=512)
     batch = next(iterate_batches(SyntheticSHHQDataset(smpl_model=smpl, **meta), 2, shuffle=False))
     z = torch.randn(2, meta["latent_dim"], generator=torch.Generator().manual_seed(SEED))
     outs = {}
     for dev in ("cuda", "cpu"):
         gen = init_generator(meta, torch.Generator().manual_seed(SEED), dev)
+        if sigma_bias is not None:
+            with torch.no_grad():
+                gen.neural_field.sigma_layer.bias.fill_(sigma_bias)
         cond = get_preprocessor(meta).forward_with_rotation(
             to_tensors(batch, dev), *(torch.zeros(2, device=dev),) * 3)
         outs[dev] = generator_forward(gen, z.to(dev), cond, meta, compute_dtype=torch.bfloat16)
@@ -360,7 +418,9 @@ def check_small_config():
     for k in ("rgbs_render", "rgbs"):
         mx, mean, _ = diff_stats(outs["cuda"][k].cpu(), outs["cpu"][k])
         res[k] = (mx, mean)
-    log(f"check small config (TINY, legacy, isolated, bf16) card vs CPU plain: "
+    extra = (f", {flags}" if flags else "") + (
+        f", density bias {sigma_bias:g}" if sigma_bias is not None else "")
+    log(f"check small config (TINY, legacy, isolated, bf16{extra}) card vs CPU plain: "
         f"rgbs_render max|d| {res['rgbs_render'][0]:.3e} mean|d| {res['rgbs_render'][1]:.3e}; "
         f"rgbs max|d| {res['rgbs'][0]:.3e} mean|d| {res['rgbs'][1]:.3e}")
     log("  tolerance: mean|d| <= 2e-2 for both (bf16 end to end, see the kernel checks)")
@@ -470,7 +530,7 @@ def _bwd_compare(w, pk, fr, ph, zv, go, gd, S, white_back, last_back, exact):
 
     bf16 = torch.bfloat16
     NB = sum(k.startswith("w_net") for k in w)
-    fk, pk_ = rb._film_tables(fr, ph, NB)
+    fk, pk_ = rb.film_tables(fr, ph, NB)
     sk, gk = rb.field_stats_cuda(w, pk, fk, pk_, go, S, exact_sin=exact)
     sp, gp = rb.field_stats_plain(w, pk, fk, pk_, go, S, compute_dtype=bf16, exact_sin=exact)
     coef, dsig = rb.backward_tables(sp, gp, zv, go, gd, white_back, last_back)
@@ -486,11 +546,38 @@ def _bwd_compare(w, pk, fr, ph, zv, go, gd, S, white_back, last_back, exact):
     return smx, gmx, errs, k9mx, (fk, pk_, coef, dsig)
 
 
-def check_field_bwd(G, meta, cond, gcuda):
+def train_field_inputs(G, meta, cond, gcuda):
+    """The training slice's field inputs, drawn from ``gcuda``: freq/phase
+    of fresh latents, jittered rays, K1 geo features, directions and nerf
+    noise 0.5.  Returns (freq, phase, points, z_vals (B, R, S), geo, dirs,
+    noise)."""
     import torch
 
     from threedhumangan_tpu_torch.models import volume_rendering as vr
     from threedhumangan_tpu_torch.models.smpl import get_geo_features
+
+    S, W, H = meta["num_steps"], meta["render_width"], meta["render_height"]
+    B = cond["scales"].shape[0]
+    with torch.no_grad():
+        z = torch.randn(B, meta["latent_dim"], generator=gcuda, device="cuda")
+        fr, ph = G.neural_field_mapping_network(z, torch.bfloat16)
+        pts_cam, z_vals, d_cam = vr.get_initial_rays_weak_perspective(
+            cond["intrinsics"][:, 0, 0], cond["scales"].float(), S, (W, H), meta["ray_start"],
+            meta["ray_end"])
+        pts, z_vals, _ = vr.transform_sampled_points(pts_cam, z_vals, d_cam,
+                                                     cond["cam2world_matrices"], gcuda, True)
+        pts = pts.reshape(B, -1, 3)
+        geo = get_geo_features(pts, cond["skeletons_xyz"], cond["vertices"],
+                               cond["tpose_vertices"], cond["fk_matrices"], cond["lbs_weights"])
+        dirs = torch.zeros_like(pts)
+        dirs[..., -1] = -1.0
+        noise = 0.5 * torch.randn(B, pts.shape[1], 1, generator=gcuda, device="cuda")
+    return fr, ph, pts, z_vals.reshape(B, W * H, S).contiguous(), geo, dirs, noise
+
+
+def check_field_bwd(G, meta, cond, gcuda):
+    import torch
+
     from threedhumangan_tpu_torch.ops import raymarch as rm
     from threedhumangan_tpu_torch.ops import raymarch_bwd as rb
 
@@ -513,25 +600,12 @@ def check_field_bwd(G, meta, cond, gcuda):
             raise AssertionError("K8/K9 (narrow) disagree with their plain versions")
 
     # full width: the slice's field, inputs and nerf noise
-    S, W, H = meta["num_steps"], meta["render_width"], meta["render_height"]
-    B = cond["scales"].shape[0]
+    S = meta["num_steps"]
     field = G.neural_field
+    fr, ph, pts, zv, geo, dirs, noise = train_field_inputs(G, meta, cond, gcuda)
+    B, W, H = pts.shape[0], meta["render_width"], meta["render_height"]
     with torch.no_grad():
-        z = torch.randn(B, meta["latent_dim"], generator=gcuda, device="cuda")
-        fr, ph = G.neural_field_mapping_network(z, bf16)
-        pts_cam, z_vals, d_cam = vr.get_initial_rays_weak_perspective(
-            cond["intrinsics"][:, 0, 0], cond["scales"].float(), S, (W, H), meta["ray_start"],
-            meta["ray_end"])
-        pts, z_vals, _ = vr.transform_sampled_points(pts_cam, z_vals, d_cam,
-                                                     cond["cam2world_matrices"], gcuda, True)
-        pts = pts.reshape(B, -1, 3)
-        geo = get_geo_features(pts, cond["skeletons_xyz"], cond["vertices"],
-                               cond["tpose_vertices"], cond["fk_matrices"], cond["lbs_weights"])
-        dirs = torch.zeros_like(pts)
-        dirs[..., -1] = -1.0
-        noise = 0.5 * torch.randn(B, pts.shape[1], 1, generator=gcuda, device="cuda")
         pk = rm.pack_field_inputs(pts, geo, dirs, 2.0 / meta["side_length"], noise).to(bf16)
-    zv = z_vals.reshape(B, W * H, S).contiguous()
     go = torch.randn(B, W * H, meta["feature_dim"] + 3, generator=gcuda, device="cuda")
     gd = torch.randn(B, W * H, 1, generator=gcuda, device="cuda")
     w = rb.flat_weights(field)
@@ -574,7 +648,7 @@ def check_field_bwd(G, meta, cond, gcuda):
     ag = torch.autograd.grad((out * go).sum() + (depth * gd).sum(),
                              list(field.parameters()) + [frq, phs])
     del out, depth
-    layer = rb._layer_names(field)
+    layer = rb.layer_names(field)
     aerr = {}
     for n, g in zip(names, ag):
         path, kind = n.rsplit(".", 1)
@@ -784,22 +858,353 @@ def check_half_blocks(gcuda, B, H, W, C, hid):
     return res
 
 
+# ---------------------------------------------------------------------------
+# K4-K6: the generator's other kernel selections
+# ---------------------------------------------------------------------------
+
+SELECTIONS = {"K4": dict(pallas_fold_film=False), "K5": dict(pallas_fuse_geo=True),
+              "K6": dict(pallas_geo=False, pallas_knn=True)}
+
+
+def check_knn(inp):
+    """K6 against its plain version at the slice's shapes; cdist + min as
+    the library yardstick."""
+    import torch
+
+    from threedhumangan_tpu_torch.ops import knn
+
+    pts, verts = inp["points"], inp["vertices"]
+    run_k = lambda: knn.nn_points_cuda(pts, verts)
+    run_p = lambda: knn.nn_points_plain(pts, verts, point_chunk=1024)
+    (dk, ik), (dp, ip) = run_k(), run_p()
+    torch.cuda.synchronize()
+    agree = float((ik == ip).float().mean())
+    mx = float((dk - dp).abs().max())
+    log(f"check K6 1-NN {tuple(pts.shape)} points x {verts.shape[1]} vertices: index agreement "
+        f"{agree * 100:.6f}%  distance max|d| {mx:.3e}")
+    log("  tolerance: index agreement 100% and distance max|d| == 0 (the same elementwise f32 "
+        "distance as the plain version, lowest index on ties)")
+    if agree != 1.0 or mx > 0:
+        raise AssertionError("K6 disagrees with its plain version")
+    ms = cuda_ms(run_k, 3)
+    plain_ms = cuda_ms(run_p, 1)
+    # one PyTorch call pair computes the same function: cdist, then min (a
+    # (B, P, V) float32 matrix of 32.5 GB at this shape)
+    lib_ms = cuda_ms(lambda: torch.cdist(pts, verts).min(-1), 1)
+    torch.cuda.empty_cache()
+    B, P, _ = pts.shape
+    V = verts.shape[1]
+    # ~9 float32 operations a (point, vertex) distance (csrc/nn_scan.cuh)
+    bd = bound(9 * B * P * V, 4 * (B * P * (3 + 1 + 1) + B * V * 3), PEAK_F32)
+    log(f"  time: kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  library (torch.cdist + min, two "
+        f"calls) {lib_ms:.3f} ms  bound {bd['bound_ms']:.3f} ms ({bd['bound_by']})")
+    return dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                library_call="torch.cdist(points, verts).min(-1): two calls", **bd)
+
+
+def _narrow_field(H, NB, F=24):
+    import torch
+
+    from threedhumangan_tpu_torch.models.siren import CoordConcatSiren
+    from threedhumangan_tpu_torch.ops import raymarch as rm
+
+    field = CoordConcatSiren(3, H, 31, F, NB,
+                             generator=torch.Generator().manual_seed(SEED + H + NB))
+    with torch.no_grad():  # a positive density, or a random field may sit below the clamp
+        field.sigma_layer.bias.fill_(0.5)
+    return rm.flat_weights(field.cuda())
+
+
+def _narrow_film(B, NB, H, gcuda):
+    import torch
+
+    from threedhumangan_tpu_torch.ops import raymarch as rm
+
+    fr = 0.1 * torch.randn(B, NB * H, generator=gcuda, device="cuda")
+    ph = 0.1 * torch.randn(B, NB * H, generator=gcuda, device="cuda")
+    return rm.film_tables(fr, ph, NB)
+
+
+NARROW_CASES = ((32, 4, False, False), (32, 4, True, True), (40, 4, True, False),
+                (32, 1, False, True))  # hidden (40 pads to 48), blocks, noise, last_back
+
+
+def geo_bound(packed, out, meta, V):
+    """K5's bound: the field pass (``field_bound``: bf16 products, packed in
+    and map out) or the f32 1-NN scan (~9 operations a (sample, vertex),
+    with the vertex tables read), whichever is longer: the tensor cores and
+    the f32 units run side by side."""
+    scan = bound(9 * packed.shape[0] * packed.shape[1] * V, packed.shape[0] * V * 22 * 4, PEAK_F32)
+    return max(field_bound(packed, out, meta, backward=0), scan, key=lambda d: d["bound_ms"])
+
+
+# K4/K5 at full width against their plain versions: a few times above the
+# sound readings (PERF.md section 6), and a share of bad rays and a worst
+# image, so that a fault confined to a few CTAs or one image fails
+RENDER_LIMITS = dict(mean=5e-4, p99=1e-3, image_p99=1e-3, bad_rays=5e-4, depth_mean=1e-4)
+BAD_RAY = 1e-2  # a ray is bad when one of its channels is off by more
+
+
+def check_render_stats(what, o_k, d_k, o_p, d_p, prefix=""):
+    """Log and hold a full-width render (B, R, C) + depth against its plain
+    version at ``RENDER_LIMITS``; returns the map's max |d|."""
+    import torch
+
+    mx, mean, p99 = diff_stats(o_k, o_p)
+    dmx, dmean, _ = diff_stats(d_k, d_p)
+    d = (o_k.float() - o_p.float()).abs()
+    # p99 and not the mean per image: the few far flips of a sound run
+    # (|d| ~ 1 on every channel of a ray) move one image's mean by ~1e-4 each
+    image_p99 = max(float(torch.quantile(x.flatten(), 0.99)) for x in d)
+    bad = float((d.amax(-1) > BAD_RAY).float().mean())
+    log(f"check {what}: {prefix}map max|d| {mx:.3e} mean|d| {mean:.3e} p99|d| {p99:.3e} "
+        f"worst image p99|d| {image_p99:.3e} rays with |d| > {BAD_RAY:g} {bad:.3e}; "
+        f"depth max|d| {dmx:.3e} mean|d| {dmean:.3e}")
+    lim = RENDER_LIMITS
+    log(f"  tolerance: map mean|d| <= {lim['mean']:g}, p99|d| <= {lim['p99']:g}, worst image "
+        f"p99|d| <= {lim['image_p99']:g}, share of bad rays <= {lim['bad_rays']:g}, depth "
+        f"mean|d| <= {lim['depth_mean']:g}")
+    if (mean > lim["mean"] or p99 > lim["p99"] or image_p99 > lim["image_p99"]
+            or bad > lim["bad_rays"] or dmean > lim["depth_mean"]):
+        raise AssertionError(f"{what}: disagrees with its plain version")
+    return mx
+
+
+def check_unfolded(gen, inp, geo_feats, meta, gcuda):
+    """K4 against its plain version: narrow pointwise, full width by
+    statistics; K4 against K2 on the same inputs for information."""
+    import torch
+
+    from threedhumangan_tpu_torch.ops import raymarch as rm
+
+    bf16 = torch.bfloat16
+    S = meta["num_steps"]
+    Bn, Rn = 2, 256
+    for H, NB, noise, last_back in NARROW_CASES:
+        w = _narrow_field(H, NB)
+        fk, pk_ = _narrow_film(Bn, NB, H, gcuda)
+        packed = 0.5 * torch.randn(Bn, Rn * S, rm.INPUT_PACK + noise, generator=gcuda,
+                                   device="cuda")
+        zv = torch.sort(torch.rand(Bn, Rn, S, generator=gcuda, device="cuda") + 1.0, -1).values
+        kw = dict(white_back=not last_back, last_back=last_back, exact_sin=True)
+        o_k, d_k = rm.field_render_unfolded_cuda(w, packed, fk, pk_, zv, S, **kw)
+        o_p, d_p = rm.field_render_unfolded_plain(w, packed, fk, pk_, zv, S, compute_dtype=bf16,
+                                                  **kw)
+        mx, mean, p99 = diff_stats(torch.cat([o_k, d_k], -1), torch.cat([o_p, d_p], -1))
+        log(f"check K4 unfolded field narrow (hidden {H}, {NB} blocks, exact sin, noise {noise}, "
+            f"last_back {last_back}): max|d| {mx:.3e} mean|d| {mean:.3e} p99|d| {p99:.3e}")
+        log("  tolerance: max|d| <= 5e-3, mean|d| <= 1e-5 (as K2: f32 sums in another order flip "
+            "occasional bf16 roundings of activations, which the omega-30 SIREN amplifies)")
+        if mx > 5e-3 or mean > 1e-5:
+            raise AssertionError("K4 (narrow) disagrees with its plain version")
+
+    # full width, the slice's inputs and weights: statistics
+    packed = rm.pack_field_inputs(inp["points"], geo_feats, inp["dirs"], 2.0 / meta["side_length"])
+    w = rm.flat_weights(gen.neural_field)
+    fk, pk_ = rm.film_tables(inp["freq"], inp["phase"], meta["neural_field_blocks"])
+    kw = dict(white_back=meta["white_back"], last_back=meta["last_back"],
+              exact_sin=not meta["fast_math"])
+    run_k = lambda: rm.field_render_unfolded_cuda(w, packed, fk, pk_, inp["z_vals"], S, **kw)
+    run_p = lambda: rm.field_render_unfolded_plain(w, packed, fk, pk_, inp["z_vals"], S,
+                                                   compute_dtype=bf16, **kw)
+    (o_k, d_k), (o_p, d_p) = run_k(), run_p()
+    mx = check_render_stats(f"K4 unfolded field full width {tuple(o_k.shape)}", o_k, d_k, o_p, d_p)
+    o_2, _ = rm.fused_field_render(gen.neural_field, packed, inp["freq"], inp["phase"],
+                                   inp["z_vals"], S, compute_dtype=bf16, **kw)
+    fmx, fmean, fp99 = diff_stats(o_k, o_2)
+    log(f"  K4 vs K2 (folded) on the same inputs, for information: map max|d| {fmx:.3e} mean|d| "
+        f"{fmean:.3e} p99|d| {fp99:.3e} (folding rounds the freq-scaled weights to bf16)")
+    ms = cuda_ms(run_k, 3)
+    plain_ms = cuda_ms(run_p, 1)
+    bd = field_bound(packed, o_k, meta, backward=0)
+    log(f"  time: kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound {bd['bound_ms']:.3f} ms "
+        f"({bd['bound_by']})")
+    return dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms, **bd)
+
+
+def _geo_case(inp, B, samples):
+    """Raw packed [points | dirs] of the slice's first ``samples`` samples of ``B`` images."""
+    import torch
+
+    return dict(packed=torch.cat([inp["points"][:B, :samples], inp["dirs"][:B, :samples]], -1),
+                verts=inp["vertices"][:B], vfeat=inp["vfeat"][:B], skel=inp["skeletons"][:B])
+
+
+def _geo_compare(w, fk, pk_, zv, case, S, scaler, legacy, kw, noise=None):
+    """K5 and its plain version on one case: outputs, depth, index agreement."""
+    import torch
+
+    from threedhumangan_tpu_torch.ops import geo
+    from threedhumangan_tpu_torch.ops import raymarch as rm
+
+    packed = case["packed"] if noise is None else torch.cat([case["packed"], noise], -1)
+    args = (w, packed, fk, pk_, zv, case["verts"], case["vfeat"], case["skel"], S, scaler)
+    o_k, d_k, idx = rm.field_render_geo_cuda(*args, legacy_mode=legacy, return_index=True, **kw)
+    o_p, d_p = rm.field_render_geo_plain(*args, compute_dtype=torch.bfloat16, legacy_mode=legacy,
+                                         **kw)
+    _, ref_idx = geo.nearest_vertex(packed[..., :3], case["verts"], point_chunk=1024)
+    torch.cuda.synchronize()
+    agree = float((idx.long() == ref_idx).float().mean())
+    return (o_k, d_k), (o_p, d_p), agree, packed, args
+
+
+def check_geo_fused(gen, inp, meta, gcuda):
+    """K5 against its plain version: narrow pointwise (with the slice's body
+    and rays), full width by statistics; 1-NN index agreement 100%."""
+    import torch
+
+    from threedhumangan_tpu_torch.ops import raymarch as rm
+
+    S = meta["num_steps"]
+    scaler = 2.0 / meta["side_length"]
+    legacy = meta["legacy_mode"]
+    Bn, Rn = 2, 256
+    narrow = _geo_case(inp, Bn, Rn * S)
+    zn = inp["z_vals"][:Bn, :Rn].contiguous()
+    for H, NB, noise, last_back in NARROW_CASES:
+        w = _narrow_field(H, NB)
+        fk, pk_ = _narrow_film(Bn, NB, H, gcuda)
+        nz = (0.5 * torch.randn(Bn, Rn * S, 1, generator=gcuda, device="cuda")) if noise else None
+        kw = dict(white_back=not last_back, last_back=last_back, exact_sin=True)
+        (o_k, d_k), (o_p, d_p), agree, _, _ = _geo_compare(w, fk, pk_, zn, narrow, S, scaler,
+                                                           legacy, kw, nz)
+        mx, mean, p99 = diff_stats(torch.cat([o_k, d_k], -1), torch.cat([o_p, d_p], -1))
+        log(f"check K5 geo-fused field narrow (hidden {H}, {NB} blocks, exact sin, noise {noise}, "
+            f"last_back {last_back}, legacy {legacy}): index agreement {agree * 100:.6f}%  "
+            f"max|d| {mx:.3e} mean|d| {mean:.3e} p99|d| {p99:.3e}")
+        log("  tolerance: index agreement 100% (the 1-NN distance is K1's elementwise form); "
+            "max|d| <= 5e-3, mean|d| <= 1e-5 as K4 (FMA contraction in the geo columns and f32 "
+            "sums in another order flip occasional bf16 roundings)")
+        if agree != 1.0 or mx > 5e-3 or mean > 1e-5:
+            raise AssertionError("K5 (narrow) disagrees with its plain version")
+
+    # full width: the slice's field, rays and body
+    full = _geo_case(inp, BATCH, inp["points"].shape[1])
+    w = rm.flat_weights(gen.neural_field)
+    fk, pk_ = rm.film_tables(inp["freq"], inp["phase"], meta["neural_field_blocks"])
+    kw = dict(white_back=meta["white_back"], last_back=meta["last_back"],
+              exact_sin=not meta["fast_math"])
+    (o_k, d_k), (o_p, d_p), agree, packed, args = _geo_compare(w, fk, pk_, inp["z_vals"], full, S,
+                                                               scaler, legacy, kw)
+    mx = check_render_stats(f"K5 geo-fused field full width {tuple(o_k.shape)}", o_k, d_k, o_p,
+                            d_p, f"index agreement {agree * 100:.6f}% (must be 100%)  ")
+    if agree != 1.0:
+        raise AssertionError("K5 (full width) picks other nearest vertices than its plain version")
+    run_k = lambda: rm.field_render_geo_cuda(*args, legacy_mode=legacy, **kw)
+    run_p = lambda: rm.field_render_geo_plain(*args, compute_dtype=torch.bfloat16,
+                                              legacy_mode=legacy, **kw)
+    ms = cuda_ms(run_k, 3)
+    plain_ms = cuda_ms(run_p, 1)
+    bd = geo_bound(packed, o_k, meta, full["verts"].shape[1])
+    log(f"  time: kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound {bd['bound_ms']:.3f} ms "
+        f"({bd['bound_by']})")
+    return dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms, **bd)
+
+
+def check_train_unfolded(G, meta, cond, gcuda):
+    """At the MAP3DBN training shapes: K5 with the noise column against its
+    plain version, and one ``FieldRender`` forward + backward with
+    ``fold_film=False`` (K4, then K8 + K9) against autograd through the
+    plain unfolded render."""
+    import torch
+
+    from threedhumangan_tpu_torch.ops import raymarch as rm
+    from threedhumangan_tpu_torch.ops import raymarch_bwd as rb
+    from threedhumangan_tpu_torch.ops.geo import build_vertex_features
+
+    bf16 = torch.bfloat16
+    fr, ph, pts, zv, geo_feats, dirs, noise = train_field_inputs(G, meta, cond, gcuda)
+    S, B = meta["num_steps"], pts.shape[0]
+    scaler = 2.0 / meta["side_length"]
+    legacy = meta.get("legacy_mode", False)
+    field = G.neural_field
+    w = rb.flat_weights(field)
+    fk, pk_ = rm.film_tables(fr, ph, meta["neural_field_blocks"])
+    wb, lb, exact = meta["white_back"], meta["last_back"], not meta["fast_math"]
+    kw = dict(white_back=wb, last_back=lb, exact_sin=exact)
+    vfeat = build_vertex_features(cond["tpose_vertices"], cond["fk_matrices"],
+                                  cond["lbs_weights"])
+    inp = dict(points=pts, dirs=dirs, vertices=cond["vertices"].float().contiguous(),
+               skeletons=cond["skeletons_xyz"].float().contiguous(), vfeat=vfeat)
+    case = _geo_case(inp, B, pts.shape[1])
+    (o_k, d_k), (o_p, d_p), agree, packed, args = _geo_compare(w, fk, pk_, zv, case, S, scaler,
+                                                               legacy, kw, noise)
+    mx = check_render_stats(
+        f"K5 geo-fused field training shapes {tuple(packed.shape)} raw packed, noise 0.5", o_k,
+        d_k, o_p, d_p, f"index agreement {agree * 100:.6f}% (must be 100%)  ")
+    if agree != 1.0:
+        raise AssertionError("K5 (training shapes) picks other nearest vertices than its plain "
+                             "version")
+    run_k = lambda: rm.field_render_geo_cuda(*args, legacy_mode=legacy, **kw)
+    run_p = lambda: rm.field_render_geo_plain(*args, compute_dtype=bf16, legacy_mode=legacy, **kw)
+    k5_train = dict(max_abs_err=mx, ms=cuda_ms(run_k, 3), plain_ms=cuda_ms(run_p, 1),
+                    **geo_bound(packed, o_k, meta, case["verts"].shape[1]))
+    log(f"  time: kernel {k5_train['ms']:.3f} ms  plain {k5_train['plain_ms']:.3f} ms  bound "
+        f"{k5_train['bound_ms']:.3f} ms ({k5_train['bound_by']})")
+    del o_k, d_k, o_p, d_p, args, case
+    torch.cuda.empty_cache()
+
+    # FieldRender with the K4 forward, on the 38-column packed inputs
+    pk = rm.pack_field_inputs(pts, geo_feats, dirs, scaler, noise)
+    go = torch.randn(B, zv.shape[1], meta["feature_dim"] + 3, generator=gcuda, device="cuda")
+    gd = torch.randn(B, zv.shape[1], 1, generator=gcuda, device="cuda")
+    names = [n for n, _ in field.named_parameters()]
+
+    def grads(fn, **extra):
+        frq, phs = fr.clone().requires_grad_(), ph.clone().requires_grad_()
+        out, depth = fn(field, pk, frq, phs, zv, S, wb, lb, bf16, exact, **extra)
+        g = torch.autograd.grad((out * go).sum() + (depth * gd).sum(),
+                                list(field.parameters()) + [frq, phs])
+        return out.detach(), dict(zip(names + ["freq", "phase"], g))
+
+    reset_counts()
+    out_k, g_k = grads(rb.field_render_trainable, fold_film=False)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    out_u, g_u = grads(rb.field_render_unfolded)
+    mx, mean, p99 = diff_stats(out_k, out_u)
+    aerr = {k: rel_l2(g_k[k], g_u[k]) for k in g_u}
+    worst = max(aerr, key=aerr.get)
+    log(f"check FieldRender with fold_film=False at the training shapes (K4 forward, K8 + K9 "
+        f"backward): forward vs the plain unfolded render max|d| {mx:.3e} mean|d| {mean:.3e} "
+        f"p99|d| {p99:.3e}; grads rel L2 vs autograd worst {aerr[worst]:.2e} ({worst}); "
+        f"launches {counts}")
+    lim = RENDER_LIMITS
+    log(f"  tolerance: forward mean|d| <= {lim['mean']:g} and p99|d| <= {lim['p99']:g} (as K4 "
+        "alone); grads rel L2 <= 5e-2 per tensor (as K8+K9 vs autograd); K4, K8 and K9 launch "
+        "and K2 does not")
+    if mean > lim["mean"] or p99 > lim["p99"] or aerr[worst] > 5e-2:
+        raise AssertionError("FieldRender (fold_film=False) disagrees with autograd")
+    if min(counts[k] for k in ("K4", "K8", "K9")) <= 0 or counts["K2"]:
+        raise AssertionError(f"FieldRender (fold_film=False) ran the wrong kernels: {counts}")
+    # K4 alone at these shapes
+    run_k = lambda: rm.field_render_unfolded_cuda(w, pk, fk, pk_, zv, S, **kw)
+    run_p = lambda: rm.field_render_unfolded_plain(w, pk, fk, pk_, zv, S, compute_dtype=bf16, **kw)
+    k4_train = dict(max_abs_err=mx, ms=cuda_ms(run_k, 3), plain_ms=cuda_ms(run_p, 1),
+                    **field_bound(pk, out_k, meta, backward=0))
+    log(f"  time: K4 kernel {k4_train['ms']:.3f} ms  plain {k4_train['plain_ms']:.3f} ms  bound "
+        f"{k4_train['bound_ms']:.3f} ms ({k4_train['bound_by']})")
+    return k4_train, k5_train
+
+
 def reset_counts():
-    from threedhumangan_tpu_torch.ops import (geo, rasterize, raymarch, raymarch_bwd,
+    from threedhumangan_tpu_torch.ops import (geo, knn, rasterize, raymarch, raymarch_bwd,
                                               synthesis_kernel, synthesis_train)
 
-    for mod in (geo, raymarch, rasterize, synthesis_kernel):
+    for mod in (geo, knn, raymarch, rasterize, synthesis_kernel):
         mod.launches = 0
+    raymarch.launches_unfolded = raymarch.launches_geo = 0
     raymarch_bwd.launches_stats = raymarch_bwd.launches_bwd = raymarch_bwd.launches_wgrad = 0
     synthesis_train.launches_fwd = synthesis_train.launches_bwd = 0
     synthesis_train.launches_wgrad = 0
 
 
 def read_counts():
-    from threedhumangan_tpu_torch.ops import (geo, rasterize, raymarch, raymarch_bwd,
+    from threedhumangan_tpu_torch.ops import (geo, knn, rasterize, raymarch, raymarch_bwd,
                                               synthesis_kernel, synthesis_train)
 
     return {"K1": geo.launches, "K2": raymarch.launches, "K3": synthesis_kernel.launches,
+            "K4": raymarch.launches_unfolded, "K5": raymarch.launches_geo, "K6": knn.launches,
             "K7": rasterize.launches, "K8": raymarch_bwd.launches_stats,
             "K9": raymarch_bwd.launches_bwd,
             "K9 weight-gradient reduction": raymarch_bwd.launches_wgrad,
@@ -954,7 +1359,7 @@ def main():
     from threedhumangan_tpu_torch.data.dataset import (
         SyntheticSHHQDataset, iterate_batches, to_tensors)
     from threedhumangan_tpu_torch.data.preprocessor import get_preprocessor
-    from threedhumangan_tpu_torch.models.generator import generator_forward, init_generator
+    from threedhumangan_tpu_torch.models.generator import init_generator
     from threedhumangan_tpu_torch.models.smpl import synthetic_smpl_model
     from threedhumangan_tpu_torch.trainers.phase_trainer import init_train_state
 
@@ -987,46 +1392,37 @@ def main():
         geo_feats, k1 = check_geo(inp, meta)
         k2 = check_field(gen, inp, geo_feats, meta)
         k3 = check_synthesis(gen, meta, styles, gcuda)
+        # K6, K4, K5 at the slice's shapes (a generator of their own keeps
+        # the draws of every other phase as they were)
+        gsel = torch.Generator(device=dev).manual_seed(SEED + 4)
+        k6 = check_knn(inp)
+        k4 = check_unfolded(gen, inp, geo_feats, meta, gsel)
+        k5 = check_geo_fused(gen, inp, meta, gsel)
     del inp, geo_feats
     torch.cuda.empty_cache()
 
     # ---- 4. the slice through the port's entry point
-    timer = StageTimer()
-    reset_counts()
-    walls = []
-    for it in range(WARMUP + TIMED):
-        timer.on = it >= WARMUP
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with timer.stage("conditions"):
-            cond = pre(batch, rotate=True, generator=gcuda)
-        out = generator_forward(gen, z0 + 0.01 * it, cond, meta, gcuda,
-                                compute_dtype=torch.bfloat16, stage=timer.stage)
-        torch.cuda.synchronize()
-        if timer.on:
-            walls.append(time.perf_counter() - t0)
-    counts = read_counts()
-    stage_ms = timer.mean_ms()
-    rgbs = out["rgbs"]
-    log(f"slice: MAP3DBN512L batch {BATCH} bf16, {TIMED} timed batches after {WARMUP} warm-up")
-    for k in ("conditions", "mapping", "rays", "geo", "field", "resize", "synthesis"):
-        log(f"  stage {k:<10} {stage_ms[k]:9.3f} ms/batch")
-    total = sum(walls) / len(walls)
-    log(f"  total {total * 1e3:.3f} ms/batch (host clock)  {BATCH / total:.3f} imgs/s  "
-        f"stage sum {sum(stage_ms.values()):.3f} ms")
-    log(f"  launches during the slice: {counts}")
-    log(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if tuple(rgbs.shape) != (BATCH, meta["gen_height"], meta["gen_width"], 3):
-        raise AssertionError(f"bad output shape {tuple(rgbs.shape)}")
-    if not torch.isfinite(rgbs).all() or not torch.isfinite(out["rgbs_render"]).all():
-        raise AssertionError("non-finite output")
-    if float(rgbs.float().std()) <= 0.0:
-        raise AssertionError("constant output")
-    if min(counts[k] for k in ("K1", "K2", "K3")) <= 0:
-        raise AssertionError(f"a kernel did not launch during the slice: {counts}")
-    log(f"  output {tuple(rgbs.shape)} mean {float(rgbs.mean()):.4f} std {float(rgbs.std()):.4f}")
+    torch.cuda.reset_peak_memory_stats()
+    default = run_generation(gen, pre, batch, z0, meta, gcuda, "slice", ("K1", "K2", "K3"),
+                             ("K4", "K5", "K6"))
+    counts = default["counts"]
     check_small_config()
-    del gen, out, rgbs, cond
+    check_small_config(sigma_bias=0.5)  # the default path with a rendered body
+
+    # ---- 4b. the generator's other kernel selections, same weights and latents
+    gpath = torch.Generator(device=dev).manual_seed(SEED + 5)
+    need = {"K4": ("K1", "K4", "K3"), "K5": ("K5", "K3"), "K6": ("K6", "K2", "K3")}
+    forbid = {"K4": ("K2", "K5", "K6"), "K5": ("K1", "K2", "K4", "K6"), "K6": ("K1", "K4", "K5")}
+    sel_runs = {}
+    for k, flags in SELECTIONS.items():
+        torch.cuda.reset_peak_memory_stats()
+        sel_runs[k] = run_generation(gen, pre, batch, z0, dict(meta, **flags), gpath,
+                                     f"slice on {k} ({flags})", need[k], forbid[k])
+        check_small_config(flags, sigma_bias=0.5)
+    log("  generation by selection, ms/batch (imgs/s): "
+        + ", ".join(f"{k} {r['ms_per_batch']:.3f} ({r['imgs_per_s']:.3f})"
+                    for k, r in {"default K1+K2": default, **sel_runs}.items()))
+    del gen
     torch.cuda.empty_cache()
 
     # ---- 5. training-path kernels against their plain versions
@@ -1038,6 +1434,8 @@ def main():
     tcond = tpre(tbatch, rotate=True, generator=gcuda)
     k7 = check_raster(tpre, tcond, tmeta)
     k2_train, k8, k9 = check_field_bwd(ts.G, tmeta, tcond, gcuda)
+    k4_train, k5_train = check_train_unfolded(ts.G, tmeta, tcond,
+                                              torch.Generator(device=dev).manual_seed(SEED + 6))
     del tcond
     torch.cuda.empty_cache()
 
@@ -1065,6 +1463,7 @@ def main():
     src = "threedhumangan_tpu_torch/csrc/"
     paths = {"generation": counts, "training_per_op": per_op["counts"],
              "training_fused": fused["counts"], "trainer": trainer_counts}
+    paths.update({f"generation_{k}": r["counts"] for k, r in sel_runs.items()})
     by_path = lambda k: {p: c.get(k, 0) for p, c in paths.items()}
     tc, fc = per_op["counts"], fused["counts"]
     kernels = [
@@ -1094,14 +1493,47 @@ def main():
              weight_gradient_reduction_launches=fc["K11 weight-gradient reduction"],
              case="spatial with the fixed row", rank1=hb["rank1"]["k11"],
              **hb["spatial"]["k11"]),
+        dict(name="K4 unfolded field render", route="cuda", source=src + "raymarch_unfolded.cu",
+             replaces="threedhumangan_tpu/ops/raymarch.py:149",
+             launches=sel_runs["K4"]["counts"]["K4"], training_shapes=k4_train, **k4),
+        dict(name="K5 geo-fused field render", route="cuda", source=src + "raymarch_geo.cu",
+             replaces="threedhumangan_tpu/ops/raymarch.py:1037",
+             launches=sel_runs["K5"]["counts"]["K5"], training_shapes=k5_train, **k5),
+        dict(name="K6 1-NN search", route="cuda", source=src + "knn.cu",
+             replaces="threedhumangan_tpu/ops/knn.py:80", launches=sel_runs["K6"]["counts"]["K6"],
+             **k6),
     ]
+    # time above the bound, ms per iteration of the kernel's main path(s):
+    # launches per batch (generation; K4-K6 on their selections) or per
+    # fused pair (training) x (ms - bound).  K9's and K11's ms are per call
+    # (K9: a call is BATCH / IMAGES_PER_LAUNCH launches); K10/K11 run spatial
+    # on the mod blocks' half-blocks (6 of 18 in MAP3DBN) and rank-1 on the
+    # rest.
+    from threedhumangan_tpu_torch.ops.raymarch_bwd import IMAGES_PER_LAUNCH
+
+    it = WARMUP + TIMED
+    gap = lambda d: d["ms"] - d["bound_ms"]
+    sp = len(tmeta["mod_blocks"]) / tmeta["synthesis_blocks"]
+    split = lambda r: sp * gap(r["spatial"]) + (1 - sp) * gap(r["rank1"])
+    excess = {
+        "K1": gap(k1) * counts["K1"], "K2": gap(k2) * counts["K2"] + gap(k2_train) * fc["K2"],
+        "K3": gap(k3) * counts["K3"], "K4": gap(k4) * sel_runs["K4"]["counts"]["K4"],
+        "K5": gap(k5) * sel_runs["K5"]["counts"]["K5"],
+        "K6": gap(k6) * sel_runs["K6"]["counts"]["K6"], "K7": gap(k7) * fc["K7"],
+        "K8": gap(k8) * fc["K8"], "K9": gap(k9) * fc["K9"] / (BATCH // IMAGES_PER_LAUNCH),
+        "K10": split({c: hb[c]["k10"] for c in hb}) * fc["K10"],
+        "K11": split({c: hb[c]["k11"] for c in hb}) * fc["K11"]}
     for k in kernels:
-        # no single PyTorch call computes any of these functions (PERF.md)
-        k["library_ms"] = None
+        # no single PyTorch call computes the other functions (PERF.md)
+        k.setdefault("library_ms", None)
         k["launches_by_path"] = by_path(k["name"].split()[0])
+        k["excess_ms_per_iteration"] = excess[k["name"].split()[0]] / it
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
             if not math.isfinite(k[key]):
                 raise AssertionError(f"{k['name']}: {key} is not finite")
+    order = sorted(kernels, key=lambda k: -k["excess_ms_per_iteration"])
+    log("kernels by ms above their bound per main-path iteration (a batch or a fused pair): "
+        + ", ".join(f"{k['name'].split()[0]} {k['excess_ms_per_iteration']:.3f}" for k in order))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -178,7 +178,7 @@ def test_bwd_kernel_wrappers_reject_malformed_input():
     _, field = _field(5)
     packed, freq, phase, z_vals, g_out, _ = map(torch.as_tensor, _inputs(5))
     w = rb.flat_weights(field)
-    fk, pk = rb._film_tables(freq, phase, NB)
+    fk, pk = rb.film_tables(freq, phase, NB)
     with pytest.raises(ValueError, match="columns"):
         rb.field_stats_cuda(w, packed[..., :-1], fk, pk, g_out, S)
     with pytest.raises(ValueError, match="divisible"):  # 32 rows do not tile 64

@@ -41,6 +41,16 @@ SIGNATURES = {
     # B, R, S, n_cols, n_in, k0p, n0p, hp, n_blocks, out_width, head_np,
     # white_back, last_back, exact_sin, stream
     "thgt_raymarch": [_P] * 16 + [_I] * 14 + [_P],
+    # pts, verts, dist, idx, B, P, V, stream
+    "thgt_nn": [_P] * 4 + [_I] * 3 + [_P],
+    # packed (f32), z, the 14 tables of thgt_field_stats, out, depth, B, R, S,
+    # n_cols, n_in, k0p, n0p, hp, n_blocks, out_width, headp, white_back,
+    # last_back, exact_sin, stream
+    "thgt_raymarch_unfolded": [_P] * 18 + [_I] * 14 + [_P],
+    # packed (raw f32), z, verts, vfeat, skel, idx_out (or null), the 14
+    # tables, out, depth, B, R, S, n_cols, V, J, legacy, scaler, k0p, n0p,
+    # hp, n_blocks, out_width, headp, white_back, last_back, exact_sin, stream
+    "thgt_raymarch_geo": [_P] * 22 + [_I] * 7 + [_F] + [_I] * 9 + [_P],
     # style, fixed, gab, in_w, in_b, conv_w, conv_b, sh_w, sh_b, g_w, g_b,
     # bt_w, bt_b, rgb_w, rgb_b, rgb_out,
     # B, H, W, F, fp, hp, num_blocks, n_gab, add_fixed, mod_mask, stream

@@ -14,13 +14,15 @@
 // Design: one thread per point, 256 points per CTA.  The CTA stages the
 // image's vertex table into shared memory in chunks (every thread then reads
 // the same vertex: a broadcast, no bank conflicts) and each thread scans it
-// with a strict-less compare, which keeps the lowest index on exact ties.
-// The distance is formed with __fsub_rn/__fmul_rn/__fadd_rn in the order of
-// the plain PyTorch version's elementwise ops (((dx^2) + dy^2) + dz^2), so
-// the argmin is bit-identical to it.  The winner's 19-float feature row is
-// one indexed global load (the TPU's one-hot gather matmul has no place
-// here); joint distances read a shared-memory skeleton.
+// with a strict-less compare, which keeps the lowest index on exact ties
+// (nn_scan.cuh, shared with K5 and K6: the distance is formed in the plain
+// PyTorch version's elementwise op order, so the argmin is bit-identical to
+// it).  The winner's 19-float feature row is one indexed global load (the
+// TPU's one-hot gather matmul has no place here); joint distances read a
+// shared-memory skeleton.
 #include <cuda_runtime.h>
+
+#include "nn_scan.cuh"
 
 namespace {
 
@@ -43,30 +45,9 @@ __global__ void __launch_bounds__(kThreads) geo_kernel(
   const float px = pb[0], py = pb[1], pz = pb[2];
   for (int j = threadIdx.x; j < J * 3; j += kThreads) sskel[j] = skel[(size_t)b * J * 3 + j];
 
-  float best = __int_as_float(0x7f800000);  // +inf
-  int best_i = 0;
-  const float* vb = verts + (size_t)b * V * 3;
-  for (int v0 = 0; v0 < V; v0 += kChunk) {
-    const int n = min(kChunk, V - v0);
-    __syncthreads();
-    for (int i = threadIdx.x; i < n; i += kThreads) {
-      const float* v = vb + (size_t)(v0 + i) * 3;
-      sv[i] = make_float4(v[0], v[1], v[2], 0.f);
-    }
-    __syncthreads();
-    for (int i = 0; i < n; ++i) {
-      const float4 v = sv[i];
-      const float dx = __fsub_rn(px, v.x), dy = __fsub_rn(py, v.y), dz = __fsub_rn(pz, v.z);
-      float d = __fmul_rn(dx, dx);
-      d = __fadd_rn(d, __fmul_rn(dy, dy));
-      d = __fadd_rn(d, __fmul_rn(dz, dz));
-      if (d < best) {
-        best = d;
-        best_i = v0 + i;
-      }
-    }
-  }
-  __syncthreads();
+  float best;
+  int best_i;
+  thgt::nn_scan_cta(verts + (size_t)b * V * 3, V, sv, kChunk, px, py, pz, best, best_i);
   if (!valid) return;
 
   const float* g = vfeat + ((size_t)b * V + best_i) * kVfeat;

@@ -59,18 +59,6 @@ struct Args {
   int white_back, last_back, exact_sin;
 };
 
-// the JAX package's degree-9 range-reduced sine
-__device__ __forceinline__ float fast_sin(float x) {
-  const float k = rintf(x * 0.15915494309189535f);
-  const float y = x - k * 6.283185307179586f;
-  const float y2 = y * y;
-  return y * (0.999979407588f +
-              y2 * (-0.166624416001f +
-                    y2 * (0.00830899784978f + y2 * (-0.000192651914745f + y2 * 2.14797007513e-06f))));
-}
-
-__device__ __forceinline__ float act_sin(float x, int exact) { return exact ? sinf(x) : fast_sin(x); }
-
 __global__ void __launch_bounds__(kThreads, 1) raymarch_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int S = a.S, hp = a.hp, rpc = kRows / S;

@@ -81,33 +81,6 @@ struct Saved {             // K9's per-sample buffers, rows = B * P of this laun
   float* part; // (rows / 64, n_part) per-CTA column sums
 };
 
-constexpr float kC1 = 0.999979407588f, kC3 = -0.166624416001f, kC5 = 0.00830899784978f,
-                kC7 = -0.000192651914745f, kC9 = 2.14797007513e-06f;
-
-__device__ __forceinline__ float fast_sin(float x) {
-  const float k = rintf(x * 0.15915494309189535f);
-  const float y = x - k * 6.283185307179586f;
-  const float y2 = y * y;
-  return y * (kC1 + y2 * (kC3 + y2 * (kC5 + y2 * (kC7 + y2 * kC9))));
-}
-
-// exact derivative of fast_sin (ops/raymarch_bwd.py::fast_sin_grad)
-__device__ __forceinline__ float fast_sin_grad(float x) {
-  const float k = rintf(x * 0.15915494309189535f);
-  const float y = x - k * 6.283185307179586f;
-  const float y2 = y * y;
-  return kC1 + y2 * (float(3.0 * -0.166624416001) +
-                     y2 * (float(5.0 * 0.00830899784978) +
-                           y2 * (float(7.0 * -0.000192651914745) + y2 * float(9.0 * 2.14797007513e-06))));
-}
-
-__device__ __forceinline__ float act_sin(float x, int exact) { return exact ? sinf(x) : fast_sin(x); }
-__device__ __forceinline__ float act_sin_grad(float x, int exact) {
-  return exact ? cosf(x) : fast_sin_grad(x);
-}
-// f * v + p, rounded as two operations (the JAX order, no FMA)
-__device__ __forceinline__ float film(float f, float v, float p) { return __fadd_rn(__fmul_rn(f, v), p); }
-
 // 64 rows x ncols (a multiple of 8) bf16: shared (row stride lds) -> global (row stride ldg)
 __device__ __forceinline__ void copy_tile(bf16* g, int ldg, const bf16* s, int lds, int ncols) {
   const int vecs = ncols / 8;

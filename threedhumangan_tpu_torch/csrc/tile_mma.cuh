@@ -1,4 +1,4 @@
-// Tile-GEMM helpers shared by the field (raymarch.cu, raymarch_bwd.cu) and
+// Tile-GEMM helpers shared by the field (raymarch*.cu, raymarch_bwd.cu) and
 // synthesis (synthesis.cu, synthesis_train.cu) kernels: one CTA holds a
 // 64-row activation tile in shared memory (bf16) and multiplies it by each
 // layer's weights on tensor cores through nvcuda::wmma bf16 16x16x16
@@ -186,6 +186,34 @@ __device__ __forceinline__ void layer_colsum(const bf16* src, int lds, const bf1
     }
   });
 }
+
+// the JAX package's degree-9 range-reduced sine (ops/raymarch.py::fast_sin)
+constexpr float kSinC1 = 0.999979407588f, kSinC3 = -0.166624416001f, kSinC5 = 0.00830899784978f,
+                kSinC7 = -0.000192651914745f, kSinC9 = 2.14797007513e-06f;
+
+__device__ __forceinline__ float fast_sin(float x) {
+  const float k = rintf(x * 0.15915494309189535f);
+  const float y = x - k * 6.283185307179586f;
+  const float y2 = y * y;
+  return y * (kSinC1 + y2 * (kSinC3 + y2 * (kSinC5 + y2 * (kSinC7 + y2 * kSinC9))));
+}
+
+// exact derivative of fast_sin (ops/raymarch_bwd.py::fast_sin_grad)
+__device__ __forceinline__ float fast_sin_grad(float x) {
+  const float k = rintf(x * 0.15915494309189535f);
+  const float y = x - k * 6.283185307179586f;
+  const float y2 = y * y;
+  return kSinC1 + y2 * (float(3.0 * -0.166624416001) +
+                        y2 * (float(5.0 * 0.00830899784978) +
+                              y2 * (float(7.0 * -0.000192651914745) + y2 * float(9.0 * 2.14797007513e-06))));
+}
+
+__device__ __forceinline__ float act_sin(float x, int exact) { return exact ? sinf(x) : fast_sin(x); }
+__device__ __forceinline__ float act_sin_grad(float x, int exact) {
+  return exact ? cosf(x) : fast_sin_grad(x);
+}
+// FiLM f * v + p, rounded as two operations (the JAX order, no FMA)
+__device__ __forceinline__ float film(float f, float v, float p) { return __fadd_rn(__fmul_rn(f, v), p); }
 
 __device__ __forceinline__ float bf(float x) { return __bfloat162float(__float2bfloat16(x)); }
 

@@ -2,28 +2,49 @@
 (threedhumangan_tpu/models/generator.py).
 
 ``generator_forward`` / ``staged_forward`` (eval) run: the mapping
-networks, weak-perspective rays, K1 geo features
-(``models.smpl.get_geo_features``), K2 field render
-(``ops.raymarch.fused_field_render``), a bilinear resize of the feature map,
-and K3 synthesis (``ops.synthesis_kernel.fused_synthesis``), under no-grad.
+networks, weak-perspective rays, the geo features
+(``models.smpl.get_geo_features``), the field render, a bilinear resize of
+the feature map, and K3 synthesis (``ops.synthesis_kernel.fused_synthesis``),
+under no-grad.
+
+The JAX meta flags that pick the field path's kernels select the port's
+counterparts, with the JAX package's on-accelerator values as defaults
+(``bench.py:70-80``):
+
+  pallas_geo (True)         K1 geo features; False: torch around a 1-NN
+  pallas_knn (True)         with pallas_geo False: the 1-NN on K6, else the
+                            plain expanded-form search (``ops.knn.knn_points``)
+  pallas_fold_film (True)   K2 folded field render; False: K4 unfolded
+  pallas_march_loop (False) True: K4 (the JAX loop-mode kernel)
+  pallas_fuse_geo (False)   True: K5, the geo features inside the field
+                            render (no K1, K2 or K6), off the grad path and
+                            without ``disable_modulation``
+
+(``ops.raymarch.fused_field_render`` also takes K4 for a field with fewer
+than 2 trunk blocks.)  The TPU-only knobs ``pallas_tile_rays``,
+``pallas_step_pack``, ``pallas_fold_pipe2``, ``pallas_geo_tile_points``,
+``pallas_geo_tile_rays`` and ``pallas_interpret`` size or schedule Pallas
+kernels and have no role here.  The field always renders through the
+kernels' path: ``pallas_field``, ``pallas_field_train`` or
+``pallas_field_bwd`` set to False (the XLA field and its remat backward)
+raise ``NotImplementedError``.
 
 ``generator_forward(train=True)`` is the training forward: the nerf noise
-(``noise_std * randn`` from the generator) rides as K2's noise column, the
-synthesis runs in train mode (batch moments; BN running stats and
-spectral-norm ``u`` updated in place), per op or, with
+(``noise_std * randn`` from the generator) rides as the field render's
+noise column, the synthesis runs in train mode (batch moments; BN running
+stats and spectral-norm ``u`` updated in place), per op or, with
 ``meta['pallas_synthesis_train']``, on the fused half-blocks (K10 forward,
 K11 backward), and it returns (outputs, the synthesis state).
-``pallas_ok=True`` (the D step's fakes, under no-grad) renders with K2
-alone; ``pallas_ok=False`` (the G step) renders through
-``ops.raymarch_bwd.FieldRender``, K2 forward with the K8/K9 backward.
+``pallas_ok=True`` (the D step's fakes, under no-grad) renders with the
+selected kernel alone; ``pallas_ok=False`` (the G step) renders through
+``ops.raymarch_bwd.FieldRender``, K2 or K4 forward with the K8/K9 backward.
 
 On a CUDA device every kernel launches; on the CPU each wrapper runs its
-plain PyTorch version.  Of the JAX meta flags that pick Pallas paths
-(``pallas_*``) only ``pallas_synthesis_train`` has a meaning here.  Not
-ported: hierarchical sampling, ``disable_render`` (the condition-image
-style head), ``disable_synthesis``, 2D label/latent inputs, and nerf noise
-at eval; each raises ``NotImplementedError``.  ``remat_synthesis`` changes
-memory only and is not applied.
+plain PyTorch version.  Not ported: hierarchical sampling,
+``disable_render`` (the condition-image style head), ``disable_synthesis``,
+2D label/latent inputs, and nerf noise at eval; each raises
+``NotImplementedError``.  ``remat_synthesis`` changes memory only and is not
+applied.
 """
 
 from __future__ import annotations
@@ -40,7 +61,9 @@ from threedhumangan_tpu_torch.models import volume_rendering as vr
 from threedhumangan_tpu_torch.models.mapping import MappingNetwork, TwoPartMappingNetwork
 from threedhumangan_tpu_torch.models.siren import NEURAL_FIELD_REGISTRY
 from threedhumangan_tpu_torch.models.smpl import get_geo_features
-from threedhumangan_tpu_torch.ops.raymarch import fused_field_render, pack_field_inputs
+from threedhumangan_tpu_torch.ops.geo import build_vertex_features
+from threedhumangan_tpu_torch.ops.raymarch import (fused_field_render, fused_field_render_geo,
+                                                  pack_field_inputs)
 from threedhumangan_tpu_torch.ops.raymarch_bwd import field_render_trainable
 from threedhumangan_tpu_torch.ops.synthesis_kernel import fold_synthesis_params, fused_synthesis
 from threedhumangan_tpu_torch.utils.misc import resolve_device
@@ -118,9 +141,16 @@ def render(gen: Map3DGenerator, freq, phase, conditions: Dict, meta: Dict,
     ``FieldRender`` so that gradients reach the field and freq/phase."""
     if meta.get("hierarchical_sample", False) or meta["clamp_mode"] != "relu":
         raise NotImplementedError("hierarchical sampling / softplus clamp")
+    for key in ("pallas_field", "pallas_field_train", "pallas_field_bwd"):
+        if not meta.get(key, True):
+            raise NotImplementedError(f"{key}=False: the XLA field path is not ported")
     noise_std = meta.get("nerf_noise", 0.5) if nerf_noise is None else nerf_noise
     if noise_std != 0 and not train:
         raise NotImplementedError("nerf noise belongs to training; set meta['nerf_noise'] = 0")
+    # the geo features inside the field render: off the grad path and
+    # without disable_modulation (JAX generator.py:215-220)
+    fuse_geo = (meta.get("pallas_fuse_geo", False) and not grad_field
+                and not meta.get("disable_modulation", False))
     render_w, render_h, S = meta["render_width"], meta["render_height"], meta["num_steps"]
     B = freq.shape[0]
     with stage("rays"):
@@ -136,26 +166,41 @@ def render(gen: Map3DGenerator, freq, phase, conditions: Dict, meta: Dict,
         if meta.get("lock_view_dependence", False):
             dirs = torch.zeros_like(dirs)
             dirs[..., -1] = -1.0
+    f32 = lambda t: t.float().contiguous()
     with stage("geo"):
-        if meta.get("disable_modulation", False):
+        if fuse_geo:  # only the per-vertex [inverse-FK 16; T-pose 3] table
+            vfeat = build_vertex_features(conditions["tpose_vertices"], conditions["fk_matrices"],
+                                          conditions["lbs_weights"])
+        elif meta.get("disable_modulation", False):
             geo = points.new_zeros(B, points.shape[1], meta["geo_feature_dim"])
         else:
             geo = get_geo_features(
-                points, conditions["skeletons_xyz"].float(), conditions["vertices"].float(),
-                conditions["tpose_vertices"].float(), conditions["fk_matrices"].float(),
-                conditions["lbs_weights"].float(), legacy_mode=meta.get("legacy_mode", False))
+                points, f32(conditions["skeletons_xyz"]), f32(conditions["vertices"]),
+                f32(conditions["tpose_vertices"]), f32(conditions["fk_matrices"]),
+                f32(conditions["lbs_weights"]), legacy_mode=meta.get("legacy_mode", False),
+                use_pallas_knn=meta.get("pallas_knn", True),
+                use_pallas_geo=meta.get("pallas_geo", True))
     with stage("field"):
         noise = None
         if noise_std != 0:
             noise = noise_std * torch.randn(B, points.shape[1], 1, generator=generator,
                                             device=points.device)
-        packed = pack_field_inputs(points, geo, dirs, 2.0 / meta["side_length"], noise=noise)
-        render_fn = field_render_trainable if grad_field else fused_field_render
-        render_out, depths = render_fn(
-            gen.neural_field, packed, freq, phase,
-            z_vals.reshape(B, render_w * render_h, S), S,
-            white_back=meta.get("white_back", False), last_back=meta.get("last_back", False),
-            compute_dtype=compute_dtype, exact_sin=not meta.get("fast_math", True))
+        z_flat = z_vals.reshape(B, render_w * render_h, S)
+        kw = dict(white_back=meta.get("white_back", False), last_back=meta.get("last_back", False),
+                  compute_dtype=compute_dtype, exact_sin=not meta.get("fast_math", True))
+        if fuse_geo:
+            packed = torch.cat([points, dirs] + ([noise] if noise is not None else []), -1)
+            render_out, depths = fused_field_render_geo(
+                gen.neural_field, packed, freq, phase, z_flat, f32(conditions["vertices"]),
+                vfeat, f32(conditions["skeletons_xyz"]), S, 2.0 / meta["side_length"],
+                legacy_mode=meta.get("legacy_mode", False), **kw)
+        else:
+            packed = pack_field_inputs(points, geo, dirs, 2.0 / meta["side_length"], noise=noise)
+            render_fn = field_render_trainable if grad_field else fused_field_render
+            # the JAX loop-mode kernel is the unfolded one: both select K4
+            fold = meta.get("pallas_fold_film", True) and not meta.get("pallas_march_loop", False)
+            render_out, depths = render_fn(gen.neural_field, packed, freq, phase, z_flat, S,
+                                           fold_film=fold, **kw)
     render_out = render_out.reshape(B, render_h, render_w, -1)
     return render_out[..., :3] * 2.0 - 1.0, render_out[..., 3:], depths
 

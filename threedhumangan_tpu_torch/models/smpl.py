@@ -5,7 +5,8 @@
 JAX version, so both packages build identical constants from one seed.
 ``get_geo_features`` is the 31-d conditioning; it runs through
 ``ops.geo.geo_features`` (K1 on a CUDA tensor, its plain version on a CPU
-tensor).
+tensor), or, with the fused geo kernel off, in torch around the 1-NN of
+``ops.knn`` (K6, or the plain expanded-form search).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from threedhumangan_tpu_torch.ops.geo import build_vertex_features, geo_features
+from threedhumangan_tpu_torch.ops.knn import knn_gather, knn_points, nn_points
 
 NUM_JOINTS = 24
 
@@ -188,7 +190,8 @@ def synthetic_smpl_model(seed: int = 0, num_verts: int = 384, num_faces: int = 5
 
 
 def get_geo_features(points, skeletons, vertices, tpose_vertices, fk_matrices, lbs_weights,
-                     legacy_mode: bool = False) -> torch.Tensor:
+                     legacy_mode: bool = False, use_pallas_knn: bool = True,
+                     use_pallas_geo: bool = True) -> torch.Tensor:
     """Per-point 31-d geometric conditioning (JAX smpl.py:331-405): 24 joint
     distances, inverse-LBS canonicalised coords and T-pose coords of the
     nearest posed vertex, and that vertex's distance.
@@ -196,7 +199,35 @@ def get_geo_features(points, skeletons, vertices, tpose_vertices, fk_matrices, l
     points (B, P, 3); skeletons (B, J, 3); vertices/tpose_vertices (B, V, 3);
     fk_matrices (B, J, 4, 4); lbs_weights (B, V, J).  Column order is
     [cano 3, joints 24, tpose 3, dist 1], or [joints 24, cano 3, tpose 3,
-    dist 1] with ``legacy_mode``."""
-    vfeat = build_vertex_features(tpose_vertices, fk_matrices, lbs_weights)
+    dist 1] with ``legacy_mode``.
+
+    ``use_pallas_geo`` (the default, as on the JAX package's accelerator
+    runs) runs the whole stage through ``ops.geo.geo_features`` (K1).
+    Otherwise the stage runs in torch as the JAX XLA branch, with the 1-NN
+    from ``ops.knn.nn_points`` (K6) under ``use_pallas_knn`` or from the
+    plain ``ops.knn.knn_points`` without it."""
     c = lambda t: t.float().contiguous()
-    return geo_features(c(points), c(vertices), vfeat, c(skeletons), legacy_mode=legacy_mode)
+    if use_pallas_geo:
+        vfeat = build_vertex_features(tpose_vertices, fk_matrices, lbs_weights)
+        return geo_features(c(points), c(vertices), vfeat, c(skeletons), legacy_mode=legacy_mode)
+    B, P, _ = points.shape
+    V = vertices.shape[1]
+    points = c(points)
+    diff = points[:, :, None, :] - skeletons.float()[:, None, :, :]
+    joint_dists = torch.sqrt(torch.sum(torch.square(diff), -1) + 1e-12) / 2.4
+    ik = torch.linalg.inv_ex(fk_matrices.float()).inverse  # no error check: no host sync
+    vertex_ik = torch.einsum("bvj,bjkl->bvkl", lbs_weights.float(), ik)
+    if use_pallas_knn:
+        d2, idx = nn_points(points, c(vertices))
+    else:
+        d2, idx = knn_points(points, vertices, k=1)
+    point_ik = knn_gather(vertex_ik.reshape(B, V, 16), idx)[:, :, 0].reshape(B, P, 4, 4)
+    homo = torch.cat([points, torch.ones_like(points[..., :1])], -1)
+    cano = torch.einsum("bpij,bpj->bpi", point_ik, homo)[..., :3]
+    cano = torch.stack([cano[..., 0] / 2.0, (cano[..., 1] + 0.2) / 2.0, cano[..., 2] / 1.3], -1)
+    tpose = knn_gather(tpose_vertices.float(), idx)[:, :, 0]
+    tpose = torch.cat([tpose[..., :2], tpose[..., 2:] / 0.2], -1)
+    ndist = torch.sqrt(d2[..., :1]) / 1.3
+    cols = ([joint_dists, cano, tpose, ndist] if legacy_mode
+            else [cano, joint_dists, tpose, ndist])
+    return torch.cat(cols, -1)

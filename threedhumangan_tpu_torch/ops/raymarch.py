@@ -1,21 +1,43 @@
-"""K2: fused FiLM-SIREN field render with front-to-back compositing.
+"""The field render kernels: K2 (folded), K4 (unfolded), K5 (geo-fused).
 
-Replaces threedhumangan_tpu/ops/raymarch.py::_raymarch_kernel_folded
+All three render the FiLM-SIREN field of ``models.siren.CoordConcatSiren``
+over ray-major samples and alpha-composite each ray front to back (delta
+1e9 on the last step, the residual transmittance routed to the last sample
+(``last_back``) and/or a white background (``white_back``)).  An optional
+last packed column carries the training-time nerf noise, added to sigma
+before the density clamp.
+
+K2 replaces threedhumangan_tpu/ops/raymarch.py::_raymarch_kernel_folded
 (Pallas), the folded-FiLM form that the JAX generator runs by default:
 freq/phase and omega are folded into per-image weight tables
 (``fold_film_tables``), the SIREN runs 1 block-diagonal first layer, the
 trunk, a sigma head, a colour layer whose view-direction term is hoisted
 per ray (directions are constant along a ray), and sigmoid-RGB and feature
-heads; the per-step outputs are alpha-composited front to back with delta
-1e9 on the last step and the residual transmittance routed to the last
-sample (``last_back``) and/or a white background (``white_back``).  An
-optional 38th packed column carries the training-time nerf noise, added to
-sigma before the density clamp.
+heads.  ``field_render_cuda`` launches csrc/raymarch.cu, ``field_render_plain``
+is the same math on the same folded tables.  The packed slabs are rounded to
+the compute dtype first, as the JAX wrapper does.
 
-``fused_field_render`` launches csrc/raymarch.cu on CUDA tensors and runs
-``field_render_plain`` — the same math on the same folded tables, in
-PyTorch — on CPU tensors.  The packed slabs are rounded to the compute
-dtype first, as the JAX wrapper does.
+K4 replaces ``_raymarch_kernel``: the UNFOLDED SIREN (``_field_slab_parts``:
+freq/phase applied per element, omega 30 on the first layers, the field's
+own weights shared by the batch) and ``_march``.  ``fused_field_render``
+takes it when ``fold_film`` is off and for a field with fewer than 2 trunk
+blocks (JAX raymarch.py:341-355).  The packed inputs stay float32: their
+product columns are rounded to bf16 at the product, the noise column is
+added to sigma in float32.  ``field_render_unfolded_cuda`` launches
+csrc/raymarch_unfolded.cu, ``field_render_unfolded_plain`` is
+``slab_forward`` then ``ray_integration``.
+
+K5 replaces ``_raymarch_geo_kernel``: K4 with the 31 geo columns computed
+from the raw points inside the kernel (``geo_slab``: joint distances, the
+1-NN over the posed vertices, the winner's [inverse-FK 16; T-pose 3] row,
+canonicalisation).  ``fused_field_render_geo`` launches
+csrc/raymarch_geo.cu (``field_render_geo_cuda``) or runs
+``field_render_geo_plain``.
+
+Each entry point launches its kernel on CUDA tensors (bf16 products only)
+and runs the plain version on CPU tensors.  The unfolded tables
+(``flat_weights``, ``film_tables``, ``kernel_tables``) and ``slab_forward``
+also serve the field backward (ops/raymarch_bwd.py).
 """
 
 from __future__ import annotations
@@ -26,9 +48,11 @@ import torch
 
 from threedhumangan_tpu_torch import _build
 from threedhumangan_tpu_torch.models.volume_rendering import ray_integration
+from threedhumangan_tpu_torch.ops.geo import GEO_DIM, nearest_vertex
 from threedhumangan_tpu_torch.utils.misc import mm, pad_to, round16
 
 INPUT_PACK = 37  # 3 coords + 31 geo + 3 ray dirs (+1 optional sigma noise)
+GEO_PACK = 6     # K5: 3 raw coords + 3 ray dirs (+1 optional sigma noise)
 
 # degree-9 odd minimax sine on [-pi, pi] after a 2*pi range reduction
 # (the JAX package's coefficients)
@@ -40,7 +64,9 @@ _SIN_C9 = 2.14797007513e-06
 _INV_2PI = 0.15915494309189535
 _TWO_PI = 6.283185307179586
 
-launches = 0  # K2 launches (the CUDA path only)
+launches = 0           # K2 launches (the CUDA path only)
+launches_unfolded = 0  # K4 launches
+launches_geo = 0       # K5 launches
 
 
 def fast_sin(x: torch.Tensor) -> torch.Tensor:
@@ -161,21 +187,42 @@ def field_render_plain(shared: Dict, per_image: Dict, packed, z_vals, num_steps:
 
 def fused_field_render(field, packed, freq, phase, z_vals, num_steps: int,
                        white_back: bool = False, last_back: bool = False,
-                       compute_dtype=torch.bfloat16, exact_sin: bool = False):
+                       compute_dtype=torch.bfloat16, exact_sin: bool = False,
+                       fold_film: bool = True):
     """Render the field: packed (B, R*S, 37[+1]) ray-major inputs, freq/phase
     (B, NB*H) raw mapping outputs, z_vals (B, R, S).  Returns (rendered
-    (B, R, F+3), depth (B, R, 1)) float32.  CUDA tensors launch K2 (bf16
-    only); CPU tensors take ``field_render_plain``."""
-    shared, per_image = fold_film_tables(field, freq, phase, compute_dtype)
+    (B, R, F+3), depth (B, R, 1)) float32.
+
+    ``fold_film`` with at least 2 trunk blocks takes K2 on folded tables;
+    anything else takes K4, the unfolded SIREN (JAX raymarch.py:341-355).
+    The JAX ``march_loop`` (a fori_loop over steps) also selects K4 there
+    and ``step_pack`` (stacked step slabs) only schedules the TPU kernels,
+    so on the card both reduce to this one flag: ``models.generator.render``
+    passes ``fold_film=False`` under ``pallas_march_loop``.  CUDA tensors
+    launch the kernel (bf16 only); CPU tensors take its plain version."""
+    if fold_film and len(field.network) >= 2:
+        shared, per_image = fold_film_tables(field, freq, phase, compute_dtype)
+        if packed.device.type == "cpu":
+            return field_render_plain(shared, per_image, packed, z_vals, num_steps,
+                                      white_back, last_back, compute_dtype, exact_sin)
+        _check_cuda(packed, compute_dtype, "fused_field_render")
+        return field_render_cuda(shared, per_image, packed, z_vals, num_steps,
+                                 white_back, last_back, exact_sin)
+    w = flat_weights(field)
+    freq_k, phase_k = film_tables(freq, phase, len(field.network))
     if packed.device.type == "cpu":
-        return field_render_plain(shared, per_image, packed, z_vals, num_steps,
-                                  white_back, last_back, compute_dtype, exact_sin)
-    if packed.device.type != "cuda":
-        raise ValueError(f"fused_field_render: unsupported device {packed.device}")
+        return field_render_unfolded_plain(w, packed, freq_k, phase_k, z_vals, num_steps,
+                                           white_back, last_back, compute_dtype, exact_sin)
+    _check_cuda(packed, compute_dtype, "fused_field_render")
+    return field_render_unfolded_cuda(w, packed, freq_k, phase_k, z_vals, num_steps,
+                                      white_back, last_back, exact_sin)
+
+
+def _check_cuda(t: torch.Tensor, compute_dtype, name: str):
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
     if compute_dtype != torch.bfloat16:
-        raise ValueError("the field kernel computes in bfloat16 only")
-    return field_render_cuda(shared, per_image, packed, z_vals, num_steps,
-                             white_back, last_back, exact_sin)
+        raise ValueError("the field kernels compute in bfloat16 only")
 
 
 ROWS_PER_CTA = 64  # rows (ray x step samples) one CTA of the kernel holds
@@ -188,14 +235,9 @@ def field_render_cuda(shared, per_image, packed, z_vals, num_steps, white_back=F
     bf16, f32 = torch.bfloat16, torch.float32
     B, P, n_cols = packed.shape
     S = num_steps
-    R = P // S
     dev = packed.device
     check_packed_width(n_cols)
-    if P != R * S or ROWS_PER_CTA % S or R % (ROWS_PER_CTA // S):
-        raise ValueError(f"field kernel needs num_steps dividing {ROWS_PER_CTA} and "
-                         f"rays divisible by {ROWS_PER_CTA} // num_steps (R={R}, S={S})")
-    if tuple(z_vals.shape) != (B, R, S):
-        raise ValueError(f"z_vals: expected {(B, R, S)}, got {tuple(z_vals.shape)}")
+    R = _check_tiling(B, P, S, z_vals)
     n_in, n0 = shared["w_first"].shape
     H = per_image["w_net0"].shape[2]
     NB = per_image["b_net"].shape[1]
@@ -236,3 +278,311 @@ def field_render_cuda(shared, per_image, packed, z_vals, num_steps, white_back=F
     _build.check(err, "thgt_raymarch")
     launches += 1
     return out, depth
+
+
+# ---------------------------------------------------------------------------
+# the unfolded field (K4, K5; the recompute of K8/K9)
+# ---------------------------------------------------------------------------
+
+# field module attribute -> the JAX package's flat weight name stem
+_LAYERS = {"first_layer_coord.layer": "coord", "first_layer_mod.layer": "geo",
+           "sigma_layer": "sigma", "color_layer_sine.layer": "color",
+           "color_layer_linear": "rgb", "feature_layer_linear": "feat"}
+
+
+def layer_names(field) -> Dict[str, str]:
+    """Module path of each linear layer of the field -> its flat weight stem."""
+    names = dict(_LAYERS)
+    names.update({f"network.{i}.layer": f"net{i}" for i in range(len(field.network))})
+    return names
+
+
+def flat_weights(field) -> Dict[str, torch.Tensor]:
+    """Raw field weights as the JAX package's ``_flatten_field_params``:
+    ``w_<name>`` (in, out) and ``b_<name>`` (out,), float32, detached."""
+    mods = dict(field.named_modules())
+    out = {}
+    for path, stem in layer_names(field).items():
+        lin = mods[path]
+        out[f"w_{stem}"] = lin.weight.detach().t().float()
+        out[f"b_{stem}"] = lin.bias.detach().float()
+    return out
+
+
+def film_tables(freq, phase, n_blocks: int):
+    """Raw mapping outputs (B, NB*H) -> kernel-side (freq*15+30, phase), (B, NB, H)."""
+    B = freq.shape[0]
+    return (freq.float() * 15.0 + 30.0).reshape(B, n_blocks, -1), phase.float().reshape(
+        B, n_blocks, -1)
+
+
+def slab_forward(w, slab, f, p, n_blocks, cd, exact_sin, with_noise):
+    """One image's packed rows (N, C) through the unfolded SIREN (JAX
+    ``_field_slab_parts``), keeping every activation for the backward
+    (ops/raymarch_bwd.py); f/p (NB, H)."""
+    _sin = torch.sin if exact_sin else fast_sin
+    n_in = w["w_coord"].shape[0] + w["w_geo"].shape[0]
+    pts, geo, dirs = slab[:, :3], slab[:, 3:n_in], slab[:, n_in:n_in + 3]
+    u1 = mm(pts, w["w_coord"], cd) + w["b_coord"]
+    u2 = mm(geo, w["w_geo"], cd) + w["b_geo"]
+    x = torch.cat([_sin(30.0 * u1), _sin(30.0 * u2)], -1)
+    xs, pres, vs = [x], [], []
+    for i in range(n_blocks):
+        v = mm(x, w[f"w_net{i}"], cd) + w[f"b_net{i}"]
+        pre = f[i] * v + p[i]
+        x = _sin(pre)
+        vs.append(v)
+        pres.append(pre)
+        xs.append(x)
+    sigma = mm(x, w["w_sigma"], cd) + w["b_sigma"]
+    if with_noise:
+        sigma = sigma + slab[:, n_in + 3:n_in + 4].float()
+    xc_in = torch.cat([dirs.float(), x], -1)
+    vc = mm(xc_in, w["w_color"], cd) + w["b_color"]
+    prec = f[-1] * vc + p[-1]
+    xc = _sin(prec)
+    rgb = torch.sigmoid(mm(xc, w["w_rgb"], cd) + w["b_rgb"])
+    feat = mm(xc, w["w_feat"], cd) + w["b_feat"]
+    return dict(pts=pts, geo=geo, u1=u1, u2=u2, xs=xs, pres=pres, vs=vs, xc_in=xc_in,
+                vc=vc, prec=prec, xc=xc, rgb=rgb, field=torch.cat([rgb, feat], -1),
+                sigma=sigma)
+
+
+def field_render_unfolded_plain(w, packed, freq_k, phase_k, z_vals, num_steps: int,
+                                white_back: bool = False, last_back: bool = False,
+                                compute_dtype=torch.bfloat16, exact_sin: bool = False,
+                                ray_chunk: int = 1024):
+    """Plain K4 (no autograd): ``slab_forward`` then ``ray_integration`` over
+    chunks of rays.  w: ``flat_weights``; freq_k/phase_k (B, NB, H) from
+    ``film_tables``.  Returns (out (B, R, F+3), depth (B, R, 1))."""
+    B, P, n_cols = packed.shape
+    with_noise = check_packed_width(n_cols)
+    S = num_steps
+    slabs = lambda b, r0, nr: packed[b, r0 * S:(r0 + nr) * S]
+    return _render_unfolded_plain(w, slabs, B, P // S, freq_k, phase_k, z_vals, S, white_back,
+                                  last_back, compute_dtype, exact_sin, with_noise, ray_chunk)
+
+
+def _render_unfolded_plain(w, slabs, B, R, freq_k, phase_k, z_vals, S, white_back, last_back,
+                           cd, exact_sin, with_noise, ray_chunk):
+    """``slabs(b, r0, nr)`` gives the packed rows of rays [r0, r0 + nr) of
+    image b; the SIREN and the composite run on them chunk by chunk."""
+    n_blocks = freq_k.shape[1]
+    z = z_vals.float().reshape(B, R, S)
+    width = w["w_feat"].shape[1] + 3
+    out = z.new_empty(B, R, width)
+    depth = z.new_empty(B, R, 1)
+    with torch.no_grad():
+        for b in range(B):
+            for r0 in range(0, R, ray_chunk):
+                nr = min(ray_chunk, R - r0)
+                a = slab_forward(w, slabs(b, r0, nr), freq_k[b], phase_k[b], n_blocks, cd,
+                                 exact_sin, with_noise)
+                fo = torch.cat([a["field"], a["sigma"]], -1).reshape(1, nr, S, width + 1)
+                o, d, _ = ray_integration(fo, z[b, r0:r0 + nr].reshape(1, nr, S, 1),
+                                          white_back=white_back, last_back=last_back)
+                out[b, r0:r0 + nr] = o[0]
+                depth[b, r0:r0 + nr] = d[0]
+    return out, depth
+
+
+# kernel_tables keys in the order of the CUDA entry points' table arguments
+KERNEL_TABLE_ORDER = ("w_first", "b_first", "w_net0", "w_net_stk", "b_net", "freq", "phase",
+                      "w_color_x", "w_color_d", "b_color", "w_sigma", "b_sigma", "w_head",
+                      "b_head")
+
+
+def kernel_tables(w, freq_k, phase_k):
+    """Zero-padded bf16/f32 operands of K4, K5, K8 and K9 (widths rounded up
+    to 16): the field's own weights (the first layers block-diagonal, omega
+    not folded) and the per-image freq/phase tables."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    H = w["w_coord"].shape[1]
+    G = w["w_geo"].shape[0]
+    F = w["w_feat"].shape[1]
+    B, NB, _ = freq_k.shape
+    n_in = 3 + G
+    k0p, n0p, hp, headp = round16(n_in), round16(2 * H), round16(H), round16(F + 3)
+    first = w["w_coord"].new_zeros(n_in, 2 * H)
+    first[:3, :H] = w["w_coord"]
+    first[3:, H:] = w["w_geo"]
+    stk = (torch.stack([w[f"w_net{i}"] for i in range(1, NB)], 0) if NB > 1
+           else w["w_coord"].new_zeros(1, H, H))
+    head = torch.cat([w["w_rgb"], w["w_feat"]], 1)
+    t = dict(
+        w_first=pad_to(first, (k0p, n0p), bf16),
+        b_first=pad_to(torch.cat([w["b_coord"], w["b_geo"]]), (n0p,), f32),
+        w_net0=pad_to(w["w_net0"], (n0p, hp), bf16),
+        w_net_stk=pad_to(stk, (max(NB - 1, 1), hp, hp), bf16),
+        b_net=pad_to(torch.stack([w[f"b_net{i}"] for i in range(NB)], 0), (NB, hp), f32),
+        freq=pad_to(freq_k, (B, NB, hp), f32),
+        phase=pad_to(phase_k, (B, NB, hp), f32),
+        w_color_x=pad_to(w["w_color"][3:], (hp, hp), bf16),
+        w_color_d=pad_to(w["w_color"][:3].to(bf16), (3, hp), f32),
+        b_color=pad_to(w["b_color"], (hp,), f32),
+        w_sigma=pad_to(w["w_sigma"][:, 0].to(bf16), (hp,), f32),
+        b_sigma=w["b_sigma"].reshape(1).float().contiguous(),
+        w_head=pad_to(head, (hp, headp), bf16),
+        b_head=pad_to(torch.cat([w["b_rgb"], w["b_feat"]]), (headp,), f32),
+    )
+    dims = dict(H=H, F=F, NB=NB, n_in=n_in, k0p=k0p, n0p=n0p, hp=hp, headp=headp)
+    return t, dims
+
+
+def cuda_ptrs(ts, what: str = "field kernel"):
+    """Data pointers of contiguous CUDA tensors (raises on any other)."""
+    for t in ts:
+        if not t.is_cuda or not t.is_contiguous():
+            raise ValueError(f"{what} operands must be contiguous CUDA tensors")
+    return [t.data_ptr() for t in ts]
+
+
+def _check_tiling(B, P, num_steps, z_vals):
+    S = num_steps
+    R = P // S
+    if P != R * S or ROWS_PER_CTA % S or R % (ROWS_PER_CTA // S):
+        raise ValueError(f"field kernel needs num_steps dividing {ROWS_PER_CTA} and "
+                         f"rays divisible by {ROWS_PER_CTA} // num_steps (R={R}, S={S})")
+    if tuple(z_vals.shape) != (B, R, S):
+        raise ValueError(f"z_vals: expected {(B, R, S)}, got {tuple(z_vals.shape)}")
+    return R
+
+
+def field_render_unfolded_cuda(w, packed, freq_k, phase_k, z_vals, num_steps: int,
+                               white_back: bool = False, last_back: bool = False,
+                               exact_sin: bool = False):
+    """Launch K4; same contract as ``field_render_unfolded_plain`` (bf16 products)."""
+    global launches_unfolded
+    B, P, n_cols = packed.shape
+    check_packed_width(n_cols)
+    R = _check_tiling(B, P, num_steps, z_vals)
+    t, d = kernel_tables(w, freq_k, phase_k)
+    out = torch.empty(B, R, d["F"] + 3, dtype=torch.float32, device=packed.device)
+    depth = torch.empty(B, R, 1, dtype=torch.float32, device=packed.device)
+    ops = [packed.float().contiguous(), z_vals.float().contiguous()]
+    ops += [t[k] for k in KERNEL_TABLE_ORDER] + [out, depth]
+    with torch.cuda.device(packed.device):
+        stream = torch.cuda.current_stream(packed.device).cuda_stream
+        err = _build.library().thgt_raymarch_unfolded(
+            *cuda_ptrs(ops), B, R, num_steps, n_cols, d["n_in"], d["k0p"], d["n0p"], d["hp"],
+            d["NB"], d["F"] + 3, d["headp"], int(white_back), int(last_back), int(exact_sin),
+            stream)
+    _build.check(err, "thgt_raymarch_unfolded")
+    launches_unfolded += 1
+    return out, depth
+
+
+# ---------------------------------------------------------------------------
+# K5: the unfolded render with the geo features computed in the kernel
+# ---------------------------------------------------------------------------
+
+
+def geo_slab(pts, verts, vfeat, skel, legacy_mode: bool, point_chunk: int = 2048):
+    """31-d geo features of one image's raw points (N, 3) (JAX ``_geo_slab``):
+    verts (V, 3), vfeat (V, 19) [blended inverse-FK 16; T-pose 3], skel (J, 3).
+    The 1-NN is ``ops.geo.nearest_vertex`` (the elementwise distance, lowest
+    index on ties, as every 1-NN kernel of the port); the joint distances
+    take the JAX kernel's expanded form."""
+    d2, idx = nearest_vertex(pts[None], verts[None], point_chunk)
+    d2, idx = d2[0], idx[0]
+    p_sq = torch.sum(torch.square(pts), 1, keepdim=True)
+    crossj = torch.matmul(pts, skel.t())
+    ssq = torch.sum(torch.square(skel), -1)[None]
+    jd = torch.sqrt(torch.clamp(p_sq - 2.0 * crossj + ssq, min=0.0) + 1e-12) / 2.4
+    g = vfeat[idx]
+    x, y, z1 = pts[:, 0:1], pts[:, 1:2], pts[:, 2:3]
+    col = lambda i: g[:, i:i + 1]
+    cano = torch.cat([(col(0) * x + col(1) * y + col(2) * z1 + col(3)) / 2.0,
+                      (col(4) * x + col(5) * y + col(6) * z1 + col(7) + 0.2) / 2.0,
+                      (col(8) * x + col(9) * y + col(10) * z1 + col(11)) / 1.3], -1)
+    tp = torch.cat([col(16), col(17), col(18) / 0.2], -1)
+    ndist = torch.sqrt(torch.clamp(d2, min=0.0))[:, None] / 1.3
+    cols = [jd, cano, tp, ndist] if legacy_mode else [cano, jd, tp, ndist]
+    return torch.cat(cols, -1)
+
+
+def _check_geo_pack(n_cols: int) -> bool:
+    if n_cols not in (GEO_PACK, GEO_PACK + 1):
+        raise ValueError(f"raw packed inputs need {GEO_PACK} or {GEO_PACK + 1} columns, "
+                         f"got {n_cols}")
+    return n_cols == GEO_PACK + 1
+
+
+def field_render_geo_plain(w, packed, freq_k, phase_k, z_vals, verts, vfeat, skeletons,
+                           num_steps: int, input_scaler: float, white_back: bool = False,
+                           last_back: bool = False, compute_dtype=torch.bfloat16,
+                           exact_sin: bool = False, legacy_mode: bool = False,
+                           ray_chunk: int = 1024):
+    """Plain K5: ``geo_slab`` + ``slab_forward`` + ``ray_integration`` over
+    chunks of rays.  packed (B, R*S, 6[+1]) raw [points | dirs | noise] float32."""
+    B, P, n_cols = packed.shape
+    with_noise = _check_geo_pack(n_cols)
+    S = num_steps
+
+    def slabs(b, r0, nr):
+        raw = packed[b, r0 * S:(r0 + nr) * S].float()
+        pts = raw[:, :3]
+        geo = geo_slab(pts, verts[b].float(), vfeat[b].float(), skeletons[b].float(),
+                       legacy_mode)
+        return torch.cat([pts * input_scaler, geo, raw[:, 3:]], -1)
+
+    return _render_unfolded_plain(w, slabs, B, P // S, freq_k, phase_k, z_vals, S, white_back,
+                                  last_back, compute_dtype, exact_sin, with_noise, ray_chunk)
+
+
+def fused_field_render_geo(field, packed, freq, phase, z_vals, verts, vfeat, skeletons,
+                           num_steps: int, input_scaler: float, white_back: bool = False,
+                           last_back: bool = False, compute_dtype=torch.bfloat16,
+                           exact_sin: bool = False, legacy_mode: bool = False):
+    """``fused_field_render`` with the geo features computed in the render
+    (JAX ``fused_field_render_geo``): packed (B, R*S, 6[+1]) RAW points,
+    directions (and noise); verts (B, V, 3) posed vertices, vfeat (B, V, 19)
+    (``ops.geo.build_vertex_features``), skeletons (B, J, 3).  Returns
+    (rendered (B, R, F+3), depth (B, R, 1)).  CUDA tensors launch K5 (bf16
+    only); CPU tensors take ``field_render_geo_plain``."""
+    w = flat_weights(field)
+    freq_k, phase_k = film_tables(freq, phase, len(field.network))
+    args = (w, packed, freq_k, phase_k, z_vals, verts, vfeat, skeletons, num_steps,
+            input_scaler, white_back, last_back)
+    if packed.device.type == "cpu":
+        return field_render_geo_plain(*args, compute_dtype, exact_sin, legacy_mode)
+    _check_cuda(packed, compute_dtype, "fused_field_render_geo")
+    return field_render_geo_cuda(*args, exact_sin, legacy_mode)
+
+
+def field_render_geo_cuda(w, packed, freq_k, phase_k, z_vals, verts, vfeat, skeletons,
+                          num_steps: int, input_scaler: float, white_back: bool = False,
+                          last_back: bool = False, exact_sin: bool = False,
+                          legacy_mode: bool = False, return_index: bool = False):
+    """Launch K5; same contract as ``field_render_geo_plain``.  With
+    ``return_index`` it also returns each sample's nearest vertex (B, R*S)
+    int32, which the kernel then writes."""
+    global launches_geo
+    B, P, n_cols = packed.shape
+    _check_geo_pack(n_cols)
+    R = _check_tiling(B, P, num_steps, z_vals)
+    V, J = verts.shape[1], skeletons.shape[1]
+    if tuple(verts.shape) != (B, V, 3) or tuple(vfeat.shape) != (B, V, 19) or V == 0:
+        raise ValueError(f"verts/vfeat: expected (B, V, 3)/(B, V, 19), got "
+                         f"{tuple(verts.shape)}/{tuple(vfeat.shape)}")
+    if J + 7 != GEO_DIM or w["w_geo"].shape[0] != GEO_DIM:
+        raise ValueError(f"the geo-fused kernel computes {GEO_DIM} geo columns from 24 joints, "
+                         f"got {J} joints and a field taking {w['w_geo'].shape[0]}")
+    t, d = kernel_tables(w, freq_k, phase_k)
+    dev = packed.device
+    out = torch.empty(B, R, d["F"] + 3, dtype=torch.float32, device=dev)
+    depth = torch.empty(B, R, 1, dtype=torch.float32, device=dev)
+    idx = torch.empty(B, P, dtype=torch.int32, device=dev) if return_index else None
+    f32 = lambda x: x.float().contiguous()
+    ops = [f32(packed), f32(z_vals), f32(verts), f32(vfeat), f32(skeletons)]
+    tabs = [t[k] for k in KERNEL_TABLE_ORDER] + [out, depth]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _build.library().thgt_raymarch_geo(
+            *cuda_ptrs(ops), None if idx is None else idx.data_ptr(), *cuda_ptrs(tabs),
+            B, R, num_steps, n_cols, V, J, int(legacy_mode), float(input_scaler), d["k0p"],
+            d["n0p"], d["hp"], d["NB"], d["F"] + 3, d["headp"], int(white_back),
+            int(last_back), int(exact_sin), stream)
+    _build.check(err, "thgt_raymarch_geo")
+    launches_geo += 1
+    return (out, depth, idx) if return_index else (out, depth)

@@ -26,8 +26,11 @@ packed inputs and the depth samples are no-grad data on every caller path.
 ``fused_field_render_bwd`` launches csrc/raymarch_bwd.cu on CUDA tensors
 and runs ``field_stats_plain`` / ``field_bwd_step_plain`` on CPU tensors.
 ``FieldRender`` is the ``torch.autograd.Function``: K2 forward on folded
-tables, this backward.  ``field_render_unfolded`` (``_xla_packed_render``)
-is the plain differentiable render that the tests hold both against.
+tables, or K4 on the unfolded ones under ``fold_film=False`` (JAX
+raymarch.py:920-927), and this backward.  The tables,
+``slab_forward`` and ``flat_weights`` live in ops/raymarch.py beside K4.
+``field_render_unfolded`` (``_xla_packed_render``) is the plain
+differentiable render that the tests hold both against.
 """
 
 from __future__ import annotations
@@ -39,35 +42,14 @@ import torch
 from threedhumangan_tpu_torch import _build
 from threedhumangan_tpu_torch.models.volume_rendering import ray_integration
 from threedhumangan_tpu_torch.ops import raymarch as rm
-from threedhumangan_tpu_torch.utils.misc import mm, pad_to, round16
+from threedhumangan_tpu_torch.ops.raymarch import (KERNEL_TABLE_ORDER, film_tables,
+                                                  flat_weights, kernel_tables, layer_names,
+                                                  slab_forward)
+from threedhumangan_tpu_torch.utils.misc import mm
 
 launches_stats = 0  # K8 launches (the CUDA path only)
 launches_bwd = 0    # K9 launches (the CUDA path only)
 launches_wgrad = 0  # K9's weight-gradient reduction launches (the CUDA path only)
-
-# field module attribute -> the JAX package's flat weight name stem
-_LAYERS = {"first_layer_coord.layer": "coord", "first_layer_mod.layer": "geo",
-           "sigma_layer": "sigma", "color_layer_sine.layer": "color",
-           "color_layer_linear": "rgb", "feature_layer_linear": "feat"}
-
-
-def _layer_names(field):
-    names = dict(_LAYERS)
-    names.update({f"network.{i}.layer": f"net{i}" for i in range(len(field.network))})
-    return names
-
-
-def flat_weights(field) -> Dict[str, torch.Tensor]:
-    """Raw field weights as the JAX package's ``_flatten_field_params``:
-    ``w_<name>`` (in, out) and ``b_<name>`` (out,), float32, detached."""
-    mods = dict(field.named_modules())
-    out = {}
-    for path, stem in _layer_names(field).items():
-        lin = mods[path]
-        out[f"w_{stem}"] = lin.weight.detach().t().float()
-        out[f"b_{stem}"] = lin.bias.detach().float()
-    return out
-
 
 def fast_sin_grad(x: torch.Tensor) -> torch.Tensor:
     """Exact derivative of ``fast_sin`` (the 2*pi offset is piecewise constant)."""
@@ -76,44 +58,6 @@ def fast_sin_grad(x: torch.Tensor) -> torch.Tensor:
     y2 = y * y
     return rm._SIN_C1 + y2 * (3.0 * rm._SIN_C3 + y2 * (5.0 * rm._SIN_C5 + y2 * (
         7.0 * rm._SIN_C7 + y2 * (9.0 * rm._SIN_C9))))
-
-
-def _film_tables(freq, phase, n_blocks: int):
-    """Raw mapping outputs (B, NB*H) -> kernel-side (freq*15+30, phase), (B, NB, H)."""
-    B = freq.shape[0]
-    return (freq.float() * 15.0 + 30.0).reshape(B, n_blocks, -1), phase.float().reshape(
-        B, n_blocks, -1)
-
-
-def _slab_forward(w, slab, f, p, n_blocks, cd, exact_sin, with_noise):
-    """One image's rows (N, C) through the unfolded SIREN, keeping every
-    activation (JAX ``_slab_forward``); f/p (NB, H)."""
-    _sin = torch.sin if exact_sin else rm.fast_sin
-    n_in = w["w_coord"].shape[0] + w["w_geo"].shape[0]
-    pts, geo, dirs = slab[:, :3], slab[:, 3:n_in], slab[:, n_in:n_in + 3]
-    u1 = mm(pts, w["w_coord"], cd) + w["b_coord"]
-    u2 = mm(geo, w["w_geo"], cd) + w["b_geo"]
-    x = torch.cat([_sin(30.0 * u1), _sin(30.0 * u2)], -1)
-    xs, pres, vs = [x], [], []
-    for i in range(n_blocks):
-        v = mm(x, w[f"w_net{i}"], cd) + w[f"b_net{i}"]
-        pre = f[i] * v + p[i]
-        x = _sin(pre)
-        vs.append(v)
-        pres.append(pre)
-        xs.append(x)
-    sigma = mm(x, w["w_sigma"], cd) + w["b_sigma"]
-    if with_noise:
-        sigma = sigma + slab[:, n_in + 3:n_in + 4].float()
-    xc_in = torch.cat([dirs.float(), x], -1)
-    vc = mm(xc_in, w["w_color"], cd) + w["b_color"]
-    prec = f[-1] * vc + p[-1]
-    xc = _sin(prec)
-    rgb = torch.sigmoid(mm(xc, w["w_rgb"], cd) + w["b_rgb"])
-    feat = mm(xc, w["w_feat"], cd) + w["b_feat"]
-    return dict(pts=pts, geo=geo, u1=u1, u2=u2, xs=xs, pres=pres, vs=vs, xc_in=xc_in,
-                vc=vc, prec=prec, xc=xc, rgb=rgb, field=torch.cat([rgb, feat], -1),
-                sigma=sigma)
 
 
 def _rows(packed, g_out, b, r0, r1, num_steps):
@@ -135,8 +79,8 @@ def field_stats_plain(w, packed, freq_k, phase_k, g_out, num_steps: int,
         for r0 in range(0, P, row_chunk):
             r1 = min(P, r0 + row_chunk)
             slab, go = _rows(packed, g_out, b, r0, r1, num_steps)
-            acts = _slab_forward(w, slab, freq_k[b], phase_k[b], n_blocks, compute_dtype,
-                                 exact_sin, with_noise)
+            acts = slab_forward(w, slab, freq_k[b], phase_k[b], n_blocks, compute_dtype,
+                                exact_sin, with_noise)
             sigma[b, r0:r1] = acts["sigma"][:, 0]
             gdot[b, r0:r1] = (go * acts["field"]).sum(-1)
     R = P // num_steps
@@ -201,7 +145,7 @@ def field_bwd_step_plain(w, packed, freq_k, phase_k, g_out, coef, dsigma, num_st
         for r0 in range(0, P, row_chunk):
             r1 = min(P, r0 + row_chunk)
             slab, go = _rows(packed, g_out, b, r0, r1, num_steps)
-            a = _slab_forward(w, slab, f, p, n_blocks, cd, exact_sin, with_noise)
+            a = slab_forward(w, slab, f, p, n_blocks, cd, exact_sin, with_noise)
             dfield = coef[b, r0:r1] * go
             dfeat = dfield[:, 3:]
             dpre_r = dfield[:, :3] * a["rgb"] * (1.0 - a["rgb"])
@@ -240,7 +184,7 @@ def fused_field_render_bwd(w: Dict[str, torch.Tensor], packed, freq, phase, z_va
     d_freq, d_phase).  CUDA tensors launch K8 and K9 (bf16 only); CPU
     tensors take the plain versions."""
     n_blocks = sum(k.startswith("w_net") for k in w)
-    freq_k, phase_k = _film_tables(freq, phase, n_blocks)
+    freq_k, phase_k = film_tables(freq, phase, n_blocks)
     if packed.device.type == "cpu":
         stats, step = field_stats_plain, field_bwd_step_plain
         kw = dict(compute_dtype=compute_dtype, exact_sin=exact_sin)
@@ -265,27 +209,26 @@ def fused_field_render_bwd(w: Dict[str, torch.Tensor], packed, freq, phase, z_va
 
 
 class FieldRender(torch.autograd.Function):
-    """K2 forward on folded (detached) tables; K8 + tables + K9 backward.
+    """K2 forward on folded (detached) tables, or K4 as ``fused_field_render``
+    routes; K8 + tables + K9 backward.
     Saves only the inputs.  Returns grads for the field's parameters and for
     freq/phase; None for the packed inputs and z_vals (no-grad data)."""
 
     @staticmethod
     def forward(ctx, field, opts, packed, freq, phase, z_vals, *params):
-        num_steps, white_back, last_back, compute_dtype, exact_sin = opts
         ctx.field, ctx.opts = field, opts
         ctx.save_for_backward(packed, freq, phase, z_vals)
-        return rm.fused_field_render(field, packed, freq, phase, z_vals, num_steps,
-                                     white_back, last_back, compute_dtype, exact_sin)
+        return rm.fused_field_render(field, packed, freq, phase, z_vals, *opts)
 
     @staticmethod
     def backward(ctx, g_out, g_depth):
         packed, freq, phase, z_vals = ctx.saved_tensors
         field = ctx.field
-        num_steps, white_back, last_back, compute_dtype, exact_sin = ctx.opts
+        num_steps, white_back, last_back, compute_dtype, exact_sin, _ = ctx.opts
         grads, d_freq, d_phase = fused_field_render_bwd(
             flat_weights(field), packed, freq, phase, z_vals, g_out, g_depth, num_steps,
             white_back, last_back, compute_dtype, exact_sin)
-        names = _layer_names(field)
+        names = layer_names(field)
         d_params = []
         for name, prm in field.named_parameters():
             path, kind = name.rsplit(".", 1)
@@ -297,10 +240,12 @@ class FieldRender(torch.autograd.Function):
 
 def field_render_trainable(field, packed, freq, phase, z_vals, num_steps: int,
                            white_back: bool = False, last_back: bool = False,
-                           compute_dtype=torch.bfloat16, exact_sin: bool = False):
+                           compute_dtype=torch.bfloat16, exact_sin: bool = False,
+                           fold_film: bool = True):
     """``fused_field_render`` with gradients for the field and freq/phase
-    (JAX ``fused_field_render_trainable(..., pallas_bwd=True)``)."""
-    opts = (num_steps, white_back, last_back, compute_dtype, exact_sin)
+    (JAX ``fused_field_render_trainable(..., pallas_bwd=True)``); the
+    forward kernel as ``fold_film`` selects it."""
+    opts = (num_steps, white_back, last_back, compute_dtype, exact_sin, fold_film)
     return FieldRender.apply(field, opts, packed, freq, phase, z_vals,
                              *field.parameters())
 
@@ -336,45 +281,6 @@ ROWS_PER_CTA = 64
 IMAGES_PER_LAUNCH = 2
 
 
-def _kernel_tables(w, freq_k, phase_k):
-    """Zero-padded bf16/f32 operands of K8/K9 (widths rounded up to 16)."""
-    bf16, f32 = torch.bfloat16, torch.float32
-    H = w["w_coord"].shape[1]
-    G = w["w_geo"].shape[0]
-    F = w["w_feat"].shape[1]
-    B, NB, _ = freq_k.shape
-    n_in = 3 + G
-    k0p, n0p, hp, headp = round16(n_in), round16(2 * H), round16(H), round16(F + 3)
-    first = w["w_coord"].new_zeros(n_in, 2 * H)
-    first[:3, :H] = w["w_coord"]
-    first[3:, H:] = w["w_geo"]
-    stk = (torch.stack([w[f"w_net{i}"] for i in range(1, NB)], 0) if NB > 1
-           else w["w_coord"].new_zeros(1, H, H))
-    head = torch.cat([w["w_rgb"], w["w_feat"]], 1)
-    t = dict(
-        w_first=pad_to(first, (k0p, n0p), bf16),
-        b_first=pad_to(torch.cat([w["b_coord"], w["b_geo"]]), (n0p,), f32),
-        w_net0=pad_to(w["w_net0"], (n0p, hp), bf16),
-        w_net_stk=pad_to(stk, (max(NB - 1, 1), hp, hp), bf16),
-        b_net=pad_to(torch.stack([w[f"b_net{i}"] for i in range(NB)], 0), (NB, hp), f32),
-        freq=pad_to(freq_k, (B, NB, hp), f32),
-        phase=pad_to(phase_k, (B, NB, hp), f32),
-        w_color_x=pad_to(w["w_color"][3:], (hp, hp), bf16),
-        w_color_d=pad_to(w["w_color"][:3].to(bf16), (3, hp), f32),
-        b_color=pad_to(w["b_color"], (hp,), f32),
-        w_sigma=pad_to(w["w_sigma"][:, 0].to(bf16), (hp,), f32),
-        b_sigma=w["b_sigma"].reshape(1).float().contiguous(),
-        w_head=pad_to(head, (hp, headp), bf16),
-        b_head=pad_to(torch.cat([w["b_rgb"], w["b_feat"]]), (headp,), f32),
-    )
-    dims = dict(H=H, F=F, NB=NB, n_in=n_in, k0p=k0p, n0p=n0p, hp=hp, headp=headp)
-    return t, dims
-
-
-_STATS_ORDER = ("w_first", "b_first", "w_net0", "w_net_stk", "b_net", "freq", "phase",
-                "w_color_x", "w_color_d", "b_color", "w_sigma", "b_sigma", "w_head", "b_head")
-
-
 def _check_rows(packed, num_steps):
     B, P, n_cols = packed.shape
     rm.check_packed_width(n_cols)
@@ -389,26 +295,20 @@ def _launch(name, *args):
     _build.check(err, name)
 
 
-def _ptrs(ts):
-    for t in ts:
-        if not t.is_cuda or not t.is_contiguous():
-            raise ValueError("field backward kernel operands must be contiguous CUDA tensors")
-    return [t.data_ptr() for t in ts]
-
-
 def field_stats_cuda(w, packed, freq_k, phase_k, g_out, num_steps: int, exact_sin=False):
     """Launch K8; same contract as ``field_stats_plain``."""
     global launches_stats
     _check_rows(packed, num_steps)
     B, P, n_cols = packed.shape
-    t, d = _kernel_tables(w, freq_k, phase_k)
+    t, d = kernel_tables(w, freq_k, phase_k)
     pk = packed.to(torch.bfloat16).contiguous()
     go = g_out.float().contiguous()
     sigma = torch.empty(B, P, dtype=torch.float32, device=packed.device)
     gdot = torch.empty_like(sigma)
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream(packed.device).cuda_stream
-        _launch("thgt_field_stats", *_ptrs([pk, go] + [t[k] for k in _STATS_ORDER]),
+        ptrs = rm.cuda_ptrs([pk, go] + [t[k] for k in KERNEL_TABLE_ORDER], "field backward kernel")
+        _launch("thgt_field_stats", *ptrs,
                 sigma.data_ptr(), gdot.data_ptr(), B, P, num_steps, n_cols, d["n_in"],
                 d["k0p"], d["n0p"], d["hp"], d["NB"], d["F"] + 3, d["headp"], int(exact_sin),
                 stream)
@@ -449,7 +349,7 @@ def field_bwd_step_cuda(w, packed, freq_k, phase_k, g_out, coef, dsigma, num_ste
     global launches_bwd
     _check_rows(packed, num_steps)
     B, P, n_cols = packed.shape
-    t, d = _kernel_tables(w, freq_k, phase_k)
+    t, d = kernel_tables(w, freq_k, phase_k)
     hp, n0p, headp, k0p, NB, H = d["hp"], d["n0p"], d["headp"], d["k0p"], d["NB"], d["H"]
     cp = hp + 16
     n_part = n0p + 3 * hp * (NB + 1) + headp + 1
@@ -475,11 +375,13 @@ def field_bwd_step_cuda(w, packed, freq_k, phase_k, g_out, coef, dsigma, num_ste
             du, dv, dcol, dyh = e(rows, n0p), e(NB, rows, hp), e(rows, cp), e(rows, headp)
             U, V, VC = e(rows, n0p, dt=f32), e(NB, rows, hp, dt=f32), e(rows, hp, dt=f32)
             part = e(rows // ROWS_PER_CTA, n_part, dt=f32)
-            tabs = [t[k] for k in _STATS_ORDER]
+            tabs = [t[k] for k in KERNEL_TABLE_ORDER]
             tabs[5], tabs[6] = t["freq"][b0:b1].contiguous(), t["phase"][b0:b1].contiguous()
-            args = _ptrs([pk_all[b0:b1], go_all[b0:b1], coef_all[b0:b1], ds_all[b0:b1]] + tabs
-                         + [wt["wT_head"], wt["wT_color_x"], wt["wT_net_stk"], wt["wT_net0"],
-                            x0, xs0, xsk, xcol, xc, du, dv, dcol, dyh, U, V, VC, part])
+            args = rm.cuda_ptrs(
+                [pk_all[b0:b1], go_all[b0:b1], coef_all[b0:b1], ds_all[b0:b1]] + tabs
+                + [wt["wT_head"], wt["wT_color_x"], wt["wT_net_stk"], wt["wT_net0"],
+                   x0, xs0, xsk, xcol, xc, du, dv, dcol, dyh, U, V, VC, part],
+                "field backward kernel")
             _launch("thgt_field_bwd", *args, Bc, P, num_steps, n_cols, d["n_in"], k0p, n0p,
                     hp, NB, d["F"] + 3, headp, int(exact_sin), stream)
             launches_bwd += 1
