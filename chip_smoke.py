@@ -47,6 +47,8 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
 import contextlib
 import json
 import math
+import os
+import re
 import subprocess
 import sys
 import time
@@ -272,36 +274,45 @@ def check_synthesis(gen, meta, styles, gcuda):
 
     from threedhumangan_tpu_torch.models import synthesis as syn
     from threedhumangan_tpu_torch.ops import synthesis_kernel as sk
+    from threedhumangan_tpu_torch.utils.misc import round16
 
     bf16 = torch.bfloat16
     NB, mods, mode = meta["synthesis_blocks"], tuple(meta["mod_blocks"]), meta["map3d_mode"]
 
-    # narrow: pointwise, in every map3d mode (the slice runs "isolated")
-    for narrow_mode in ("isolated", "mixed", "all"):
-        g = torch.Generator(device="cuda").manual_seed(SEED + 2)
-        net = syn.SynthesisNetwork(32, 32, 32, NB, mods, "batch_norm", narrow_mode)
-        net.reset_parameters(torch.Generator().manual_seed(SEED + 2))
-        sin_ = syn.SynthesisInput(2, 32)
-        sin_.reset_parameters(torch.Generator().manual_seed(SEED + 3))
-        net, sin_ = net.cuda(), sin_.cuda()
-        with torch.no_grad():
-            for m in net.modules():
-                if isinstance(m, torch.nn.BatchNorm2d):
-                    n = m.running_mean.shape
-                    m.running_mean.copy_(0.1 * torch.randn(n, generator=g, device="cuda"))
-                    m.running_var.copy_(1.0 + 0.2 * torch.rand(n, generator=g, device="cuda"))
-            folded = sk.fold_synthesis_params(net, sin_, "batch_norm")
-        st = torch.randn(2, 32, 64, 32, generator=g, device="cuda").to(bf16)
-        fx = torch.randn(2, 1, 32, generator=g, device="cuda")
-        r_k = sk.synthesis_cuda(folded, st, fx, NB, mods, narrow_mode)
-        r_p = sk.synthesis_plain(folded, st, fx, NB, mods, narrow_mode, bf16)
-        mx, mean, p99 = diff_stats(r_k, r_p)
-        log(f"check K3 synthesis narrow (hidden 32, {narrow_mode}): max|d| {mx:.3e} "
-            f"mean|d| {mean:.3e} p99|d| {p99:.3e} (rgb mean|x| {float(r_p.abs().mean()):.3e})")
-        log("  tolerance: max|d| <= 2e-2, mean|d| <= 1e-4 (bf16 activations; f32 sums in "
-            "another order flip occasional bf16 roundings)")
-        if mx > 2e-2 or mean > 1e-4:
-            raise AssertionError(f"K3 (narrow, {narrow_mode}) disagrees with its plain version")
+    # narrow: pointwise, in every map3d mode (the slice runs "isolated"); hidden
+    # 200 (hp 208) leaves ragged column runs: 26 n8 tiles a conv and 13
+    # gamma/beta units a pass over the kernel's 3 consumer warpgroups, so
+    # both the 72-column and the 8-column wgmma run
+    for hidden in (32, 200):
+        for narrow_mode in ("isolated", "mixed", "all"):
+            g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+            net = syn.SynthesisNetwork(hidden, hidden, hidden, NB, mods, "batch_norm",
+                                       narrow_mode)
+            net.reset_parameters(torch.Generator().manual_seed(SEED + 2))
+            sin_ = syn.SynthesisInput(2, hidden)
+            sin_.reset_parameters(torch.Generator().manual_seed(SEED + 3))
+            net, sin_ = net.cuda(), sin_.cuda()
+            with torch.no_grad():
+                for m in net.modules():
+                    if isinstance(m, torch.nn.BatchNorm2d):
+                        n = m.running_mean.shape
+                        m.running_mean.copy_(0.1 * torch.randn(n, generator=g, device="cuda"))
+                        m.running_var.copy_(1.0 + 0.2 * torch.rand(n, generator=g,
+                                                                      device="cuda"))
+                folded = sk.fold_synthesis_params(net, sin_, "batch_norm")
+            st = torch.randn(2, 32, 64, hidden, generator=g, device="cuda").to(bf16)
+            fx = torch.randn(2, 1, hidden, generator=g, device="cuda")
+            r_k = sk.synthesis_cuda(folded, st, fx, NB, mods, narrow_mode)
+            r_p = sk.synthesis_plain(folded, st, fx, NB, mods, narrow_mode, bf16)
+            mx, mean, p99 = diff_stats(r_k, r_p)
+            log(f"check K3 synthesis narrow (hidden {hidden}, {narrow_mode}): max|d| {mx:.3e} "
+                f"mean|d| {mean:.3e} p99|d| {p99:.3e} "
+                f"(rgb mean|x| {float(r_p.abs().mean()):.3e})")
+            log("  tolerance: max|d| <= 2e-2, mean|d| <= 1e-4 (bf16 activations; f32 sums in "
+                "another order flip occasional bf16 roundings)")
+            if mx > 2e-2 or mean > 1e-4:
+                raise AssertionError(f"K3 (narrow, hidden {hidden}, {narrow_mode}) disagrees "
+                                     "with its plain version")
 
     # full width, the slice's weights and shapes: statistics
     with torch.no_grad():
@@ -330,7 +341,43 @@ def check_synthesis(gen, meta, styles, gcuda):
                style.numel() * style.element_size() + r_k.numel() * r_k.element_size())
     log(f"  time: kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound {bd['bound_ms']:.3f} ms "
         f"({bd['bound_by']})")
-    return dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms, **bd)
+    hp = round16(H)
+    rank1 = sk.rank1_blocks_of(NB, mods, mode)
+    pack = lambda: sk.pack_weight_stream(folded, NB, [i for i in range(NB) if i not in rank1],
+                                         hp, hp)
+    _, sizes = pack()
+    ring = dict(ring_stages=sk.RING_STAGES, chunk_bytes=sorted(set(sizes)),
+                stream_bytes=sum(sizes), pack_ms=cuda_ms(pack, 3), **ptxas_of("synthesis.cu"))
+    log(f"  weight ring: {ring['ring_stages']} stages, chunks of {ring['chunk_bytes']} bytes, "
+        f"{ring['stream_bytes']} bytes a 64-pixel tile; ptxas: {ring['registers']} registers, "
+        f"{ring['spill_stores']} bytes spill stores, {ring['spill_loads']} bytes spill loads")
+    log(f"  pack_weight_stream alone (each synthesis_cuda call, inside the kernel's time "
+        f"above): {ring['pack_ms']:.3f} ms")
+    return dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms, **bd, **ring)
+
+
+def ptxas_of(source):
+    """Registers and spill bytes that ``ptxas -v`` reported for the kernels of
+    one csrc source in this run's build log (the most over its kernels);
+    None when this run built nothing, since a log on disk may be another
+    build's."""
+    from threedhumangan_tpu_torch import _build
+
+    out = dict(registers=None, spill_stores=None, spill_loads=None)
+    path = _build.BUILD_INFO.get("log")  # none when this run loaded a cached library
+    if not path:
+        return out
+    with open(path) as f:
+        sections = f.read().split("\n" + _build._nvcc())
+    for sec in sections:
+        if not sec.split("\n", 1)[0].rstrip().endswith("/" + source):
+            continue
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers", sec)]
+        st = [int(x) for x in re.findall(r"(\d+) bytes spill stores", sec)]
+        ld = [int(x) for x in re.findall(r"(\d+) bytes spill loads", sec)]
+        out.update(registers=max(regs, default=None), spill_stores=max(st, default=None),
+                   spill_loads=max(ld, default=None))
+    return out
 
 
 def run_generation(gen, pre, batch, z0, meta, gen_rng, label, need, forbid):

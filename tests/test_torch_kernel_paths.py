@@ -4,6 +4,7 @@ that picks a field-path kernel reaches the port's counterpart.
   pallas_fold_film=False / pallas_march_loop=True   K4 (unfolded render)
   pallas_fuse_geo=True                              K5 (geo-fused render)
   pallas_geo=False (pallas_knn True / False)        K6 / the plain search
+  pallas_synthesis, pallas_raster (False)           no role: K3 and K7 always
 
 Each selection's ``generator_forward`` (plain versions on the CPU, float32,
 exact sine) is held against the JAX package's ``generator_forward`` on its
@@ -132,6 +133,31 @@ def test_fused_geo_stays_off_without_modulation(spy):
     meta, g, cond = _nano(pallas_fuse_geo=True, disable_modulation=True)
     gen.generator_forward(g, torch.randn(2, meta["latent_dim"]), cond, meta)
     assert [name for name, _ in spy] == ["field_render_plain"]
+
+
+def test_pallas_synthesis_false_gives_the_default_output():
+    """pallas_synthesis has no role in the port (models/generator.py): the JAX
+    flag chooses between two computations of one function; the port runs K3."""
+    meta, g, cond = _nano()
+    z = torch.randn(2, meta["latent_dim"], generator=torch.Generator().manual_seed(3))
+    ref = gen.generator_forward(g, z, cond, meta)
+    got = gen.generator_forward(g, z, cond, dict(meta, pallas_synthesis=False))
+    for k in ("rgbs", "rgbs_render"):
+        torch.testing.assert_close(got[k], ref[k], rtol=0, atol=0)
+
+
+def test_pallas_raster_false_gives_the_default_output():
+    """pallas_raster has no role in the port (data/preprocessor.py): the JAX
+    flag chooses its tile kernel or its XLA rasterizer; the port runs K7."""
+    meta = dict(configs.extract_metadata(configs.MAP3DBN_NANO, 0), nerf_noise=0)
+    model = synthetic_smpl_model(num_verts=96, num_faces=64)
+    batch = ds.to_tensors(next(ds.iterate_batches(ds.SyntheticSHHQDataset(
+        smpl_model=model, **meta), 2, shuffle=False)), "cpu")
+    outs = [get_preprocessor(m, model)(batch, rotate=True,
+                                       generator=torch.Generator().manual_seed(2))
+            for m in (meta, dict(meta, pallas_raster=False))]
+    for k in ("rasterized_segments", "rasterized_semantics"):
+        torch.testing.assert_close(outs[1][k], outs[0][k], rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("key", ["pallas_field", "pallas_field_train", "pallas_field_bwd"])

@@ -51,10 +51,10 @@ SIGNATURES = {
     # tables, out, depth, B, R, S, n_cols, V, J, legacy, scaler, k0p, n0p,
     # hp, n_blocks, out_width, headp, white_back, last_back, exact_sin, stream
     "thgt_raymarch_geo": [_P] * 22 + [_I] * 7 + [_F] + [_I] * 9 + [_P],
-    # style, fixed, gab, in_w, in_b, conv_w, conv_b, sh_w, sh_b, g_w, g_b,
-    # bt_w, bt_b, rgb_w, rgb_b, rgb_out,
-    # B, H, W, F, fp, hp, num_blocks, n_gab, add_fixed, mod_mask, stream
-    "thgt_synthesis": [_P] * 16 + [_I] * 10 + [_P],
+    # style, fixed, gab, in_w, in_b, weight stream, conv_b, sh_b, g_b, bt_b,
+    # rgb_w, rgb_b, rgb_out, B, H, W, F, fp, hp, num_blocks, n_gab,
+    # add_fixed, mod_mask, stream bytes, stream
+    "thgt_synthesis": [_P] * 13 + [_I] * 10 + [ctypes.c_longlong, _P],
     # packed, go, w_first, b_first, w_net0, w_net_stk, b_net, freq, phase,
     # w_color_x, w_color_d, b_color, w_sigma, b_sigma, w_head, b_head, sigma,
     # gdot, B, P, S, n_cols, n_in, k0p, n0p, hp, n_blocks, width, headp,

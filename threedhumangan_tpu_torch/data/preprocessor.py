@@ -7,7 +7,11 @@ through the render camera (K7, ``ops.rasterize.rasterize_mesh_tiled``) into
 ``rasterized_segments`` (body-part label + 2, background 1) and
 ``rasterized_semantics`` (T-pose xyz of the winning face's nearest corner).
 Generation needs neither, so a preprocessor built without faces skips the
-rasterizer.  Rotation noise comes from an explicit ``torch.Generator``.
+rasterizer.  The JAX meta key ``pallas_raster`` has no role here: the JAX
+flag picks its Pallas tile kernel against its XLA binned rasterizer
+(JAX ``preprocessor.py:187-197``), the same function, and the port always
+rasterizes through K7 (its plain version on the CPU), so False gives the
+same output.  Rotation noise comes from an explicit ``torch.Generator``.
 Inverses use ``torch.linalg.inv_ex``: like ``jnp.linalg.inv`` it does not
 check for singular input, so it does not make the host wait for the card.
 """

@@ -24,7 +24,11 @@ counterparts, with the JAX package's on-accelerator values as defaults
 than 2 trunk blocks.)  The TPU-only knobs ``pallas_tile_rays``,
 ``pallas_step_pack``, ``pallas_fold_pipe2``, ``pallas_geo_tile_points``,
 ``pallas_geo_tile_rays`` and ``pallas_interpret`` size or schedule Pallas
-kernels and have no role here.  The field always renders through the
+kernels and have no role here.  Nor does ``pallas_synthesis``: the JAX flag
+picks its fused synthesis kernel against the per-op eval stack
+(JAX ``generator.py:498-504``), two ways to compute the same function, and
+the port always runs K3 (its plain version on the CPU); False gives the
+same output.  The field always renders through the
 kernels' path: ``pallas_field``, ``pallas_field_train`` or
 ``pallas_field_bwd`` set to False (the XLA field and its remat backward)
 raise ``NotImplementedError``.

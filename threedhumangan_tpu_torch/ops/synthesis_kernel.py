@@ -12,7 +12,11 @@ per-image fixed vector (isolated/mixed non-mod blocks) collapse to per-image
 
 ``fused_synthesis`` launches csrc/synthesis.cu on CUDA tensors and runs
 ``synthesis_plain`` — the JAX kernel's math, rounding to the compute dtype
-where it does — on CPU tensors.
+where it does — on CPU tensors.  Before each launch ``pack_weight_stream``
+lays every weight the kernel reads out on the device as one bf16 stream of
+16-row chunk images, in the order and the shared-memory layout the kernel
+consumes them, so its producer warp only copies contiguous chunks; the
+biases, rank-1 rows, input and ToRGB weights stay float32 tables.
 """
 
 from __future__ import annotations
@@ -155,6 +159,57 @@ def fused_synthesis(folded: Dict, style_map, fixed_style, num_blocks: int, mod_b
 
 
 PIXELS_PER_CTA = 64  # pixels one CTA of the kernel holds
+CHUNK_ROWS = 16  # K rows of a chunk image of the weight stream
+RING_STAGES = 3  # stages of the kernel's weight ring (csrc/synthesis_core.cuh kStages)
+
+
+def chunk_images(w: torch.Tensor) -> torch.Tensor:
+    """A (K, N) weight (K % 16 == 0, N % 8 == 0) as its K/16 chunk images,
+    flat: image q holds rows 16q..16q+15 as 8 x 16-byte core matrices,
+    element (k, n) at ((n // 8) * 2 + k // 8) * 64 + (n % 8) * 8 + k % 8 —
+    wgmma's K-major B layout without swizzle, the two K halves 128 bytes and
+    the 8-column groups 256 bytes apart (``desc_b`` in
+    csrc/synthesis_core.cuh)."""
+    K, N = w.shape
+    return w.reshape(K // CHUNK_ROWS, 2, 8, N // 8, 8).permute(0, 3, 1, 4, 2).reshape(-1)
+
+
+def gamma_beta_pass(g_w: torch.Tensor, bt_w: torch.Tensor, p: int) -> torch.Tensor:
+    """Column pass p (0, 1) of the gamma and beta heads (K, hp) as one (K,
+    hp) matrix: 8-column groups alternate gamma s, beta s over the pass's
+    hp/2 columns, so a thread's accumulators hold gamma and beta of the same
+    elements."""
+    K, hp = g_w.shape
+    h2 = hp // 2
+    parts = [t[:, p * h2:(p + 1) * h2].reshape(K, h2 // 8, 1, 8) for t in (g_w, bt_w)]
+    return torch.cat(parts, 2).reshape(K, hp)
+
+
+def pack_weight_stream(folded: Dict, num_blocks: int, mods, hp: int, fp: int):
+    """Every weight K3 reads, as one contiguous bf16 stream of chunk images in
+    the order the kernel consumes them: per block and half, for the blocks in
+    ``mods`` the SPADE shared layer (fp x 128) and the gamma/beta heads (two
+    column passes of ``gamma_beta_pass``), then the conv (hp x hp).  Returns
+    (stream, the bytes of each chunk); every chunk is 16 rows x N x 2 bytes,
+    a multiple of 256."""
+    bf16 = torch.bfloat16
+    images, sizes = [], []
+
+    def put(w):
+        images.append(chunk_images(w))
+        sizes.extend([CHUNK_ROWS * w.shape[1] * 2] * (w.shape[0] // CHUNK_ROWS))
+
+    for i in range(num_blocks):
+        for si in (0, 1):
+            if i in mods:
+                k = f"b{i}_sp{si}"
+                put(pad_to(folded[f"{k}_sh_w"], (fp, SPADE_HIDDEN), bf16))
+                g_w = pad_to(folded[f"{k}_g_w"], (SPADE_HIDDEN, hp), bf16)
+                bt_w = pad_to(folded[f"{k}_bt_w"], (SPADE_HIDDEN, hp), bf16)
+                for p in (0, 1):
+                    put(gamma_beta_pass(g_w, bt_w, p))
+            put(pad_to(folded[f"b{i}_conv{si}_w"], (hp, hp), bf16))
+    return torch.cat(images), sizes
 
 
 def _stack_pad(ts, shape, dtype):
@@ -183,26 +238,23 @@ def synthesis_cuda(folded, style_map, fixed_style, num_blocks, mod_blocks, map3d
         gab = pad_to(gab.to(bf16).float(), (B, gab.shape[1], hp), f32)
     else:
         gab = dummy
-    cw = lambda k: [folded[f"b{i}_conv{ci}_{k}"] for i in range(num_blocks) for ci in (0, 1)]
-    spk = lambda k: [folded[f"b{i}_sp{si}_{k}"] for i in mods for si in (0, 1)]
+    stream, _ = pack_weight_stream(folded, num_blocks, mods, hp, fp)
+    cb = [folded[f"b{i}_conv{ci}_b"][0] for i in range(num_blocks) for ci in (0, 1)]
+    spk = lambda k: [folded[f"b{i}_sp{si}_{k}"][0] for i in mods for si in (0, 1)]
     rnd = lambda t: t.to(bf16).float()  # operands the kernel reads as bf16 values
     if mods:
-        sp = [_stack_pad(spk("sh_w"), (fp, SPADE_HIDDEN), bf16),
-              _stack_pad([t[0] for t in spk("sh_b")], (SPADE_HIDDEN,), f32),
-              _stack_pad(spk("g_w"), (SPADE_HIDDEN, hp), bf16),
-              _stack_pad([t[0] for t in spk("g_b")], (hp,), f32),
-              _stack_pad(spk("bt_w"), (SPADE_HIDDEN, hp), bf16),
-              _stack_pad([t[0] for t in spk("bt_b")], (hp,), f32)]
+        sp = [_stack_pad(spk("sh_b"), (SPADE_HIDDEN,), f32), _stack_pad(spk("g_b"), (hp,), f32),
+              _stack_pad(spk("bt_b"), (hp,), f32)]
     else:
-        sp = [dummy] * 6
+        sp = [dummy] * 3
     args = [
         style_map.to(bf16).contiguous(),
         fixed_style.reshape(B, F).to(bf16).contiguous(),
         gab,
         pad_to(rnd(folded["in_w"]), (2, hp), f32),
         pad_to(folded["in_b"][0], (hp,), f32),
-        _stack_pad(cw("w"), (hp, hp), bf16),
-        _stack_pad([t[0] for t in cw("b")], (hp,), f32),
+        stream,
+        _stack_pad(cb, (hp,), f32),
         *sp,
         _stack_pad([rnd(folded[f"b{i}_rgb_w"]) for i in range(num_blocks)], (hp, 3), f32),
         torch.stack([folded[f"b{i}_rgb_b"][0].float() for i in range(num_blocks)], 0),
@@ -213,11 +265,12 @@ def synthesis_cuda(folded, style_map, fixed_style, num_blocks, mod_blocks, map3d
     rgb = torch.empty(B, H, W, 3, dtype=f32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        cuda_stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.thgt_synthesis(
             *[t.data_ptr() for t in args], rgb.data_ptr(),
             B, H, W, F, fp, hp, num_blocks, gab.shape[1] if rank1 else 0,
-            int(map3d_mode in ("all", "mixed")), sum(1 << i for i in mods), stream)
+            int(map3d_mode in ("all", "mixed")), sum(1 << i for i in mods),
+            stream.numel() * stream.element_size(), cuda_stream)
     _build.check(err, "thgt_synthesis")
     launches += 1
     return rgb
