@@ -7,8 +7,9 @@ CUDA card.
 Phases, each printing its own lines; any failure raises (exit code != 0):
 
   1. card     — nvidia-smi name and power limit; TF32 off for the references.
-  2. build    — nvcc builds K1-K3 and K7-K11 from threedhumangan_tpu_torch/csrc,
-                one process per source.
+  2. build    — nvcc builds K1-K11 and the weight-gradient reduction of K9
+                and K11 from threedhumangan_tpu_torch/csrc, one process per
+                source.
   3. check    — K1-K3 against their plain PyTorch versions at the generation
                 slice's shapes (and K2/K3 pointwise at a narrow width), with
                 the tolerance and its reason; kernel, plain and bound times.
@@ -21,7 +22,8 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
   5. check    — K7, K2 (with the nerf-noise column), K8 and K9 against their
                 plain versions at the training slice's shapes (K8/K9 also
                 pointwise at a narrow width, and against autograd through the
-                plain unfolded render).
+                plain unfolded render); the weight-gradient reduction against
+                the plain f32 X^T Y at K9's ragged widths.
   6. train    — the MAP3DBN D+G+R1 step at batch 8 in bf16, phase slot 3
                 (R1 on), nerf noise 0.5, lr_d 4e-4 / lr_g 1e-4, per-op
                 synthesis (``pallas_synthesis_train=False``): 2 warm-up + 5
@@ -32,7 +34,11 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
   7. check    — K10/K11 against their plain versions (and K11 against
                 autograd through the plain forward) at the training shapes,
                 spatial with the fixed row and rank-1, and pointwise on a
-                narrow case with a ragged last tile.
+                narrow case with a ragged last tile; K11's call split into
+                host glue (and its weight pack), body, each weight-gradient
+                product (beside its bound and torch.matmul) and host sums;
+                two K11 calls bit for bit; the reduction against the plain
+                f32 X^T Y on K11's own operands.
   8. train    — phase 6 on the fused half-blocks
                 (``pallas_synthesis_train=True``): 36 K10 and 18 K11 launches
                 a pair; and the TINY card-vs-CPU step on them.
@@ -717,6 +723,16 @@ def check_field_bwd(G, meta, cond, gcuda):
     plain9 = cuda_ms(lambda: rb.field_bwd_step_plain(w, pk, fk, pk_, go, coef, dsig, S,
                                                      exact_sin=exact), 1)
     b8, b9 = field_bound(pk, go, meta, backward=1), field_bound(pk, go, meta, backward=2)
+    # the reduction at K9's ragged widths: the first layer's narrow K (k0p)
+    # and the 16-column-padded colour layer (hp + 16), at one launch's rows
+    _, dims = rb.kernel_tables(w, fk, pk_)
+    rows = rb.IMAGES_PER_LAUNCH * pk.shape[1]
+    rnd = lambda n: torch.randn(rows, n, generator=gcuda, device="cuda").to(bf16)
+    cp = dims["hp"] + 16
+    b9["weight_gradient_reduction"] = check_wgrad("K9", [
+        ("first", rnd(dims["k0p"]), rnd(dims["n0p"])), ("color", rnd(cp), rnd(cp)),
+        ("head", rnd(dims["hp"]), rnd(dims["headp"]))])
+    b9["reduction_ptxas"] = ptxas_of("wgrad.cu")
     log(f"  time: K8 kernel {ms8:.3f} ms plain {plain8:.3f} ms bound {b8['bound_ms']:.3f} ms "
         f"({b8['bound_by']}); K9 kernel {ms9:.3f} ms plain {plain9:.3f} ms bound "
         f"{b9['bound_ms']:.3f} ms ({b9['bound_by']})")
@@ -828,6 +844,84 @@ def _half_block_flops(P, ci, co, cs, hid, spatial):
     return 2 * P * (ci * co + mlp), 2 * P * (2 * ci * co + 3 * mlp)
 
 
+def wgrad_bound(X, Y):
+    """Bound of one weight-gradient product X^T Y: X (rows, K), Y (rows, N)
+    bf16 read once, (K, N) f32 written once."""
+    rows, K = X.shape
+    N = Y.shape[1]
+    return bound(2 * rows * K * N, 2 * rows * (K + N) + 4 * K * N)
+
+
+def check_wgrad(what, cases):
+    """The weight-gradient reduction (csrc/wgrad.cu) against the plain f32
+    X^T Y on each (name, X, Y), with one ``torch.matmul(X.t(), Y)`` on the
+    same bf16 operands timed beside it (a yardstick, never on the path)."""
+    import torch
+
+    from threedhumangan_tpu_torch.ops import raymarch_bwd as rb
+
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for name, X, Y in cases:
+        got = rb.wgrad(X, Y, stream)
+        ref = rb.wgrad_plain(X, Y)
+        err = float((got - ref).abs().max() / (ref.abs().max() + 1e-30))
+        out[name] = dict(shape=[X.shape[0], X.shape[1], Y.shape[1]], max_rel_err=err,
+                         ms=cuda_ms(lambda: rb.wgrad(X, Y, stream), 5),
+                         plain_ms=cuda_ms(lambda: rb.wgrad_plain(X, Y), 3),
+                         library_ms=cuda_ms(lambda: torch_matmul_t(X, Y), 5), **wgrad_bound(X, Y))
+        r = out[name]
+        log(f"check {what} weight-gradient reduction {name} {r['shape']} (rows, K, N): "
+            f"max|d|/max|ref| {err:.3e}; {r['ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+            f"({r['bound_by']}), torch.matmul {r['library_ms']:.3f} ms, plain f32 "
+            f"{r['plain_ms']:.3f} ms")
+    log("  tolerance: max|d|/max|ref| <= 1e-3 (exact bf16 products, f32 sums in another order)")
+    worst = max(r["max_rel_err"] for r in out.values())
+    if not worst <= 1e-3:
+        raise AssertionError(f"the weight-gradient reduction disagrees with X^T Y ({what})")
+    return out
+
+
+def k11_split(bargs, g):
+    """K11's call in parts, each timed alone by CUDA events: the host glue
+    before the launch, the body kernel, each weight-gradient product (beside
+    its bound and one ``torch.matmul(X.t(), Y)`` on the same bf16 operands, a
+    yardstick never on the path) and the host's fixed-order sums."""
+    from threedhumangan_tpu_torch.ops import synthesis_train as st
+
+    op = st.bwd_operands(**bargs, g=g)
+    st.bwd_body(op)
+    gw = st.bwd_products(op)
+    red = {k: bargs[k] for k in ("h", "style", "fixed", "gam", "bet", "m", "r", "a")}
+    out = dict(glue_ms=cuda_ms(lambda: st.bwd_operands(**bargs, g=g), 3),
+               pack_ms=cuda_ms(lambda: st.pack_bwd_stream(bargs["w"], bargs["mlp"], op["d"]), 3),
+               body_ms=cuda_ms(lambda: st.bwd_body(op), 3),
+               sums_ms=cuda_ms(lambda: st.bwd_reduce(op, gw, **red), 3), products={})
+    for k, (X, Y) in op["prods"].items():
+        one = {k: (X, Y)}
+        out["products"][k] = dict(
+            shape=[X.shape[0], X.shape[1], Y.shape[1]],
+            ms=cuda_ms(lambda: st.bwd_products(dict(op, prods=one)), 3),
+            library_ms=cuda_ms(lambda: torch_matmul_t(X, Y), 3), **wgrad_bound(X, Y))
+    return out
+
+
+def torch_matmul_t(X, Y):
+    import torch
+
+    return torch.matmul(X.t(), Y)
+
+
+def log_k11_split(name, sp):
+    prods = sum(p["ms"] for p in sp["products"].values())
+    log(f"  K11 {name} split: glue {sp['glue_ms']:.3f} ms (of it the weight pack "
+        f"{sp['pack_ms']:.3f} ms), body {sp['body_ms']:.3f} ms, "
+        f"weight-gradient products {prods:.3f} ms, sums {sp['sums_ms']:.3f} ms")
+    for k, p in sp["products"].items():
+        log(f"    product {k} {p['shape']} (rows, K, N): {p['ms']:.3f} ms, bound "
+            f"{p['bound_ms']:.3f} ms ({p['bound_by']}), torch.matmul {p['library_ms']:.3f} ms")
+
+
 def check_half_blocks(gcuda, B, H, W, C, hid):
     """K10/K11 against their plain versions (and K11 against autograd through
     the plain forward): narrow cases pointwise, the training shapes by
@@ -899,9 +993,26 @@ def check_half_blocks(gcuda, B, H, W, C, hid):
             f"weight-gradient products) kernel {r['k11']['ms']:.3f} ms plain "
             f"{r['k11']['plain_ms']:.3f} ms bound {r['k11']['bound_ms']:.3f} ms "
             f"({r['k11']['bound_by']})")
+        r["k11"]["split"] = k11_split(bargs, g)
+        log_k11_split(name, r["k11"]["split"])
+        d1, d2 = run_bk(), run_bk()
+        same = all(torch.equal(d1[k], d2[k]) for k in d1 if d1[k] is not None)
+        log(f"  K11 {name}: two calls on the same inputs bit-equal: {same}")
+        if not same:
+            raise AssertionError("K11 is not deterministic from run to run")
+        del d1, d2
+        op = st.bwd_operands(**bargs, g=g)
+        st.bwd_body(op)
+        r["k11"]["weight_gradient_reduction"] = check_wgrad(f"K11 {name}", [
+            (k, X, Y) for k, (X, Y) in op["prods"].items()])
+        del op
         res[name] = r
-        del args, g
+        del args, g, bargs
         torch.cuda.empty_cache()
+    core = ptxas_of("synthesis_train_bwd.cu")
+    log(f"  K11 ptxas: {core['registers']} registers, {core['spill_stores']} bytes spill stores, "
+        f"{core['spill_loads']} bytes spill loads (None: this run loaded a cached build)")
+    res["spatial"]["k11"].update(ptxas=core)
     return res
 
 
@@ -1528,6 +1639,7 @@ def main():
              replaces="threedhumangan_tpu/ops/raymarch_bwd.py:132", launches=tc["K8"], **k8),
         dict(name="K9 field backward step", route="cuda", source=src + "raymarch_bwd.cu",
              replaces="threedhumangan_tpu/ops/raymarch_bwd.py:154", launches=tc["K9"],
+             reduction_source=src + "wgrad.cu",
              weight_gradient_reduction_launches=tc["K9 weight-gradient reduction"], **k9),
         dict(name="K10 fused SPADE half-block forward", route="cuda",
              source=src + "synthesis_train.cu",
@@ -1535,7 +1647,7 @@ def main():
              case="spatial with the fixed row", rank1=hb["rank1"]["k10"],
              **hb["spatial"]["k10"]),
         dict(name="K11 fused SPADE half-block backward", route="cuda",
-             source=src + "synthesis_train.cu",
+             source=src + "synthesis_train_bwd.cu", reduction_source=src + "wgrad.cu",
              replaces="threedhumangan_tpu/ops/synthesis_train.py:225", launches=fc["K11"],
              weight_gradient_reduction_launches=fc["K11 weight-gradient reduction"],
              case="spatial with the fixed row", rank1=hb["rank1"]["k11"],

@@ -72,9 +72,10 @@ SIGNATURES = {
     # w, c, out, B, HW, ci, cs, co, cip, csp, cop, hidp, spatial, add_fixed,
     # stream
     "thgt_half_block_fwd": [_P] * 18 + [_I] * 11 + [_P],
-    # the 15 inputs of thgt_half_block_fwd, wT, gbT, shT, g, dh, dsty, xt, yg,
-    # xst, xact, ygb, ydact, part, then its ints, stream
-    "thgt_half_block_bwd": [_P] * 28 + [_I] * 11 + [_P],
+    # h, style, fixed, gam, bet, m, r, a, b, sh_b, g_b, bt_b, weight stream,
+    # g, dh, dsty, xt, yg, xst, xact, ygb, ydact, part, the ints of
+    # thgt_half_block_fwd, stream bytes, stream
+    "thgt_half_block_bwd": [_P] * 23 + [_I] * 11 + [ctypes.c_longlong, _P],
 }
 
 _LIB = None

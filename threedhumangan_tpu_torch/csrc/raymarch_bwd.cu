@@ -14,10 +14,10 @@
 //       the bf16 operands of the weight-gradient products (layer input X
 //       and output gradient dY) and per-CTA column sums (bias grads, and
 //       the freq/phase grads of its image).
-//   wgrad_kernel: dW = sum over samples of X^T dY, one 64 x 64 tile of dW
-//       per CTA over one chunk of rows; every chunk writes its own partial,
-//       and the host sums the partials in a fixed order.  No atomics: the
-//       grads are the same from run to run.
+//   The weight gradients dW = sum over samples of X^T dY are reduced by
+//       csrc/wgrad.cu (shared with K11): every chunk of rows writes its own
+//       partial, and the host sums the partials in a fixed order.  No
+//       atomics: the grads are the same from run to run.
 //
 // What bounds it on an H100: at hidden 384 the recompute is ~2 MFLOP of
 // matrix products per sample and the backprop as much again (~2.2 TFLOP for
@@ -366,53 +366,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   flush(0, n0p);
 }
 
-// dW partial of one 64 x 64 tile over one chunk of rows: X (rows, K) and
-// Y (rows, N) bf16 row-major, K and N multiples of 16.
-constexpr int kWgThreads = 256;
-__global__ void __launch_bounds__(kWgThreads) wgrad_kernel(const bf16* X, const bf16* Y, float* part, int K,
-                                                           int N, int rows, int chunk_rows) {
-  constexpr int ld = 64 + 8;
-  __shared__ __align__(128) bf16 xs[64 * ld];
-  __shared__ __align__(128) bf16 ys[64 * ld];
-  const int n0 = blockIdx.x * 64, i0 = blockIdx.y * 64, ch = blockIdx.z;
-  const int p_begin = ch * chunk_rows, p_end = min(rows, p_begin + chunk_rows);
-  const int warp = threadIdx.x >> 5;
-  const int fi = warp >> 1, fj0 = (warp & 1) * 2;
-  FragC acc[2];
-  wmma::fill_fragment(acc[0], 0.f);
-  wmma::fill_fragment(acc[1], 0.f);
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  for (int p0 = p_begin; p0 < p_end; p0 += 64) {
-    for (int e = threadIdx.x; e < 64 * 8; e += kWgThreads) {
-      const int r = e / 8, v = e % 8, p = p0 + r;
-      const int cx = i0 + v * 8, cy = n0 + v * 8;
-      *reinterpret_cast<uint4*>(xs + r * ld + v * 8) =
-          (p < p_end && cx < K) ? *reinterpret_cast<const uint4*>(X + (size_t)p * K + cx) : zero;
-      *reinterpret_cast<uint4*>(ys + r * ld + v * 8) =
-          (p < p_end && cy < N) ? *reinterpret_cast<const uint4*>(Y + (size_t)p * N + cy) : zero;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < 64; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
-      wmma::load_matrix_sync(a, xs + kk * ld + fi * 16, ld);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        FragB bfr;
-        wmma::load_matrix_sync(bfr, ys + kk * ld + (fj0 + j) * 16, ld);
-        wmma::mma_sync(acc[j], a, bfr, acc[j]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int i = i0 + fi * 16, n = n0 + (fj0 + j) * 16;
-    if (i < K && n < N)
-      wmma::store_matrix_sync(part + ((size_t)ch * K + i) * N + n, acc[j], N, wmma::mem_row_major);
-  }
-}
-
 size_t field_smem(int k0p, int n0p, int hp, int headp) {
   return sizeof(bf16) * kRows * (smem_ld(k0p) + smem_ld(imax(n0p, headp)) + smem_ld(hp)) +
          sizeof(float) * (kWarps * 256 + 9 * kRows + kWarps * kRows + col_acc(n0p, hp, headp)) +
@@ -473,12 +426,4 @@ extern "C" int thgt_field_bwd(const bf16* packed, const float* go, const float* 
   Saved sv{wT_head, wT_color_x, wT_net_stk, wT_net0, x0, xs0, xsk, xcol, xc, du, dv, dcol, dyh,
            U, V, VC, part};
   return launch<true>(packed, go, coef, dsig, t, sv, nullptr, nullptr, d, stream);
-}
-
-extern "C" int thgt_wgrad(const bf16* X, const bf16* Y, float* part, int K, int N, int rows,
-                          int chunk_rows, int n_chunks, cudaStream_t stream) {
-  if (K % 16 || N % 16 || chunk_rows <= 0) return (int)cudaErrorInvalidValue;
-  dim3 grid((N + 63) / 64, (K + 63) / 64, n_chunks);
-  wgrad_kernel<<<grid, kWgThreads, 0, stream>>>(X, Y, part, K, N, rows, chunk_rows);
-  return (int)cudaGetLastError();
 }

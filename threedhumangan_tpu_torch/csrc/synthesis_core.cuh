@@ -25,6 +25,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "wgmma_tiles.cuh"
+
 namespace syn {
 
 using bf16 = __nv_bfloat16;
@@ -181,18 +183,22 @@ __device__ __forceinline__ void wgmma_n8(float* d, const uint32_t (&a)[4], uint6
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc));
 }
 
-// The consumers' view of the ring: `it` counts the chunks consumed, so
-// chunk it sits in stage it % kStages, filled in phase (it / kStages) & 1.
-struct Ring {
+// The consumers' view of a ring of S stages: `it` counts the chunks
+// consumed, so chunk it sits in stage it % S, filled in phase (it / S) & 1.
+template <int S>
+struct RingT {
+  static constexpr int kS = S;
   unsigned char* stages;
   uint64_t* full;
   uint64_t* empty;
   int stage_bytes;
   uint32_t it;
 };
+using Ring = RingT<kStages>;
 
 // The producer: copy `n` chunks of `bytes` each, in order, from `src`.
-struct Producer {
+template <int S>
+struct ProducerT {
   unsigned char* stages;
   uint64_t* full;
   uint64_t* empty;
@@ -202,42 +208,68 @@ struct Producer {
 
   __device__ __forceinline__ void put(int n, uint32_t bytes) {
     for (int c = 0; c < n; ++c, ++it, src += bytes) {
-      const int st = it % kStages;
-      mbar_wait(&empty[st], ((it / kStages) & 1) ^ 1);  // a fresh stage passes at once
+      const int st = it % S;
+      mbar_wait(&empty[st], ((it / S) & 1) ^ 1);  // a fresh stage passes at once
       mbar_expect_tx(&full[st], bytes);
       bulk_copy(stages + st * stage_bytes, src, bytes, &full[st]);
     }
   }
+  // n chunks of `bytes` each, `sub` consecutive ones to a stage with one copy
+  // (the last stage may hold fewer): k_loop<.., kSub = sub> consumes them
+  __device__ __forceinline__ void put(int n, uint32_t bytes, int sub) {
+    for (int c = 0; c < n; c += sub, ++it) {
+      const uint32_t b = bytes * (uint32_t)min(sub, n - c);
+      const int st = it % S;
+      mbar_wait(&empty[st], ((it / S) & 1) ^ 1);
+      mbar_expect_tx(&full[st], b);
+      bulk_copy(stages + st * stage_bytes, src, b, &full[st]);
+      src += b;
+    }
+  }
 };
+using Producer = ProducerT<kStages>;
 
 // The K loop of a warpgroup that owns NT n8 tiles: per chunk, wgmma
 // m64n72k16 on each full 72-column slice and m64n8k16 on the rest, all
 // unconditional; A loaded per warp into two register sets in turn; a stage
 // is released once the wgmma that read it have retired (wait_group 1 after
-// the next chunk's).
-template <int NT, int MT>
-__device__ __forceinline__ void k_loop(Ring& ring, float (&acc)[MT][4], uint32_t a_addr,
-                                       uint32_t b_off, int nk) {
+// the next chunk's).  With kSub > 1 a stage holds kSub consecutive chunks
+// of img_bytes each (Producer::put(n, bytes, kSub)): one wait and one
+// release a stage.  With kOne a k step is one wgmma over all NT tiles
+// (wgmma_tiles.cuh).
+template <int NT, int MT, int kSub = 1, bool kOne = false, typename R>
+__device__ __forceinline__ void k_loop(R& ring, float (&acc)[MT][4], uint32_t a_addr,
+                                       uint32_t b_off, int nk, uint32_t img_bytes = 0) {
   uint32_t a0[4], a1[4];
   int held = -1;
+  int st = 0;
   auto step = [&](uint32_t(&a)[4], int kc) {
-    const int st = ring.it % kStages;
-    mbar_wait(&ring.full[st], (ring.it / kStages) & 1);
+    const int sub = kSub == 1 ? 0 : kc % kSub;
+    if (sub == 0) {
+      st = ring.it % R::kS;
+      mbar_wait(&ring.full[st], (ring.it / R::kS) & 1);
+    }
     if constexpr (NT > 0) {
       ldsm_x4(a, a_addr + kc * 32);
       wgmma_fence();
-      const uint32_t b = smem_u32(ring.stages + st * ring.stage_bytes) + b_off;
+      const uint32_t b = smem_u32(ring.stages + st * ring.stage_bytes) + b_off + sub * img_bytes;
+      if constexpr (kOne) {
+        wgmma_tiles<NT>(&acc[0][0], a, desc_b(b));
+      } else {
 #pragma unroll
-      for (int s = 0; s < NT / kSlice; ++s)
-        wgmma_n72(&acc[kSlice * s][0], a, desc_b(b + s * kSlice * 256));
+        for (int s = 0; s < NT / kSlice; ++s)
+          wgmma_n72(&acc[kSlice * s][0], a, desc_b(b + s * kSlice * 256));
 #pragma unroll
-      for (int t = NT / kSlice * kSlice; t < NT; ++t) wgmma_n8(&acc[t][0], a, desc_b(b + t * 256));
+        for (int t = NT / kSlice * kSlice; t < NT; ++t) wgmma_n8(&acc[t][0], a, desc_b(b + t * 256));
+      }
       wgmma_commit();
       wgmma_wait<1>();
     }
-    if (held >= 0) warp_arrive(&ring.empty[held]);
-    held = st;
-    ++ring.it;
+    if (sub == 0) {
+      if (held >= 0) warp_arrive(&ring.empty[held]);
+      held = st;
+      ++ring.it;
+    }
   };
   int kc = 0;
   for (; kc + 1 < nk; kc += 2) {
@@ -250,16 +282,17 @@ __device__ __forceinline__ void k_loop(Ring& ring, float (&acc)[MT][4], uint32_t
 }
 
 // One product of the CTA's 64-row activation tile A (row-major bf16, row
-// stride lda) with the next nk chunks of the ring, whose images hold
-// `units` column units of U n8 tiles each.  Warpgroup g owns a contiguous
+// stride lda) with the next nk chunks of the ring (kSub to a stage; kOne:
+// one wgmma a k step), whose images hold `units` column units of U n8
+// tiles each.  Warpgroup g owns a contiguous
 // run of at most MT / U units; its K loop is instantiated for its tile
 // count.  After the K loop (and, with sync_first, a barrier of the
 // consumers, so the epilogue may overwrite A), epi(unit, v) receives for
 // each of its units the U x 4 float32 accumulators of this thread (see the
 // note at the top).  Every consumer thread must call it with the same
 // arguments.
-template <int MT, int U, typename Epi>
-__device__ __forceinline__ void product(Ring& ring, const bf16* A, int lda, int nk, int units,
+template <int MT, int U, int kSub = 1, bool kOne = false, typename R, typename Epi>
+__device__ __forceinline__ void product(R& ring, const bf16* A, int lda, int nk, int units,
                                         bool sync_first, Epi epi) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wg = warp >> 2;
   const int per = units / kColGroups, rem = units % kColGroups;
@@ -270,11 +303,12 @@ __device__ __forceinline__ void product(Ring& ring, const bf16* A, int lda, int 
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[t][i] = 0.f;
   const uint32_t a_addr = smem_u32(A + ((warp & 3) * 16 + (lane & 15)) * lda + (lane >> 4) * 8);
-  const uint32_t b_off = u0 * U * 256;
+  const uint32_t b_off = u0 * U * 256, img = units * U * 256;
   switch (cnt * U) {
-#define SYN_K_LOOP(n)                                                   \
-  case n:                                                               \
-    if constexpr (n <= MT) k_loop<n, MT>(ring, acc, a_addr, b_off, nk); \
+#define SYN_K_LOOP(n)                                                 \
+  case n:                                                             \
+    if constexpr (n <= MT)                                            \
+      k_loop<n, MT, kSub, kOne>(ring, acc, a_addr, b_off, nk, img);  \
     break;
     SYN_K_LOOP(0) SYN_K_LOOP(1) SYN_K_LOOP(2) SYN_K_LOOP(3) SYN_K_LOOP(4) SYN_K_LOOP(5)
     SYN_K_LOOP(6) SYN_K_LOOP(7) SYN_K_LOOP(8) SYN_K_LOOP(9) SYN_K_LOOP(10) SYN_K_LOOP(11)

@@ -1,7 +1,7 @@
-// K10 + K11: the trainable fused SPADE half-block (train-mode synthesis).
+// K10: the trainable fused SPADE half-block (train-mode synthesis), forward.
 //
-// Replaces threedhumangan_tpu/ops/synthesis_train.py::_fwd_kernel (K10) and
-// ::_bwd_kernel (K11) (Pallas, TPU).  Per pixel of one half-block:
+// Replaces threedhumangan_tpu/ops/synthesis_train.py::_fwd_kernel (Pallas,
+// TPU).  Per pixel of one half-block:
 //
 //   nhat = (h - m) r,  u = bf(nhat a + b)                 (f32, no FMA)
 //   spatial: st = bf(style + fixed), z0 = st sh_w + sh_b, actv = bf(relu z0),
@@ -10,42 +10,25 @@
 //   s = bf(bf(u gam) + bet),  t = lrelu(s) (slope bf16 0.2001953125),
 //   out = bf(t W + c)
 //
-// and its VJP: dt = g W^T, ds = dt (s >= 0 ? 1 : 0.2f), dgam = ds u,
-// du = ds gam, dnhat = du a, dh = bf(dnhat r); spatial: dactv = (bf(dgam)
-// g_w^T + bf(ds) bt_w^T)(z0 > 0), dsty = bf(bf(dactv) sh_w^T).  Rounding
-// follows the JAX kernels (ops/synthesis_train.py:159-177, :290-322).
-//
-//   half_block_fwd (K10): one CTA per 64 pixels of one image; writes out.
-//   half_block_bwd (K11): recomputes K10's chain per tile, writes dh (and
-//       dsty), per-CTA column sums (dc, sum dgam, sum ds, da, db, sum dnhat,
-//       sum dnhat nhat, and the SPADE hidden bias grad) and the bf16 operands
-//       of the weight-gradient products (t and g; st and dactv; actv and
-//       [dgam | ds]), which K9's wgrad_kernel (raymarch_bwd.cu) reduces over
-//       rows chunk by chunk.  The host sums every partial in a fixed order:
-//       no atomics on global memory, the same grads from run to run.
+// Rounding follows the JAX kernels (ops/synthesis_train.py:159-177).  The
+// backward (K11) is csrc/synthesis_train_bwd.cu.  half_block_fwd: one CTA
+// per 64 pixels of one image; writes out.
 //
 // What bounds it on an H100: at MAP3DBN's shapes (8 x 256 x 128 pixels,
 // Ci = Co = Cs = 384, hidden 128) the products are 590 kFLOP a pixel for a
 // spatial half-block (155 GFLOP) and 295 kFLOP for a rank-1 one; the
 // device-memory streams (h, style, out: ~0.6 GB bf16) take 0.18 ms at
 // 3.35 TB/s against 0.16 ms of bf16 tensor-core time, so the chain is near
-// the machine balance.  K11 does three times the products and writes ~1.1 GB
-// of weight-gradient operands for a spatial half-block.  At this CTA shape,
-// as in K3, operand traffic through shared memory and the per-element
-// epilogues set the time, not the tensor cores.
+// the machine balance.  At this CTA shape, as in K3 before its redesign,
+// operand traffic through shared memory and the per-element epilogues set
+// the time, not the tensor cores.
 //
 // Design (tile_mma.cuh: 16 warps, bf16 wmma with f32 accumulation): the
 // 384 x 384 conv weight (288 KB bf16) exceeds a CTA's 227 KB of shared
 // memory, so every weight streams through the cp.async ring 16 rows at a
-// time, as K3's do.  The activations of a tile stay in shared memory in
-// bf16; gamma/beta are formed 16 columns at a time from the SPADE hidden
-// tile and applied in that epilogue.  K11 keeps h (to recompute nhat and u
-// per element), gamma, the sign of s as a bit mask and one more 64-row
-// tile, and rewrites them in place in the epilogue of the product that
-// consumes them (h -> dh, gamma -> dgam, g -> ds): that needs the product's
-// output in one pass of the staged GEMM (Ci <= kPanel = 432).  Its column
-// sums go straight to the CTA's row of partials.  At Ci = 432 (MAP3DBN512L's
-// 420) K11 takes the 232,448 bytes of shared memory a CTA may have.
+// time.  The activations of a tile stay in shared memory in bf16;
+// gamma/beta are formed 16 columns at a time from the SPADE hidden tile and
+// applied in that epilogue.
 #include <cuda_runtime.h>
 
 #include "tile_mma.cuh"
@@ -70,21 +53,9 @@ struct Args {
   const float* g_b;     // (cip)
   const bf16* bt_w;     // (hidp, cip)
   const float* bt_b;    // (cip)
-  const bf16* w;        // K10: W (cip, cop); K11: W^T (cop, cip)
-  const float* c;       // K10: (cop)
-  const bf16* gbT;      // K11: [g_w^T ; bt_w^T] (2 cip, hidp)
-  const bf16* shT;      // K11: sh_w^T (hidp, csp)
-  const bf16* g;        // K11: (B, HW, co) output cotangent
-  bf16* out;            // K10: (B, HW, co)
-  bf16* dh;             // K11: (B, HW, ci)
-  bf16* dsty;           // K11: (B, HW, cs)
-  bf16* xt;             // K11: (rows, cip) t
-  bf16* yg;             // K11: (rows, cop) g
-  bf16* xst;            // K11: (rows, csp) st
-  bf16* xact;           // K11: (rows, hidp) actv
-  bf16* ygb;            // K11: (rows, 2 cip) [dgam | ds]
-  bf16* ydact;          // K11: (rows, hidp) dactv
-  float* part;          // K11: (B * tiles, n_part) per-CTA column sums
+  const bf16* w;        // W (cip, cop)
+  const float* c;       // (cop)
+  bf16* out;            // (B, HW, co)
   int B, HW, ci, cs, co, cip, csp, cop, hidp, spatial, add_fixed;
 };
 
@@ -143,10 +114,8 @@ __device__ __forceinline__ void add_fixed_row(bf16* st, int lds, const bf16* fix
 }
 
 // u of element (row, c) of the tile from the staged h
-__device__ __forceinline__ float u_of(const Args& a, float h, int c, float* nhat_out = nullptr) {
-  const float n = norm_hat(h, a.m[c], a.r[c]);
-  if (nhat_out) *nhat_out = n;
-  return affine_u(n, a.a[c], a.b[c]);
+__device__ __forceinline__ float u_of(const Args& a, float h, int c) {
+  return affine_u(norm_hat(h, a.m[c], a.r[c]), a.a[c], a.b[c]);
 }
 
 // Spatial modulation, 16 columns a warp at a time: gamma/beta from the SPADE
@@ -224,137 +193,9 @@ __global__ void __launch_bounds__(kThreads, 1) half_block_fwd(Args a) {
 
 __host__ __device__ constexpr int imax(int x, int y) { return x > y ? x : y; }
 
-// column sums a K11 CTA writes: dc (cop), then 6 x cip (sum dgam, sum ds, da,
-// db, sum dnhat, sum dnhat nhat), then the SPADE hidden bias grad (spatial)
-__host__ __device__ inline int n_part(const Args& a) {
-  return a.cop + 6 * a.cip + (a.spatial ? a.hidp : 0);
-}
-
-__global__ void __launch_bounds__(kThreads, 1) half_block_bwd(Args a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int bimg = blockIdx.y, p0 = blockIdx.x * kRows, nv = min(kRows, a.HW - p0);
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int tile = bimg * gridDim.x + blockIdx.x;
-  const size_t px0 = (size_t)bimg * a.HW + p0, row0 = (size_t)tile * kRows;
-  const int cip = a.cip, np = n_part(a);
-  // h is read element by element only (no fragment loads): no row padding
-  const int ldh = cip, ldb = smem_ld(cip + imax(imax(cip, a.cop), a.csp));
-  const int lda = smem_ld(a.hidp), mw = (cip + 31) / 32;
-  bf16* hbuf = reinterpret_cast<bf16*>(smem);  // h -> dh
-  bf16* big = hbuf + kRows * ldh;               // columns [0, cip): gamma -> dgam
-  bf16* right = big + cip;                      // [cip, ..): style -> t -> g -> ds -> dsty
-  bf16* act = big + kRows * ldb;                // actv -> dactv
-  unsigned* mask = reinterpret_cast<unsigned*>(act + kRows * lda);  // s >= 0, a bit per element
-  float* scratch = reinterpret_cast<float*>(mask + kRows * mw) + warp * 256;
-  bf16* ring = reinterpret_cast<bf16*>(reinterpret_cast<float*>(mask + kRows * mw) + kWarps * 256);
-  // this CTA's row of column sums; in each one-pass product a column is
-  // summed by one lane of the warp that owns it, so the sums accumulate in
-  // the row itself, in a fixed order, without a shared accumulator
-  float* part = a.part + (size_t)tile * np;
-  const bf16* gr = a.gam + (size_t)bimg * cip;
-  const bf16* br = a.bet + (size_t)bimg * cip;
-
-  auto set_sign = [&](int r, int c, float s) {
-    if (s >= 0.f) atomicOr(&mask[r * mw + (c >> 5)], 1u << (c & 31));
-  };
-
-  // ---- recompute K10's chain up to t
-  load_tile(hbuf, ldh, a.h + px0 * a.ci, a.ci, cip, nv);
-  if (a.spatial) load_tile(right, ldb, a.style + px0 * a.cs, a.cs, a.csp, nv);
-  for (int e = tid; e < kRows * mw; e += kThreads) mask[e] = 0u;
-  for (int e = a.cop + tid; e < np; e += kThreads) part[e] = 0.f;
-  __syncthreads();
-  if (a.spatial) {
-    if (a.add_fixed) {
-      add_fixed_row(right, ldb, a.fixed + (size_t)bimg * a.cs, a.cs);
-      __syncthreads();
-    }
-    store_tile(a.xst + row0 * a.csp, right, ldb, a.csp, kRows);
-    layer(right, ldb, a.sh_w, a.hidp, a.csp, a.hidp, ring, scratch,
-          [&](int r, int c, float v) { act[r * lda + c] = __float2bfloat16(fmaxf(v + a.sh_b[c], 0.f)); });
-    __syncthreads();
-    store_tile(a.xact + row0 * a.hidp, act, lda, a.hidp, kRows);
-    spatial_modulation(a, hbuf, ldh, act, lda, scratch, [&](int r, int c, float gamma, float s) {
-      big[r * ldb + c] = __float2bfloat16(gamma);
-      right[r * ldb + c] = __float2bfloat16(lrelu_bf(s));
-      set_sign(r, c, s);
-    });
-  } else {
-    for (int e = tid; e < kRows * cip; e += kThreads) {
-      const int r = e / cip, c = e % cip;
-      const float s = modulate(u_of(a, f(hbuf[r * ldh + c]), c), f(gr[c]), f(br[c]));
-      right[r * ldb + c] = __float2bfloat16(lrelu_bf(s));
-      set_sign(r, c, s);
-    }
-  }
-  __syncthreads();
-  store_tile(a.xt + row0 * cip, right, ldb, cip, kRows);
-  __syncthreads();
-
-  // ---- the output cotangent: dc, and the operand of dW = t^T g
-  load_tile(right, ldb, a.g + px0 * a.co, a.co, a.cop, nv);
-  __syncthreads();
-  store_tile(a.yg + row0 * a.cop, right, ldb, a.cop, kRows);
-  for (int c = tid; c < a.cop; c += kThreads) {
-    float s = 0.f;
-    for (int r = 0; r < kRows; ++r) s += f(right[r * ldb + c]);
-    part[c] = s;
-  }
-
-  // ---- dt = g W^T; its epilogue runs the element-wise backward in place
-  layer_colsum<6>(right, ldb, a.w, cip, a.cop, cip, ring, scratch, part + a.cop, cip,
-                  [&](int r, int c, float dt, float* s) {
-    const bool pos = (mask[r * mw + (c >> 5)] >> (c & 31)) & 1u;
-    const float ds = dt * (pos ? 1.f : 0.2f);
-    float nhat;
-    const float u = u_of(a, f(hbuf[r * ldh + c]), c, &nhat);
-    const float gamma = a.spatial ? f(big[r * ldb + c]) : f(gr[c]);
-    const float dgam = ds * u;
-    const float du = ds * gamma;
-    const float dn = du * a.a[c];
-    s[0] += dgam;
-    s[1] += ds;
-    s[2] += du * nhat;
-    s[3] += du;
-    s[4] += dn;
-    s[5] += dn * nhat;
-    hbuf[r * ldh + c] = __float2bfloat16(dn * a.r[c]);
-    if (a.spatial) {
-      big[r * ldb + c] = __float2bfloat16(dgam);
-      right[r * ldb + c] = __float2bfloat16(ds);  // overwrites g: one GEMM pass (cip <= kPanel)
-    }
-  });
-  __syncthreads();
-  store_tile(a.dh + px0 * a.ci, hbuf, ldh, a.ci, nv);
-  if (!a.spatial) return;
-
-  // ---- SPADE MLP backward
-  store_tile(a.ygb + row0 * 2 * cip, big, ldb, 2 * cip, kRows);
-  layer_colsum<1>(big, ldb, a.gbT, a.hidp, 2 * cip, a.hidp, ring, scratch,
-                  part + a.cop + 6 * cip, a.hidp,
-                  [&](int r, int c, float v, float* s) {
-    const float d = f(act[r * lda + c]) > 0.f ? v : 0.f;  // relu'(z0): actv = bf(relu z0)
-    s[0] += d;
-    act[r * lda + c] = __float2bfloat16(d);
-  });
-  __syncthreads();
-  store_tile(a.ydact + row0 * a.hidp, act, lda, a.hidp, kRows);
-  layer(act, lda, a.shT, a.csp, a.hidp, a.csp, ring, scratch,
-        [&](int r, int c, float v) { right[r * ldb + c] = __float2bfloat16(v); });
-  __syncthreads();
-  store_tile(a.dsty + px0 * a.cs, right, ldb, a.cs, nv);
-}
-
 size_t fwd_smem(const Args& a) {
   return sizeof(bf16) * kRows * (2 * smem_ld(imax(imax(a.cip, a.cop), a.csp)) + smem_ld(a.hidp)) +
          sizeof(float) * kWarps * 256 + sizeof(bf16) * kWeightRing;
-}
-
-size_t bwd_smem(const Args& a) {
-  const int wr = imax(imax(a.cip, a.cop), a.csp);
-  return sizeof(bf16) * kRows * (a.cip + smem_ld(a.cip + wr) + smem_ld(a.hidp)) +
-         sizeof(unsigned) * kRows * ((a.cip + 31) / 32) + sizeof(float) * kWarps * 256 +
-         sizeof(bf16) * kWeightRing;
 }
 
 int check_args(const Args& a) {
@@ -365,8 +206,8 @@ int check_args(const Args& a) {
   return 0;
 }
 
-template <typename K>
-int launch(K kernel, const Args& a, size_t smem, cudaStream_t stream) {
+int launch(const Args& a, size_t smem, cudaStream_t stream) {
+  auto kernel = half_block_fwd;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((a.HW + kRows - 1) / kRows, a.B);
@@ -383,25 +224,8 @@ extern "C" int thgt_half_block_fwd(const bf16* h, const bf16* style, const bf16*
                                    const float* c, bf16* out, int B, int HW, int ci, int cs, int co,
                                    int cip, int csp, int cop, int hidp, int spatial, int add_fixed,
                                    cudaStream_t stream) {
-  Args a{h, style, fixed, gam, bet, m, r, sa, sb, sh_w, sh_b, g_w, g_b, bt_w, bt_b, w, c,
-         nullptr, nullptr, nullptr, out, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-         nullptr, nullptr, nullptr, B, HW, ci, cs, co, cip, csp, cop, hidp, spatial, add_fixed};
-  if (int err = check_args(a)) return err;
-  return launch(half_block_fwd, a, fwd_smem(a), stream);
-}
-
-extern "C" int thgt_half_block_bwd(const bf16* h, const bf16* style, const bf16* fixed, const bf16* gam,
-                                   const bf16* bet, const float* m, const float* r, const float* sa,
-                                   const float* sb, const bf16* sh_w, const float* sh_b, const bf16* g_w,
-                                   const float* g_b, const bf16* bt_w, const float* bt_b, const bf16* wT,
-                                   const bf16* gbT, const bf16* shT, const bf16* g, bf16* dh, bf16* dsty,
-                                   bf16* xt, bf16* yg, bf16* xst, bf16* xact, bf16* ygb, bf16* ydact,
-                                   float* part, int B, int HW, int ci, int cs, int co, int cip, int csp,
-                                   int cop, int hidp, int spatial, int add_fixed, cudaStream_t stream) {
-  Args a{h, style, fixed, gam, bet, m, r, sa, sb, sh_w, sh_b, g_w, g_b, bt_w, bt_b, wT, nullptr,
-         gbT, shT, g, nullptr, dh, dsty, xt, yg, xst, xact, ygb, ydact, part,
+  Args a{h, style, fixed, gam, bet, m, r, sa, sb, sh_w, sh_b, g_w, g_b, bt_w, bt_b, w, c, out,
          B, HW, ci, cs, co, cip, csp, cop, hidp, spatial, add_fixed};
   if (int err = check_args(a)) return err;
-  if (cip > kPanel) return (int)cudaErrorInvalidValue;  // the in-place epilogue needs one GEMM pass
-  return launch(half_block_bwd, a, bwd_smem(a), stream);
+  return launch(a, fwd_smem(a), stream);
 }

@@ -317,18 +317,43 @@ def field_stats_cuda(w, packed, freq_k, phase_k, g_out, num_steps: int, exact_si
     return sigma.reshape(B, R, num_steps), gdot.reshape(B, R, num_steps)
 
 
-def wgrad(X, Y, stream):
-    """sum over rows of X^T Y: X (rows, K), Y (rows, N) bf16 -> (K, N) f32,
-    rows a multiple of 64.  Per-CTA partials over row chunks, reduced here in
-    a fixed order.  Callers count the launch (K9 here, K11 in
+WGRAD_TILE = 128  # output rows and columns a CTA of csrc/wgrad.cu owns
+WGRAD_CHUNK = 64  # rows of X and Y a stage of its ring holds
+
+
+def wgrad_plan(rows, K, N, sms):
+    """The row chunks of ``wgrad``: (chunk_rows, n_chunks), chunk_rows a
+    multiple of WGRAD_CHUNK.  The output tiles times the chunks fill the
+    card's ``sms`` SMs once (one CTA an SM), so the CTAs of one chunk run
+    together and its rows leave device memory once."""
+    tiles = -(-K // WGRAD_TILE) * -(-N // WGRAD_TILE)
+    steps = -(-rows // WGRAD_CHUNK)
+    n_chunks = max(1, min(steps, sms // tiles))
+    chunk_rows = -(-steps // n_chunks) * WGRAD_CHUNK
+    return chunk_rows, -(-rows // chunk_rows)
+
+
+def wgrad_plain(X, Y):
+    """Plain ``wgrad``: the f32 product of the bf16 operands."""
+    return torch.matmul(X.float().t(), Y.float())
+
+
+def wgrad(X, Y, stream=None):
+    """sum over rows of X^T Y: X (rows, K), Y (rows, N) bf16 -> (K, N) f32.
+    CUDA tensors launch csrc/wgrad.cu on ``stream`` (per-CTA partials over
+    row chunks, reduced here in a fixed order); CPU tensors take
+    ``wgrad_plain``.  Callers count the launch (K9 here, K11 in
     ops/synthesis_train.py)."""
+    if X.device.type == "cpu":
+        return wgrad_plain(X, Y)
     rows, K = X.shape
     N = Y.shape[1]
-    tiles = -(-K // 64) * -(-N // 64)
-    chunk_tiles = rows // ROWS_PER_CTA
-    n_chunks = max(1, min(chunk_tiles, -(-264 // tiles)))
-    chunk_rows = -(-chunk_tiles // n_chunks) * ROWS_PER_CTA
-    n_chunks = -(-rows // chunk_rows)
+    if X.dtype != torch.bfloat16 or Y.dtype != torch.bfloat16 or Y.shape[0] != rows:
+        raise ValueError("wgrad takes bf16 X (rows, K) and Y (rows, N)")
+    if not (X.is_contiguous() and Y.is_contiguous()):
+        raise ValueError("wgrad operands must be contiguous")
+    sms = torch.cuda.get_device_properties(X.device).multi_processor_count
+    chunk_rows, n_chunks = wgrad_plan(rows, K, N, sms)
     part = torch.empty(n_chunks, K, N, dtype=torch.float32, device=X.device)
     _launch("thgt_wgrad", X.data_ptr(), Y.data_ptr(), part.data_ptr(), K, N, rows, chunk_rows,
             n_chunks, stream)

@@ -24,7 +24,9 @@ double backward (R1 differentiates the discriminator only).
 
 ``half_block_forward`` / ``half_block_backward`` are the plain versions
 (the JAX kernels' math, rounding to the compute dtype where they do).
-``HalfBlock`` launches csrc/synthesis_train.cu on CUDA tensors (bf16 only)
+``HalfBlock`` launches csrc/synthesis_train.cu (K10) and
+csrc/synthesis_train_bwd.cu (K11, its weights packed by ``pack_bwd_stream``;
+its weight-gradient products through csrc/wgrad.cu) on CUDA tensors (bf16 only)
 and runs the plain versions on CPU tensors.  The TPU's scoped-VMEM tile
 model (``estimate_half_block_vmem`` / ``auto_tile_rows``) has no
 counterpart: the CUDA kernels fix their own 64-pixel tile.
@@ -35,10 +37,12 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from threedhumangan_tpu_torch import _build
 from threedhumangan_tpu_torch.ops import raymarch_bwd
-from threedhumangan_tpu_torch.ops.synthesis_kernel import _lrelu
+from threedhumangan_tpu_torch.ops.synthesis_kernel import (CHUNK_ROWS, _lrelu, chunk_images,
+                                                           gamma_beta_pass)
 from threedhumangan_tpu_torch.utils.misc import mm, pad_to, round16
 
 launches_fwd = 0    # K10 launches (the CUDA path only)
@@ -195,7 +199,7 @@ def spade_half_block_rank1(h, gam, bet, m, r, a, b, w, c,
 
 
 # ---------------------------------------------------------------------------
-# CUDA path (csrc/synthesis_train.cu)
+# CUDA path (csrc/synthesis_train.cu, csrc/synthesis_train_bwd.cu)
 # ---------------------------------------------------------------------------
 
 PIXELS_PER_CTA = 64
@@ -213,7 +217,7 @@ def _dims(h, style, w, mlp):
 
 
 def _operands(h, style, fixed, gam, bet, m, r, a, b, mlp, d):
-    """Zero-padded kernel operands shared by K10 and K11, in the C order."""
+    """Zero-padded kernel operands of K10, in the C order."""
     bf16, f32 = torch.bfloat16, torch.float32
     dev = h.device
     dummy = torch.zeros(16, dtype=f32, device=dev)
@@ -281,66 +285,165 @@ def _wgrad(X, Y, stream):
     return out
 
 
-def half_block_backward_cuda(h, style, fixed, gam, bet, m, r, a, b, mlp, w, g,
-                             compute_dtype=torch.bfloat16):
-    """Launch K11, then its weight-gradient products (K9's kernel, per-chunk
-    partials summed in a fixed order); same contract as ``half_block_backward``."""
-    global launches_bwd
-    _check_dtype(compute_dtype)
+SUM_SLOTS = 4  # rows of column sums a K11 CTA writes, one per warp of a warpgroup
+_STREAM_INDEX: Dict = {}  # widths, variant, device -> (gather map, chunk sizes)
+
+
+def bwd_stream_index(d, spatial):
+    """The gather map of ``pack_bwd_stream``: for each element of K11's
+    weight stream, its index into the flat source [W, sh_w, g_w, bt_w, 0]
+    (the trailing 0 fills the padding), and the bytes of each chunk.  The
+    stream holds, as ``chunk_images`` in the order the kernel consumes them:
+    sh_w (csp x hidp), the gamma/beta heads in two column passes of
+    ``gamma_beta_pass`` (hidp x cip each), W^T (cop x cip), [g_w; bt_w]^T
+    (2 cip x hidp) and sh_w^T (hidp x csp); rank-1 holds W^T alone."""
+    ci, co, cs, hid = d["ci"], d["co"], d["cs"], d["hid"]
+    cip, cop, csp, hidp = d["cip"], d["cop"], d["csp"], d["hidp"]
+    n_w, n_sh, n_g = ci * co, (cs * hid if spatial else 0), (hid * ci if spatial else 0)
+    zero = n_w + n_sh + 2 * n_g
+
+    def block(off, rows, cols, shape):
+        idx = torch.full(shape, zero, dtype=torch.int64)
+        idx[:rows, :cols] = torch.arange(off, off + rows * cols).reshape(rows, cols)
+        return idx
+
+    w = block(0, ci, co, (cip, cop))
+    mats = []
+    if spatial:
+        sh = block(n_w, cs, hid, (csp, hidp))
+        gw = block(n_w + n_sh, hid, ci, (hidp, cip))
+        bt = block(n_w + n_sh + n_g, hid, ci, (hidp, cip))
+        mats += [sh, gamma_beta_pass(gw, bt, 0), gamma_beta_pass(gw, bt, 1)]
+    mats.append(w.t())
+    if spatial:
+        mats += [torch.cat([gw.t(), bt.t()], 0), sh.t()]
+    idx = torch.cat([chunk_images(x.contiguous()) for x in mats])
+    sizes = [CHUNK_ROWS * x.shape[1] * 2 for x in mats for _ in range(x.shape[0] // CHUNK_ROWS)]
+    return idx, sizes
+
+
+def pack_bwd_stream(w, mlp, d):
+    """Every weight K11's body reads, as one bf16 stream of chunk images (see
+    ``bwd_stream_index``), on w's device: one gather of the concatenated
+    weights through a map built once per shape.  Returns (stream, sizes)."""
+    spatial = mlp is not None
+    key = (d["ci"], d["co"], d["cs"], d["hid"], spatial, str(w.device))
+    if key not in _STREAM_INDEX:
+        idx, sizes = bwd_stream_index(d, spatial)
+        _STREAM_INDEX[key] = (idx.to(w.device), sizes)
+    idx, sizes = _STREAM_INDEX[key]
+    src = [w] + ([mlp["sh_w"], mlp["g_w"], mlp["bt_w"]] if spatial else [])
+    flat = torch.cat([t.reshape(-1).float() for t in src] + [w.new_zeros(1, dtype=torch.float32)])
+    return flat[idx].to(torch.bfloat16), sizes
+
+
+def bwd_operands(h, style, fixed, gam, bet, m, r, a, b, mlp, w, g):
+    """K11's host glue before the launch: the weight stream, the padded
+    tables, the outputs and the weight-gradient operand buffers, in the C
+    order."""
     d = _dims(h, style, w, mlp)
     if d["cip"] > MAX_BWD_WIDTH:
         raise ValueError(f"the half-block backward kernel takes at most {MAX_BWD_WIDTH} "
                          f"channels, got {d['ci']}")
     bf16, f32, dev = torch.bfloat16, torch.float32, h.device
     spatial = style is not None
-    B, ci, co, cs, cip, cop, csp, hidp = (d[k] for k in ("B", "ci", "co", "cs", "cip", "cop",
-                                                          "csp", "hidp"))
+    B, co, cs, cip, cop, csp, hidp = (d[k] for k in ("B", "co", "cs", "cip", "cop", "csp",
+                                                      "hidp"))
     rows = B * d["tiles"] * PIXELS_PER_CTA
-    n_part = cop + 6 * cip + (hidp if spatial else 0)
+    n_part = cop + 4 * cip + (hidp if spatial else 0)
     e = lambda *shape, dt=bf16: torch.empty(*shape, dtype=dt, device=dev)
-    dummy = torch.zeros(16, dtype=bf16, device=dev)
-    ops = _operands(h, style, fixed, gam, bet, m, r, a, b, mlp, d)
-    wT = pad_to(w, (cip, cop), bf16).t().contiguous()
+    dummy = torch.zeros(16, dtype=f32, device=dev)
+    row = lambda t, n: F.pad(t.reshape(-1).float(), (0, n - t.numel()))
+    stream, _ = pack_bwd_stream(w, mlp, d)
+    g = g.to(bf16).contiguous()
+    # g is the operand of dW = t^T g when the tiles cover the pixels exactly
+    yg = None if d["HW"] % PIXELS_PER_CTA == 0 and co == cop else e(rows, cop)
+    prods = {"dw": (e(rows, cip), g.reshape(rows, co) if yg is None else yg)}
+    ins = [h.to(bf16).contiguous()]
     if spatial:
-        gbT = torch.cat([pad_to(mlp["g_w"], (hidp, cip), bf16).t(),
-                         pad_to(mlp["bt_w"], (hidp, cip), bf16).t()], 0).contiguous()
-        shT = pad_to(mlp["sh_w"], (csp, hidp), bf16).t().contiguous()
-        dsty = e(*h.shape[:3], cs)
-        xst, xact, ygb, ydact = e(rows, csp), e(rows, hidp), e(rows, 2 * cip), e(rows, hidp)
+        ins += [style.to(bf16).contiguous(),
+                fixed.reshape(B, -1).to(bf16).contiguous() if fixed is not None else dummy,
+                dummy, dummy]
     else:
-        gbT = shT = dsty = xst = xact = ygb = ydact = dummy
+        ins += [dummy, dummy, pad_to(gam.reshape(B, -1), (B, cip), bf16),
+                pad_to(bet.reshape(B, -1), (B, cip), bf16)]
+    ins += [row(m, cip), row(r, cip), row(a, cip), row(b, cip)]
+    if spatial:
+        ins += [row(mlp["sh_b"], hidp), row(mlp["g_b"], cip), row(mlp["bt_b"], cip)]
+        dsty = e(*h.shape[:3], cs)
+        prods.update(dsh_w=(e(rows, csp), e(rows, hidp)), dgb=(e(rows, hidp), e(rows, 2 * cip)))
+        xst, ydact = prods["dsh_w"]
+        xact, ygb = prods["dgb"]
+    else:
+        ins += [dummy] * 3
+        dsty = xst = xact = ygb = ydact = dummy
     dh = e(*h.shape)
-    xt, yg = e(rows, cip), e(rows, cop)
-    part = e(B * d["tiles"], n_part, dt=f32)
-    ops += [wT, gbT, shT, g.to(bf16).contiguous(), dh, dsty, xt, yg, xst, xact, ygb, ydact, part]
+    part = e(B * d["tiles"], SUM_SLOTS, n_part, dt=f32)
+    xt = prods["dw"][0]
+    ptrs = ins + [stream, g, dh, dsty, xt, yg, xst, xact, ygb, ydact, part]
+    return dict(d=d, spatial=spatial, ptrs=ptrs, ints=_ints(d, style, fixed),
+                stream_bytes=stream.numel() * 2, dev=dev, dh=dh, dsty=dsty, part=part,
+                prods=prods)
+
+
+def bwd_body(op):
+    """Launch K11's kernel on the operands of ``bwd_operands``."""
+    global launches_bwd
+    dev = op["dev"]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _build.library().thgt_half_block_bwd(*_ptrs(ops, dev), *_ints(d, style, fixed),
+        ptrs = [None if t is None else _ptrs([t], dev)[0] for t in op["ptrs"]]  # None: NULL
+        err = _build.library().thgt_half_block_bwd(*ptrs, *op["ints"], op["stream_bytes"],
                                                    stream)
-        _build.check(err, "thgt_half_block_bwd")
-        launches_bwd += 1
-        dw = _wgrad(xt, yg, stream)
-        if spatial:
-            dsh_w = _wgrad(xst, ydact, stream)
-            dgb = _wgrad(xact, ygb, stream)
-    img = part.reshape(B, d["tiles"], n_part).sum(1)  # per-image column sums, fixed order
+    _build.check(err, "thgt_half_block_bwd")
+    launches_bwd += 1
+
+
+def bwd_products(op):
+    """K11's weight-gradient products, X^T Y of each operand pair the body wrote."""
+    dev = op["dev"]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        return {k: _wgrad(X, Y, stream) for k, (X, Y) in op["prods"].items()}
+
+
+def bwd_reduce(op, gw, h, style, fixed, gam, bet, m, r, a):
+    """The host's fixed-order sums of K11's per-CTA column sums, and the
+    cotangents cut to the unpadded widths."""
+    d, part, dsty = op["d"], op["part"], op["dsty"]
+    B, ci, co, cs, cip, cop = (d[k] for k in ("B", "ci", "co", "cs", "cip", "cop"))
+    img = part.reshape(B, d["tiles"] * SUM_SLOTS, -1).sum(1)  # per image, in a fixed order
     tot = img.sum(0)
-    col = lambda j: cop + j * cip  # offset of column sum j (dgam, dbet, da, db, ds1, ds2)
-    r32 = r.float().reshape(-1)
-    ds1, ds2 = tot[col(4):col(4) + ci], tot[col(5):col(5) + ci]
-    out = {"dh": dh.to(h.dtype), "dw": dw[:ci, :co].contiguous(), "dc": tot[:co],
-           "da": tot[col(2):col(2) + ci], "db": tot[col(3):col(3) + ci],
+    col = lambda j: cop + j * cip  # offset of column sum j (dgam, dbet, da, db)
+    r32, a32 = r.float().reshape(-1), a.float().reshape(-1)
+    da, db = tot[col(2):col(2) + ci], tot[col(3):col(3) + ci]
+    ds1, ds2 = a32 * db, a32 * da  # sum dnhat, sum dnhat nhat (dnhat = du a)
+    dw = gw["dw"]
+    out = {"dh": op["dh"].to(h.dtype), "dw": dw[:ci, :co].contiguous(), "dc": tot[:co],
+           "da": da, "db": db,
            "dm": (-r32 * ds1).to(m.dtype).reshape(m.shape),
            "dr": (ds2 / r32).to(r.dtype).reshape(r.shape)}
-    if spatial:
+    if op["spatial"]:
         hid = d["hid"]
+        dsh_w, dgb = gw["dsh_w"], gw["dgb"]
         out.update(dsty=dsty.to(style.dtype),
-                   dsh_w=dsh_w[:cs, :hid].contiguous(), dsh_b=tot[cop + 6 * cip:][:hid],
+                   dsh_w=dsh_w[:cs, :hid].contiguous(), dsh_b=tot[cop + 4 * cip:][:hid],
                    dg_w=dgb[:hid, :ci].contiguous(), dg_b=tot[col(0):col(0) + ci],
                    dbt_w=dgb[:hid, cip:cip + ci].contiguous(), dbt_b=tot[col(1):col(1) + ci])
-        out["dfixed"] = (dsty.float().sum((1, 2)).to(fixed.dtype) if fixed is not None
-                         else None)
+        out["dfixed"] = (dsty.sum((1, 2), dtype=torch.float32).to(fixed.dtype)
+                         if fixed is not None else None)
     else:
         out["dgam"] = img[:, col(0):col(0) + ci].to(gam.dtype)
         out["dbet"] = img[:, col(1):col(1) + ci].to(bet.dtype)
     return out
+
+
+def half_block_backward_cuda(h, style, fixed, gam, bet, m, r, a, b, mlp, w, g,
+                             compute_dtype=torch.bfloat16):
+    """Launch K11, then its weight-gradient products (csrc/wgrad.cu, shared
+    with K9; per-chunk partials summed in a fixed order); same contract as
+    ``half_block_backward``."""
+    _check_dtype(compute_dtype)
+    op = bwd_operands(h, style, fixed, gam, bet, m, r, a, b, mlp, w, g)
+    bwd_body(op)
+    return bwd_reduce(op, bwd_products(op), h, style, fixed, gam, bet, m, r, a)
