@@ -11,8 +11,10 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
                 and K11 from threedhumangan_tpu_torch/csrc, one process per
                 source.
   3. check    — K1-K3 against their plain PyTorch versions at the generation
-                slice's shapes (and K2/K3 pointwise at a narrow width), with
-                the tolerance and its reason; kernel, plain and bound times.
+                slice's shapes (and K2/K3 pointwise at a narrow width, K2 at
+                S 4-64), with the tolerance and its reason; two K2 calls bit
+                for bit; kernel, plain and bound times; K2's weight pack,
+                ptxas line, shared-memory budget and L2 stream.
   4. generate — MAP3DBN512L generation at batch 8 in bf16 with seeded random
                 weights: 2 warm-up + 5 timed batches through
                 ``generator_forward``, per-stage ms/batch, imgs/s; the output
@@ -204,30 +206,33 @@ def check_field(gen, inp, geo_feats, meta):
     S = meta["num_steps"]
     kw = dict(white_back=meta["white_back"], last_back=meta["last_back"])
 
-    # narrow, exact sine: pointwise
+    # narrow, exact sine: pointwise.  Both residual routings (the bench's
+    # last_back=False, the sampler's True) and the noise column at the
+    # slice's S; then S 4, 8, 16 and 64 (64 / S rays a CTA: a ray's rows
+    # summed inside a warp's row groups, or across 2 or 4 warps)
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     small = CoordConcatSiren(3, 32, 31, 32, 4, generator=torch.Generator().manual_seed(SEED + 1))
     small = small.cuda()
     Bn, Rn = 2, 256
-    # 37 columns, or 38 with the nerf-noise column of the training path
-    pk38 = torch.randn(Bn, Rn * S, rm.INPUT_PACK + 1, generator=g, device="cuda") * 0.5
-    pk38[..., 34:37] = (pk38.view(Bn, Rn, S, -1)[:, :, :1, 34:37].expand(Bn, Rn, S, 3)
-                        .reshape(Bn, Rn * S, 3))
-    zv = torch.sort(torch.rand(Bn, Rn, S, generator=g, device="cuda") + 1.0, -1).values
     fr = 0.1 * torch.randn(Bn, 4 * 32, generator=g, device="cuda")
     ph = 0.1 * torch.randn(Bn, 4 * 32, generator=g, device="cuda")
     with torch.no_grad():
         sh, pi = rm.fold_film_tables(small, fr, ph, bf16)
-    # both residual routings (the bench's last_back=False, the sampler's
-    # True), and the noise column
-    for last_back, noise in ((False, False), (True, False), (False, True)):
-        pk = pk38 if noise else pk38[..., :rm.INPUT_PACK].contiguous()
+    w_small, ft_small = rm.flat_weights(small), rm.film_tables(fr, ph, 4)
+    cases = ((S, False, False), (S, True, False), (S, False, True), (4, False, True),
+             (8, False, False), (16, True, True), (64, False, False))
+    for Sn, last_back, noise in cases:
+        # 37 columns, or 38 with the nerf-noise column of the training path
+        pk = torch.randn(Bn, Rn * Sn, rm.INPUT_PACK + noise, generator=g, device="cuda") * 0.5
+        pk[..., 34:37] = (pk.view(Bn, Rn, Sn, -1)[:, :, :1, 34:37].expand(Bn, Rn, Sn, 3)
+                          .reshape(Bn, Rn * Sn, 3))
+        zv = torch.sort(torch.rand(Bn, Rn, Sn, generator=g, device="cuda") + 1.0, -1).values
         nkw = dict(white_back=meta["white_back"], last_back=last_back)
-        o_k, d_k = rm.field_render_cuda(sh, pi, pk, zv, S, exact_sin=True, **nkw)
-        o_p, d_p = rm.field_render_plain(sh, pi, pk, zv, S, compute_dtype=bf16, exact_sin=True,
+        o_k, d_k = rm.field_render_cuda(w_small, ft_small, pk, zv, Sn, exact_sin=True, **nkw)
+        o_p, d_p = rm.field_render_plain(sh, pi, pk, zv, Sn, compute_dtype=bf16, exact_sin=True,
                                          **nkw)
         mx, mean, p99 = diff_stats(torch.cat([o_k, d_k], -1), torch.cat([o_p, d_p], -1))
-        log(f"check K2 field narrow (hidden 32, exact sin, bf16 operands, last_back "
+        log(f"check K2 field narrow (hidden 32, exact sin, bf16 operands, S {Sn}, last_back "
             f"{last_back}, noise {noise}): max|d| {mx:.3e} mean|d| {mean:.3e} p99|d| {p99:.3e}")
         log("  tolerance: max|d| <= 5e-3, mean|d| <= 1e-5 (f32 sums in another order flip "
             "occasional bf16 roundings of activations, which the omega-30 SIREN amplifies)")
@@ -237,10 +242,12 @@ def check_field(gen, inp, geo_feats, meta):
     # full width, the slice's inputs and weights: statistics
     packed = rm.pack_field_inputs(inp["points"], geo_feats, inp["dirs"],
                                   2.0 / meta["side_length"]).to(bf16).contiguous()
+    field = gen.neural_field
     with torch.no_grad():
-        sh, pi = rm.fold_film_tables(gen.neural_field, inp["freq"], inp["phase"], bf16)
+        sh, pi = rm.fold_film_tables(field, inp["freq"], inp["phase"], bf16)
+    w, ft = rm.flat_weights(field), rm.film_tables(inp["freq"], inp["phase"], len(field.network))
     exact = not meta["fast_math"]
-    run_k = lambda: rm.field_render_cuda(sh, pi, packed, inp["z_vals"], S, exact_sin=exact, **kw)
+    run_k = lambda: rm.field_render_cuda(w, ft, packed, inp["z_vals"], S, exact_sin=exact, **kw)
     run_p = lambda: rm.field_render_plain(sh, pi, packed, inp["z_vals"], S, compute_dtype=bf16,
                                           exact_sin=exact, **kw)
     o_k, d_k = run_k()
@@ -253,12 +260,49 @@ def check_field(gen, inp, geo_feats, meta):
         "(statistical: at width 420 a few samples flip far, see above)")
     if mean > 2e-3 or p99 > 5e-3 or dmean > 1e-4:
         raise AssertionError("K2 (full width) disagrees with its plain version")
+    o_2, d_2 = run_k()
+    if not (torch.equal(o_k, o_2) and torch.equal(d_k, d_2)):
+        raise AssertionError("two K2 calls on the same inputs differ")
+    log("  two K2 calls on the same inputs: bit-equal (every sum in a fixed order)")
     ms = cuda_ms(run_k, 3)
     plain_ms = cuda_ms(run_p, 1)
     bd = field_bound(packed, o_k, meta, backward=0)
-    log(f"  time: kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound {bd['bound_ms']:.3f} ms "
-        f"({bd['bound_by']})")
-    return dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms, **bd)
+    log(f"  time: kernel {ms:.3f} ms (with its weight pack)  plain {plain_ms:.3f} ms  bound "
+        f"{bd['bound_ms']:.3f} ms ({bd['bound_by']})")
+    return dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms, **bd,
+                **k2_layer_metrics(w, ft, packed, S))
+
+
+def k2_layer_metrics(w, ft, packed, S):
+    """K2's layer metrics at one shape: ``pack_field_stream`` alone (inside
+    the kernel's time), the ``ptxas`` line, the shared memory a CTA and the
+    ring as the C entry sizes them, and the L2 stream (every 64-row CTA
+    reads its image's whole stream)."""
+    import ctypes
+
+    from threedhumangan_tpu_torch import _build
+    from threedhumangan_tpu_torch.ops import raymarch as rm
+
+    B, P, _ = packed.shape
+    freq_k = ft[0]
+    d = rm.field_dims(3 + w["w_geo"].shape[0], freq_k.shape[2], w["w_feat"].shape[1],
+                      freq_k.shape[1])
+    _, sizes = rm.pack_field_stream(w, freq_k)
+    ring = (ctypes.c_int * 2)()
+    smem = _build.library().thgt_raymarch_smem(d["k0p"], d["n0p"], d["hp"], d["nc"], d["headp"],
+                                               ctypes.cast(ring, ctypes.c_void_p))
+    l2 = B * (P // rm.ROWS_PER_CTA) * sum(sizes)
+    m = dict(pack_ms=cuda_ms(lambda: rm.pack_field_stream(w, freq_k), 3),
+             stream_bytes_per_image=sum(sizes), ring_stages=ring[0], stage_bytes=ring[1],
+             smem_bytes=smem, l2_stream_gb=l2 / 1e9, **ptxas_of("raymarch.cu"))
+    log(f"  pack_field_stream alone (each call, inside the kernel's time above): "
+        f"{m['pack_ms']:.3f} ms; ptxas: {m['registers']} registers, {m['spill_stores']} bytes "
+        f"spill stores, {m['spill_loads']} bytes spill loads")
+    log(f"  shared memory a CTA (the C entry's): {smem} bytes, weight ring {ring[0]} stages of "
+        f"{ring[1]} bytes; L2 stream {m['l2_stream_gb']:.2f} GB a call (S {S}), "
+        f"{l2 / 7e12 * 1e3:.3f}-{l2 / 5e12 * 1e3:.3f} ms at an assumed 7-5 TB/s of L2 reads "
+        f"(an estimate: the L2 rate is not measured here)")
+    return m
 
 
 def field_bound(packed, out, meta, backward):
@@ -668,7 +712,8 @@ def check_field_bwd(G, meta, cond, gcuda):
     # the D step's fakes launch it
     with torch.no_grad():
         sh, pi = rm.fold_film_tables(field, fr, ph, bf16)
-    run_k = lambda: rm.field_render_cuda(sh, pi, pk, zv, S, wb, lb, exact)
+    wt, ft = rm.flat_weights(field), rm.film_tables(fr, ph, len(field.network))
+    run_k = lambda: rm.field_render_cuda(wt, ft, pk, zv, S, wb, lb, exact)
     run_p = lambda: rm.field_render_plain(sh, pi, pk, zv, S, wb, lb, bf16, exact)
     (o_k, d_k), (o_p, d_p) = run_k(), run_p()
     mx, mean, p99 = diff_stats(o_k, o_p)
@@ -682,9 +727,11 @@ def check_field_bwd(G, meta, cond, gcuda):
         raise AssertionError("K2 (training shapes, noise column) disagrees with its plain version")
     k2_train = dict(max_abs_err=mx, ms=cuda_ms(run_k, 3), plain_ms=cuda_ms(run_p, 1),
                     **field_bound(pk, o_k, meta, backward=0))
-    log(f"  time: kernel {k2_train['ms']:.3f} ms  plain {k2_train['plain_ms']:.3f} ms  bound "
-        f"{k2_train['bound_ms']:.3f} ms ({k2_train['bound_by']})")
-    del o_k, d_k, o_p, d_p, sh, pi
+    log(f"  time: kernel {k2_train['ms']:.3f} ms (with its weight pack)  plain "
+        f"{k2_train['plain_ms']:.3f} ms  bound {k2_train['bound_ms']:.3f} ms "
+        f"({k2_train['bound_by']})")
+    k2_train.update(k2_layer_metrics(wt, ft, pk, S))
+    del o_k, d_k, o_p, d_p, sh, pi, wt, ft
 
     smx, gmx, errs, k9mx, (fk, pk_, coef, dsig) = _bwd_compare(w, pk, fr, ph, zv, go, gd, S, wb,
                                                                lb, exact)

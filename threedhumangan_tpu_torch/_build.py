@@ -36,11 +36,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # pts, verts, vfeat, skel, out, idx, B, P, V, J, legacy, stream
     "thgt_geo": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # packed, z, w_first, b_first, w_net0, w_net_stk, b_net, w_color_x,
-    # w_color_d, b_color, w_sigma, b_sigma, w_head, b_head, out, depth,
-    # B, R, S, n_cols, n_in, k0p, n0p, hp, n_blocks, out_width, head_np,
-    # white_back, last_back, exact_sin, stream
-    "thgt_raymarch": [_P] * 16 + [_I] * 14 + [_P],
+    # packed, z, weight stream, b_first, b_net, w_color_d, b_color, b_sigma,
+    # b_head, out, depth, B, R, S, n_cols, n_in, H, k0p, n0p, hp, nc, headp,
+    # n_blocks, out_width, white_back, last_back, exact_sin, stream bytes,
+    # stream
+    "thgt_raymarch": [_P] * 11 + [_I] * 16 + [ctypes.c_longlong, _P],
+    # k0p, n0p, hp, nc, headp, ring (2 ints out); returns K2's shared memory
+    "thgt_raymarch_smem": [_I] * 5 + [_P],
     # pts, verts, dist, idx, B, P, V, stream
     "thgt_nn": [_P] * 4 + [_I] * 3 + [_P],
     # packed (f32), z, the 14 tables of thgt_field_stats, out, depth, B, R, S,

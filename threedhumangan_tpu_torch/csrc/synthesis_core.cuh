@@ -236,10 +236,13 @@ using Producer = ProducerT<kStages>;
 // the next chunk's).  With kSub > 1 a stage holds kSub consecutive chunks
 // of img_bytes each (Producer::put(n, bytes, kSub)): one wait and one
 // release a stage.  With kOne a k step is one wgmma over all NT tiles
-// (wgmma_tiles.cuh).
-template <int NT, int MT, int kSub = 1, bool kOne = false, typename R>
+// (wgmma_tiles.cuh).  With kEager (kSub 1) a stage is released as soon
+// as its own wgmma have retired: where ptxas serializes the wgmma
+// (C7512) they retire at once, and the ring keeps one more chunk in flight.
+template <int NT, int MT, int kSub = 1, bool kOne = false, bool kEager = false, typename R>
 __device__ __forceinline__ void k_loop(R& ring, float (&acc)[MT][4], uint32_t a_addr,
                                        uint32_t b_off, int nk, uint32_t img_bytes = 0) {
+  static_assert(!kEager || kSub == 1, "an eager release frees one chunk's stage");
   uint32_t a0[4], a1[4];
   int held = -1;
   int st = 0;
@@ -263,9 +266,16 @@ __device__ __forceinline__ void k_loop(R& ring, float (&acc)[MT][4], uint32_t a_
         for (int t = NT / kSlice * kSlice; t < NT; ++t) wgmma_n8(&acc[t][0], a, desc_b(b + t * 256));
       }
       wgmma_commit();
-      wgmma_wait<1>();
+      if constexpr (kEager) {
+        wgmma_wait<0>();
+      } else {
+        wgmma_wait<1>();
+      }
     }
-    if (sub == 0) {
+    if constexpr (kEager) {
+      warp_arrive(&ring.empty[st]);
+      ++ring.it;
+    } else if (sub == 0) {
       if (held >= 0) warp_arrive(&ring.empty[held]);
       held = st;
       ++ring.it;
@@ -277,13 +287,16 @@ __device__ __forceinline__ void k_loop(R& ring, float (&acc)[MT][4], uint32_t a_
     step(a1, kc + 1);
   }
   if (kc < nk) step(a0, kc);
-  wgmma_wait<0>();
-  warp_arrive(&ring.empty[held]);
+  if constexpr (!kEager) {
+    wgmma_wait<0>();
+    warp_arrive(&ring.empty[held]);
+  }
 }
 
 // One product of the CTA's 64-row activation tile A (row-major bf16, row
 // stride lda) with the next nk chunks of the ring (kSub to a stage; kOne:
-// one wgmma a k step), whose images hold `units` column units of U n8
+// one wgmma a k step; kEager: each stage released after its own wgmma),
+// whose images hold `units` column units of U n8
 // tiles each.  Warpgroup g owns a contiguous
 // run of at most MT / U units; its K loop is instantiated for its tile
 // count.  After the K loop (and, with sync_first, a barrier of the
@@ -291,7 +304,8 @@ __device__ __forceinline__ void k_loop(R& ring, float (&acc)[MT][4], uint32_t a_
 // each of its units the U x 4 float32 accumulators of this thread (see the
 // note at the top).  Every consumer thread must call it with the same
 // arguments.
-template <int MT, int U, int kSub = 1, bool kOne = false, typename R, typename Epi>
+template <int MT, int U, int kSub = 1, bool kOne = false, bool kEager = false, typename R,
+          typename Epi>
 __device__ __forceinline__ void product(R& ring, const bf16* A, int lda, int nk, int units,
                                         bool sync_first, Epi epi) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wg = warp >> 2;
@@ -305,10 +319,10 @@ __device__ __forceinline__ void product(R& ring, const bf16* A, int lda, int nk,
   const uint32_t a_addr = smem_u32(A + ((warp & 3) * 16 + (lane & 15)) * lda + (lane >> 4) * 8);
   const uint32_t b_off = u0 * U * 256, img = units * U * 256;
   switch (cnt * U) {
-#define SYN_K_LOOP(n)                                                 \
-  case n:                                                             \
-    if constexpr (n <= MT)                                            \
-      k_loop<n, MT, kSub, kOne>(ring, acc, a_addr, b_off, nk, img);  \
+#define SYN_K_LOOP(n)                                                        \
+  case n:                                                                    \
+    if constexpr (n <= MT)                                                   \
+      k_loop<n, MT, kSub, kOne, kEager>(ring, acc, a_addr, b_off, nk, img);  \
     break;
     SYN_K_LOOP(0) SYN_K_LOOP(1) SYN_K_LOOP(2) SYN_K_LOOP(3) SYN_K_LOOP(4) SYN_K_LOOP(5)
     SYN_K_LOOP(6) SYN_K_LOOP(7) SYN_K_LOOP(8) SYN_K_LOOP(9) SYN_K_LOOP(10) SYN_K_LOOP(11)

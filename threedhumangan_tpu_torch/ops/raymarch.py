@@ -13,9 +13,11 @@ freq/phase and omega are folded into per-image weight tables
 (``fold_film_tables``), the SIREN runs 1 block-diagonal first layer, the
 trunk, a sigma head, a colour layer whose view-direction term is hoisted
 per ray (directions are constant along a ray), and sigmoid-RGB and feature
-heads.  ``field_render_cuda`` launches csrc/raymarch.cu, ``field_render_plain``
-is the same math on the same folded tables.  The packed slabs are rounded to
-the compute dtype first, as the JAX wrapper does.
+heads.  ``field_render_plain`` runs it on those tables; ``field_render_cuda``
+launches csrc/raymarch.cu on the field's own weights and the FiLM tables,
+folding them in the layout the kernel reads (``pack_field_stream``: one bf16
+stream of chunk images per image, bit-equal to the folded tables).  The
+packed slabs are rounded to the compute dtype first, as the JAX wrapper does.
 
 K4 replaces ``_raymarch_kernel``: the UNFOLDED SIREN (``_field_slab_parts``:
 freq/phase applied per element, omega 30 on the first layers, the field's
@@ -49,6 +51,7 @@ import torch
 from threedhumangan_tpu_torch import _build
 from threedhumangan_tpu_torch.models.volume_rendering import ray_integration
 from threedhumangan_tpu_torch.ops.geo import GEO_DIM, nearest_vertex
+from threedhumangan_tpu_torch.ops.synthesis_kernel import CHUNK_ROWS, chunk_images
 from threedhumangan_tpu_torch.utils.misc import mm, pad_to, round16
 
 INPUT_PACK = 37  # 3 coords + 31 geo + 3 ray dirs (+1 optional sigma noise)
@@ -200,16 +203,17 @@ def fused_field_render(field, packed, freq, phase, z_vals, num_steps: int,
     so on the card both reduce to this one flag: ``models.generator.render``
     passes ``fold_film=False`` under ``pallas_march_loop``.  CUDA tensors
     launch the kernel (bf16 only); CPU tensors take its plain version."""
-    if fold_film and len(field.network) >= 2:
+    folded = fold_film and len(field.network) >= 2
+    if folded and packed.device.type == "cpu":
         shared, per_image = fold_film_tables(field, freq, phase, compute_dtype)
-        if packed.device.type == "cpu":
-            return field_render_plain(shared, per_image, packed, z_vals, num_steps,
-                                      white_back, last_back, compute_dtype, exact_sin)
-        _check_cuda(packed, compute_dtype, "fused_field_render")
-        return field_render_cuda(shared, per_image, packed, z_vals, num_steps,
-                                 white_back, last_back, exact_sin)
+        return field_render_plain(shared, per_image, packed, z_vals, num_steps,
+                                  white_back, last_back, compute_dtype, exact_sin)
     w = flat_weights(field)
     freq_k, phase_k = film_tables(freq, phase, len(field.network))
+    if folded:
+        _check_cuda(packed, compute_dtype, "fused_field_render")
+        return field_render_cuda(w, (freq_k, phase_k), packed, z_vals, num_steps,
+                                 white_back, last_back, exact_sin)
     if packed.device.type == "cpu":
         return field_render_unfolded_plain(w, packed, freq_k, phase_k, z_vals, num_steps,
                                            white_back, last_back, compute_dtype, exact_sin)
@@ -226,55 +230,176 @@ def _check_cuda(t: torch.Tensor, compute_dtype, name: str):
 
 
 ROWS_PER_CTA = 64  # rows (ray x step samples) one CTA of the kernel holds
+FIELD_UNITS = 54   # n8 column tiles of one K2 product (3 warpgroups x 18, csrc/raymarch.cu)
+_STREAM_INDEX: Dict = {}  # widths, device -> (value map, scale map, consts, chunk sizes)
 
 
-def field_render_cuda(shared, per_image, packed, z_vals, num_steps, white_back=False,
+def _round8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def field_dims(n_in: int, H: int, F: int, NB: int) -> Dict[str, int]:
+    """K2's padded widths: k0p/n0p the first layer's K and N, hp the trunk's,
+    nc the colour product's N (w_sigma rides in its column H), headp the
+    head's; ``first`` the columns of each of the first layer's products."""
+    n0p = round16(2 * H)
+    tiles = n0p // 8
+    n_first = -(-tiles // FIELD_UNITS)
+    first = [8 * (tiles // n_first + (j < tiles % n_first)) for j in range(n_first)]
+    return dict(n_in=n_in, H=H, F=F, NB=NB, k0p=round16(n_in), n0p=n0p, hp=round16(H),
+                nc=max(round16(H), _round8(H + 1)), headp=_round8(F + 3), first=first)
+
+
+# the flat source of K2's stream: the field's own float32 weights, each
+# (in, out) matrix of ``flat_weights`` in its (out, in) storage order
+_STREAM_SOURCE = ("w_coord", "w_geo", "w_net", "w_color", "w_sigma", "w_rgb", "w_feat")
+
+
+def field_stream_index(d):
+    """The gather maps of ``pack_field_stream`` for one image (int32): for
+    each stream element, its index into the flat source (``_STREAM_SOURCE``
+    in order, each matrix (out, in) row-major, the trunk's layers in turn,
+    then [0, 30, 1]) and its index into the image's scale row [freq*15+30
+    (NB x H) | 30 | 1]; and the bytes of each chunk.  The stream holds, as
+    ``chunk_images`` in the order K2 consumes them: the first layer [coords |
+    geo] block-diagonal (k0p x n0p, scale 30) in column products of
+    ``d["first"]`` columns, w_net0 (n0p x hp) and the NB-1 trunk layers (hp x
+    hp) scaled by their freq column, the colour layer (hp x nc) scaled by the
+    last trunk freq with w_sigma (scale 1) in column H, and the head [rgb 3 |
+    feat F] (hp x headp, scale 1)."""
+    n_in, H, F, NB = d["n_in"], d["H"], d["F"], d["NB"]
+    k0p, n0p, hp, nc, headp = d["k0p"], d["n0p"], d["hp"], d["nc"], d["headp"]
+    G = n_in - 3
+    sizes = {"w_coord": 3 * H, "w_geo": G * H, "w_net": 2 * H * H + (NB - 1) * H * H,
+             "w_color": (H + 3) * H, "w_sigma": H, "w_rgb": 3 * H, "w_feat": F * H}
+    off, pos = {}, 0
+    for k in _STREAM_SOURCE:
+        off[k], pos = pos, pos + sizes[k]
+    zero, s30, s1 = pos, NB * H, NB * H + 1
+
+    def mat(K, N):
+        return torch.full((K, N), zero, dtype=torch.int32), torch.full((K, N), s1,
+                                                                       dtype=torch.int32)
+
+    def put(m, r0, c0, src, rows, cols, k_in, scale):
+        """Block (r0 + r, c0 + c) reads input r, output c of a source stored
+        (out, k_in) row-major whose input r = 0 lies at flat index src."""
+        v, sc = m
+        r, c = torch.arange(rows)[:, None], torch.arange(cols)[None, :]
+        v[r0:r0 + rows, c0:c0 + cols] = (src + c * k_in + r).int()
+        sc[r0:r0 + rows, c0:c0 + cols] = scale
+
+    cols = torch.arange(H, dtype=torch.int32)
+    first = mat(k0p, n0p)
+    put(first, 0, 0, off["w_coord"], 3, H, 3, s30)
+    put(first, 3, H, off["w_geo"], G, H, G, s30)
+    mats = []
+    c0 = 0
+    for n in d["first"]:
+        mats.append(tuple(t[:, c0:c0 + n] for t in first))
+        c0 += n
+    src = off["w_net"]
+    for i in range(NB):
+        k = 2 * H if i == 0 else H
+        m = mat(n0p if i == 0 else hp, hp)
+        put(m, 0, 0, src, k, H, k, i * H + cols)
+        mats.append(m)
+        src += k * H
+    color = mat(hp, nc)
+    put(color, 0, 0, off["w_color"] + 3, H, H, H + 3, (NB - 1) * H + cols)
+    put(color, 0, H, off["w_sigma"], H, 1, H, s1)
+    head = mat(hp, headp)
+    put(head, 0, 0, off["w_rgb"], H, 3, H, s1)
+    put(head, 0, 3, off["w_feat"], H, F, H, s1)
+    mats += [color, head]
+    idx = torch.cat([chunk_images(v.contiguous()) for v, _ in mats])
+    sidx = torch.cat([chunk_images(sc.contiguous()) for _, sc in mats])
+    chunk = [CHUNK_ROWS * v.shape[1] * 2 for v, _ in mats for _ in range(v.shape[0] // CHUNK_ROWS)]
+    return idx, sidx, chunk
+
+
+def pack_field_stream(w, freq_k):
+    """Every weight K2 reads, as one bf16 stream of chunk images per image
+    (``field_stream_index``), (B, E) on w's device: the shared float32
+    weights gathered into the stream's layout once, times each image's
+    column scale gathered through maps built once per widths and device,
+    rounded to bf16 once, so every value is bit-equal to
+    ``fold_film_tables``' (a float32 product, then one rounding).  w:
+    ``flat_weights``; freq_k (B, NB, H) from ``film_tables``.  Returns
+    (stream, the bytes of each chunk of one image)."""
+    B, NB, H = freq_k.shape
+    d = field_dims(3 + w["w_geo"].shape[0], H, w["w_feat"].shape[1], NB)
+    dev = w["w_coord"].device
+    key = (d["n_in"], H, d["F"], NB, str(dev))
+    if key not in _STREAM_INDEX:
+        idx, sidx, chunk = field_stream_index(d)
+        consts = torch.tensor([0.0, 30.0, 1.0], device=dev)
+        _STREAM_INDEX[key] = (idx.to(dev), sidx.to(dev), consts, chunk)
+    idx, sidx, consts, chunk = _STREAM_INDEX[key]
+    mats = [w["w_coord"], w["w_geo"]] + [w[f"w_net{i}"] for i in range(NB)] + [
+        w[k] for k in _STREAM_SOURCE[3:]]
+    flat = torch.cat([t.t().reshape(-1) for t in mats] + [consts]).index_select(0, idx)
+    scales = torch.cat([freq_k.reshape(B, NB * H), consts[1:].expand(B, 2)], 1)
+    stream = torch.empty(B, idx.numel(), dtype=torch.bfloat16, device=dev)
+    torch.mul(scales.index_select(1, sidx), flat, out=stream)
+    return stream, chunk
+
+
+def field_side_tables(w, freq_k, phase_k, d):
+    """K2's small float32 tables beside the stream, padded: b_first (omega
+    folded), b_net (B, NB, hp) and b_color (B, nc) folded with freq/phase,
+    w_color_d (B, 3, nc) as bf16 values, b_sigma, b_head [rgb | feat] —
+    ``fold_film_tables``' values."""
+    f32 = torch.float32
+    B, NB, _ = freq_k.shape
+    f_last, p_last = freq_k[:, NB - 1], phase_k[:, NB - 1]
+    b_net = torch.stack([w[f"b_net{i}"] for i in range(NB)], 0)
+    w_cd = (w["w_color"][:3][None] * f_last[:, None, :]).to(torch.bfloat16)
+    return [
+        pad_to(torch.cat([w["b_coord"], w["b_geo"]]) * 30.0, (d["n0p"],), f32),
+        pad_to(b_net[None] * freq_k + phase_k, (B, NB, d["hp"]), f32),
+        pad_to(w_cd, (B, 3, d["nc"]), f32),
+        pad_to(w["b_color"] * f_last + p_last, (B, d["nc"]), f32),
+        w["b_sigma"].reshape(1).float().contiguous(),
+        pad_to(torch.cat([w["b_rgb"], w["b_feat"]]), (d["headp"],), f32),
+    ]
+
+
+def field_render_cuda(w, film, packed, z_vals, num_steps, white_back=False,
                       last_back=False, exact_sin=False):
-    """Launch K2 on folded tables (zero-padded to multiples of 16 here)."""
+    """Launch K2: ``w`` the field's own float32 weights (``flat_weights``),
+    ``film`` its (freq*15+30, phase) (B, NB, H) (``film_tables``); the FiLM
+    fold happens in the weight pack (``pack_field_stream``), inside this
+    call.  Computes what ``field_render_plain`` computes on
+    ``fold_film_tables``' tables, which this entry does not take."""
     global launches
-    bf16, f32 = torch.bfloat16, torch.float32
     B, P, n_cols = packed.shape
     S = num_steps
     dev = packed.device
     check_packed_width(n_cols)
     R = _check_tiling(B, P, S, z_vals)
-    n_in, n0 = shared["w_first"].shape
-    H = per_image["w_net0"].shape[2]
-    NB = per_image["b_net"].shape[1]
-    width = shared["w_feat"].shape[1] + 3
-    k0p, n0p, hp, headp = round16(n_in), round16(n0), round16(H), round16(width)
-    NS = max(NB - 1, 1)
-
-    w_head = torch.cat([shared["w_rgb"], shared["w_feat"]], 1)
-    b_head = torch.cat([shared["b_rgb"], shared["b_feat"]], 1)[0]
-    args = [
-        packed.to(bf16).contiguous(),
-        z_vals.to(f32).contiguous(),
-        pad_to(shared["w_first"], (k0p, n0p), bf16),
-        pad_to(shared["b_first"][0], (n0p,), f32),
-        pad_to(per_image["w_net0"], (B, n0p, hp), bf16),
-        pad_to(per_image["w_net_stk"], (B, NS, hp, hp), bf16),
-        pad_to(per_image["b_net"], (B, NB, hp), f32),
-        pad_to(per_image["w_color_x"], (B, hp, hp), bf16),
-        pad_to(per_image["w_color_d"].float(), (B, 3, hp), f32),
-        pad_to(per_image["b_color"][:, 0], (B, hp), f32),
-        pad_to(shared["w_sigma"][:, 0].float(), (hp,), f32),
-        shared["b_sigma"].reshape(1).float().contiguous(),
-        pad_to(w_head, (hp, headp), bf16),
-        pad_to(b_head, (headp,), f32),
-    ]
-    for t in args:
+    if "w_coord" not in w:
+        raise ValueError("field_render_cuda takes the field's own weights (flat_weights) and "
+                         "film_tables(freq, phase, NB), not fold_film_tables' folded tables")
+    freq_k, phase_k = (t.detach().float() for t in film)
+    NB, H = freq_k.shape[1:]
+    d = field_dims(3 + w["w_geo"].shape[0], H, w["w_feat"].shape[1], NB)
+    if d["n_in"] != INPUT_PACK - 3:
+        raise ValueError(f"the packed inputs carry {INPUT_PACK - 3} field inputs, the field "
+                         f"takes {d['n_in']}")
+    stream, _ = pack_field_stream(w, freq_k)
+    ops = [packed.to(torch.bfloat16).contiguous(), z_vals.float().contiguous(), stream,
+           *field_side_tables(w, freq_k, phase_k, d)]
+    out = torch.empty(B, R, d["F"] + 3, dtype=torch.float32, device=dev)
+    depth = torch.empty(B, R, 1, dtype=torch.float32, device=dev)
+    for t in ops:
         if t.device != dev:
             raise ValueError(f"field kernel operand on {t.device}, expected {dev}")
-    out = torch.empty(B, R, width, dtype=f32, device=dev)
-    depth = torch.empty(B, R, 1, dtype=f32, device=dev)
-    lib = _build.library()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.thgt_raymarch(
-            *[t.data_ptr() for t in args], out.data_ptr(), depth.data_ptr(),
-            B, R, S, n_cols, n_in, k0p, n0p, hp, NB, width, headp,
-            int(white_back), int(last_back), int(exact_sin), stream)
+        err = _build.library().thgt_raymarch(
+            *cuda_ptrs(ops + [out, depth]), B, R, S, n_cols, d["n_in"], H, d["k0p"], d["n0p"],
+            d["hp"], d["nc"], d["headp"], NB, d["F"] + 3, int(white_back), int(last_back),
+            int(exact_sin), stream.numel() * 2, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "thgt_raymarch")
     launches += 1
     return out, depth
