@@ -1,9 +1,11 @@
-"""K11's packed weight stream and its weight-gradient plan, on the CPU.
+"""K10's and K11's packed weight streams and K11's weight-gradient plan, on
+the CPU.
 
-threedhumangan_tpu_torch/ops/synthesis_train.py::pack_bwd_stream lays every
-weight K11's body reads out as one bf16 stream of chunk images; each product's
-weights are read back here through a mirror of the kernel's addressing
-(csrc/synthesis_train_bwd.cu, synthesis_core.cuh) and compared bit for bit
+threedhumangan_tpu_torch/ops/synthesis_train.py::pack_fwd_stream and
+pack_bwd_stream lay every weight K10 and K11's body read out as one bf16
+stream of chunk images each; each product's weights are read back here
+through a mirror of the kernels' addressing (csrc/synthesis_train.cu,
+csrc/synthesis_train_bwd.cu, synthesis_core.cuh) and compared bit for bit
 with the padded bf16 weights.  The chunk count, sizes and alignment are what
 the producer lane and the C entry expect; the row chunks of the shared
 weight-gradient reduction (ops/raymarch_bwd.py::wgrad_plan, csrc/wgrad.cu)
@@ -20,7 +22,9 @@ from threedhumangan_tpu_torch.ops import synthesis_train as st
 from threedhumangan_tpu_torch.utils.misc import pad_to
 
 HID = 128
-STAGE_CAP = 16 * 432 * 2  # the bytes of a ring stage at the widest width K11 takes
+STAGE_CAP = 16 * 432 * 2  # the bytes of a ring stage at the widest width K10 and K11 take
+HID_SUB = 3  # chunks of the SPADE hidden width a ring stage holds (kHidSub)
+MAX_SMEM = 232448  # the shared memory a CTA may have
 
 
 def _case(ci, cs, spatial, with_fixed=False, co=None, H=5, W=30, seed=0):
@@ -158,6 +162,93 @@ def test_operands_in_the_c_order(with_fixed):
             assert Y.data_ptr() == op["ptrs"][13].data_ptr()
         assert op["part"].shape == (2 * d["tiles"], st.SUM_SLOTS,
                                     d["cop"] + 4 * d["cip"] + d["hidp"])
+
+
+@pytest.mark.parametrize("ci", [40, 384, 420])
+@pytest.mark.parametrize("spatial", [True, False])
+def test_fwd_stream_reads_back_every_weight_bit_for_bit(ci, spatial):
+    """K10's stream: sh_w and the heads as K11's opens, then W itself (K-rows
+    Ci, columns Co), not K11's W^T."""
+    args, _ = _case(ci, 24 if ci == 40 else ci, spatial, seed=1)
+    d = _dims(args)
+    stream, sizes = st.pack_fwd_stream(args["w"], args["mlp"], d)
+    assert stream.dtype == torch.bfloat16 and stream.is_contiguous()
+    cip, cop, csp, hidp = d["cip"], d["cop"], d["csp"], d["hidp"]
+    rd = KernelReader(stream, sizes)
+    mlp = args["mlp"]
+    if spatial:
+        np.testing.assert_array_equal(rd.product(csp, hidp), _bits(mlp["sh_w"], (csp, hidp)))
+        gam, bet = rd.gamma_beta(hidp, cip)
+        np.testing.assert_array_equal(gam, _bits(mlp["g_w"], (hidp, cip)))
+        np.testing.assert_array_equal(bet, _bits(mlp["bt_w"], (hidp, cip)))
+    np.testing.assert_array_equal(rd.product(cip, cop), _bits(args["w"], (cip, cop)))
+    assert rd.chunk == len(sizes) and rd.pos == stream.numel() * 2
+
+
+@pytest.mark.parametrize("ci", [40, 384, 420])
+@pytest.mark.parametrize("spatial", [True, False])
+def test_fwd_stream_chunk_count_sizes_alignment_and_stage_capacity(ci, spatial):
+    args, _ = _case(ci, 24 if ci == 40 else ci, spatial, seed=4)
+    d = _dims(args)
+    cip, cop, csp, hidp = d["cip"], d["cop"], d["csp"], d["hidp"]
+    stream, sizes = st.pack_fwd_stream(args["w"], args["mlp"], d)
+    # the producer's walk (csrc/synthesis_train.cu::produce)
+    n_spade = csp // 16 if spatial else 0
+    want = [16 * hidp * 2] * n_spade
+    if spatial:
+        want += [16 * cip * 2] * (2 * hidp // 16)
+    want += [16 * cop * 2] * (cip // 16)
+    assert sizes == want
+    # the C entry's byte count of the whole stream
+    expect = 2 * cip * cop + (2 * (csp * hidp + 2 * hidp * cip) if spatial else 0)
+    assert stream.numel() * 2 == sum(sizes) == expect
+    offsets = np.cumsum([0] + sizes[:-1])
+    assert all(s % 256 == 0 and s <= STAGE_CAP for s in sizes)
+    assert all(o % 128 == 0 for o in offsets)
+    # a stage holds HID_SUB chunks of the SPADE shared layer or one of any
+    # other product; the tiles (h -> out, style -> t, actv) and four such
+    # stages fit a CTA (the C entry's layout)
+    stage = max([16 * max(cip, cop) * 2] + ([HID_SUB * 16 * hidp * 2] if spatial else []))
+    assert stage <= STAGE_CAP and all(s <= stage for s in sizes)
+    ld = lambda n: n + 8
+    tiles = 2 * 64 * (ld(max(cip, cop)) + ld(max(cip, csp)) + (ld(hidp) if spatial else 0))
+    assert -(-tiles // 128) * 128 + 4 * stage + 8 * 8 <= MAX_SMEM
+
+
+@pytest.mark.parametrize("with_fixed", [True, False])
+def test_fwd_operands_in_the_c_order(with_fixed):
+    """``fwd_operands`` (plain PyTorch, so it runs here on CPU tensors): the
+    pointer list of the C entry (the tables both kernels share, then the
+    conv bias, the weight stream and the output) and its widths."""
+    args, _ = _case(40, 24, True, with_fixed, seed=5)
+    c = torch.randn(40, generator=torch.Generator().manual_seed(6))
+    op = st.fwd_operands(**args, c=c)
+    d = op["d"]
+    assert len(op["ptrs"]) == 15 and op["ints"] == [2, 150, 40, 24, 40, 48, 32, 48, 128, 1,
+                                                    int(with_fixed)]
+    p = op["ptrs"]
+    assert torch.equal(p[0], args["h"]) and torch.equal(p[1], args["style"])
+    if with_fixed:
+        assert torch.equal(p[2], args["fixed"].bfloat16())
+    assert p[9].shape == (d["hidp"],) and p[10].shape == p[11].shape == (d["cip"],)
+    assert torch.equal(p[12][:40], c) and not p[12][40:].any() and p[12].shape == (48,)
+    stream, _ = st.pack_fwd_stream(args["w"], args["mlp"], d)
+    assert torch.equal(p[13], stream) and op["stream_bytes"] == stream.numel() * 2
+    assert p[14] is op["out"] and op["out"].shape == (2, 5, 30, 40)
+    assert op["out"].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_widths_above_the_cap_raise(direction):
+    """A padded width above 432 raises before any launch, on any device, and
+    never takes the plain version."""
+    args, g = _case(440, 24, True, H=2, W=4)
+    if direction == "forward":
+        call = lambda: st.half_block_forward_cuda(**args, c=torch.zeros(440))
+    else:
+        call = lambda: st.half_block_backward_cuda(**args, g=g)
+    with pytest.raises(ValueError, match="at most 432"):
+        call()
 
 
 @pytest.mark.parametrize("rows,K,N,sms", [(262144, 384, 384, 132), (262144, 384, 128, 132),

@@ -25,9 +25,10 @@ double backward (R1 differentiates the discriminator only).
 ``half_block_forward`` / ``half_block_backward`` are the plain versions
 (the JAX kernels' math, rounding to the compute dtype where they do).
 ``HalfBlock`` launches csrc/synthesis_train.cu (K10) and
-csrc/synthesis_train_bwd.cu (K11, its weights packed by ``pack_bwd_stream``;
-its weight-gradient products through csrc/wgrad.cu) on CUDA tensors (bf16 only)
-and runs the plain versions on CPU tensors.  The TPU's scoped-VMEM tile
+csrc/synthesis_train_bwd.cu (K11), both on K3's core with their weights
+packed by ``pack_fwd_stream`` / ``pack_bwd_stream`` (K11's weight-gradient
+products through csrc/wgrad.cu), on CUDA tensors (bf16 only, padded widths
+up to ``MAX_HALF_BLOCK_WIDTH``) and runs the plain versions on CPU tensors.  The TPU's scoped-VMEM tile
 model (``estimate_half_block_vmem`` / ``auto_tile_rows``) has no
 counterpart: the CUDA kernels fix their own 64-pixel tile.
 """
@@ -203,42 +204,54 @@ def spade_half_block_rank1(h, gam, bet, m, r, a, b, w, c,
 # ---------------------------------------------------------------------------
 
 PIXELS_PER_CTA = 64
-MAX_BWD_WIDTH = 432  # K11 keeps 64 x (3 Ci + ...) bf16 tiles in one CTA's shared memory
+# the widest padded width (Ci, Co, Cs) either kernel takes: a product's N is
+# at most kMaxTiles x 8 x 3 warpgroups (csrc/synthesis_core.cuh), and K11
+# keeps 64 x (3 Ci + ...) bf16 tiles in one CTA's shared memory
+MAX_HALF_BLOCK_WIDTH = 432
 
 
 def _dims(h, style, w, mlp):
+    """The widths of one call, unpadded and padded to 16; raises above the
+    kernels' width."""
     B, H, W, ci = h.shape
     co = w.shape[1]
     cs = style.shape[-1] if style is not None else 0
     hid = mlp["sh_w"].shape[1] if mlp is not None else 0
-    return dict(B=B, HW=H * W, ci=ci, cs=cs, co=co, cip=round16(ci), csp=round16(cs),
-                cop=round16(co), hid=hid, hidp=round16(hid),
-                tiles=-(-(H * W) // PIXELS_PER_CTA))
+    d = dict(B=B, HW=H * W, ci=ci, cs=cs, co=co, cip=round16(ci), csp=round16(cs),
+             cop=round16(co), hid=hid, hidp=round16(hid),
+             tiles=-(-(H * W) // PIXELS_PER_CTA))
+    if max(d["cip"], d["cop"], d["csp"]) > MAX_HALF_BLOCK_WIDTH:
+        raise ValueError(f"the half-block kernels take at most {MAX_HALF_BLOCK_WIDTH} channels, "
+                         f"got Ci {ci}, Co {co}, Cs {cs}")
+    return d
 
 
-def _operands(h, style, fixed, gam, bet, m, r, a, b, mlp, d):
-    """Zero-padded kernel operands of K10, in the C order."""
+def _row(t, n):
+    """t flat in float32, zero-padded to n."""
+    return F.pad(t.reshape(-1).float(), (0, n - t.numel()))
+
+
+def _inputs(h, style, fixed, gam, bet, m, r, a, b, mlp, d):
+    """The operands both kernels read first, zero-padded, in their C order:
+    h, style, fixed, gam, bet, m, r, a, b, sh_b, g_b, bt_b (a 16-float dummy
+    for each one the variant does not use)."""
     bf16, f32 = torch.bfloat16, torch.float32
-    dev = h.device
-    dummy = torch.zeros(16, dtype=f32, device=dev)
-    row = lambda t: pad_to(t.reshape(-1), (d["cip"],), f32)
-    ops = [h.to(bf16).contiguous()]
+    B, cip = d["B"], d["cip"]
+    dummy = torch.zeros(16, dtype=f32, device=h.device)
+    ins = [h.to(bf16).contiguous()]
     if style is not None:
-        ops += [style.to(bf16).contiguous(),
-                fixed.reshape(d["B"], -1).to(bf16).contiguous() if fixed is not None else dummy,
+        ins += [style.to(bf16).contiguous(),
+                fixed.reshape(B, -1).to(bf16).contiguous() if fixed is not None else dummy,
                 dummy, dummy]
     else:
-        ops += [dummy, dummy, pad_to(gam.reshape(d["B"], -1), (d["B"], d["cip"]), bf16),
-                pad_to(bet.reshape(d["B"], -1), (d["B"], d["cip"]), bf16)]
-    ops += [row(m), row(r), row(a), row(b)]
+        ins += [dummy, dummy, pad_to(gam.reshape(B, -1), (B, cip), bf16),
+                pad_to(bet.reshape(B, -1), (B, cip), bf16)]
+    ins += [_row(m, cip), _row(r, cip), _row(a, cip), _row(b, cip)]
     if style is not None:
-        ops += [pad_to(mlp["sh_w"], (d["csp"], d["hidp"]), bf16),
-                pad_to(mlp["sh_b"], (d["hidp"],), f32),
-                pad_to(mlp["g_w"], (d["hidp"], d["cip"]), bf16), row(mlp["g_b"]),
-                pad_to(mlp["bt_w"], (d["hidp"], d["cip"]), bf16), row(mlp["bt_b"])]
+        ins += [_row(mlp["sh_b"], d["hidp"]), _row(mlp["g_b"], cip), _row(mlp["bt_b"], cip)]
     else:
-        ops += [dummy] * 6
-    return ops
+        ins += [dummy] * 3
+    return ins
 
 
 def _ints(d, style, fixed):
@@ -258,24 +271,119 @@ def _check_dtype(compute_dtype):
         raise ValueError("the SPADE half-block kernels compute in bfloat16 only")
 
 
+_STREAM_INDEX: Dict = {}  # stream, widths, variant, device -> (gather map, chunk sizes)
+
+
+def _weight_blocks(d, spatial):
+    """Index blocks of the zero-padded weights into the flat source [W, sh_w,
+    g_w, bt_w, 0] (the trailing 0 fills the padding): W (cip x cop), and for
+    the spatial variant sh_w (csp x hidp), g_w and bt_w (hidp x cip); and the
+    SPADE part both kernels' streams open with, in the order the kernels
+    consume it: sh_w, then the gamma/beta heads in two column passes of
+    ``gamma_beta_pass`` (hidp x cip each); none for rank-1."""
+    ci, co, cs, hid = d["ci"], d["co"], d["cs"], d["hid"]
+    n_w, n_sh, n_g = ci * co, (cs * hid if spatial else 0), (hid * ci if spatial else 0)
+    zero = n_w + n_sh + 2 * n_g
+
+    def block(off, rows, cols, shape):
+        idx = torch.full(shape, zero, dtype=torch.int64)
+        idx[:rows, :cols] = torch.arange(off, off + rows * cols).reshape(rows, cols)
+        return idx
+
+    w = block(0, ci, co, (d["cip"], d["cop"]))
+    if not spatial:
+        return w, None, None, None, []
+    sh = block(n_w, cs, hid, (d["csp"], d["hidp"]))
+    gw = block(n_w + n_sh, hid, ci, (d["hidp"], d["cip"]))
+    bt = block(n_w + n_sh + n_g, hid, ci, (d["hidp"], d["cip"]))
+    return w, sh, gw, bt, [sh, gamma_beta_pass(gw, bt, 0), gamma_beta_pass(gw, bt, 1)]
+
+
+def _chunk_map(mats):
+    """The matrices' ``chunk_images`` in order, and the bytes of each chunk."""
+    idx = torch.cat([chunk_images(x.contiguous()) for x in mats])
+    sizes = [CHUNK_ROWS * x.shape[1] * 2 for x in mats for _ in range(x.shape[0] // CHUNK_ROWS)]
+    return idx, sizes
+
+
+def fwd_stream_index(d, spatial):
+    """The gather map of ``pack_fwd_stream`` (see ``_weight_blocks``): K10's
+    weight stream holds, as ``chunk_images`` in the order the kernel consumes
+    them, the SPADE part (spatial) and then W itself (cip x cop: K-rows Ci,
+    columns Co); rank-1 holds W alone."""
+    w, _, _, _, spade = _weight_blocks(d, spatial)
+    return _chunk_map(spade + [w])
+
+
+def bwd_stream_index(d, spatial):
+    """The gather map of ``pack_bwd_stream`` (see ``_weight_blocks``): K11's
+    weight stream holds, as ``chunk_images`` in the order the kernel consumes
+    them, the SPADE part (spatial), W^T (cop x cip), [g_w; bt_w]^T (2 cip x
+    hidp) and sh_w^T (hidp x csp); rank-1 holds W^T alone."""
+    w, sh, gw, bt, spade = _weight_blocks(d, spatial)
+    mats = spade + [w.t()]
+    if spatial:
+        mats += [torch.cat([gw.t(), bt.t()], 0), sh.t()]
+    return _chunk_map(mats)
+
+
+def _pack(index, w, mlp, d):
+    """One gather of the concatenated weights through ``index``'s map, built
+    once per widths, variant and device.  Returns (stream, sizes)."""
+    spatial = mlp is not None
+    key = (index.__name__, d["ci"], d["co"], d["cs"], d["hid"], spatial, str(w.device))
+    if key not in _STREAM_INDEX:
+        idx, sizes = index(d, spatial)
+        _STREAM_INDEX[key] = (idx.to(w.device), sizes)
+    idx, sizes = _STREAM_INDEX[key]
+    src = [w] + ([mlp["sh_w"], mlp["g_w"], mlp["bt_w"]] if spatial else [])
+    flat = torch.cat([t.reshape(-1).float() for t in src] + [w.new_zeros(1, dtype=torch.float32)])
+    return flat[idx].to(torch.bfloat16), sizes
+
+
+def pack_fwd_stream(w, mlp, d):
+    """Every weight K10 reads, as one bf16 stream of chunk images (see
+    ``fwd_stream_index``), on w's device.  Returns (stream, sizes)."""
+    return _pack(fwd_stream_index, w, mlp, d)
+
+
+def pack_bwd_stream(w, mlp, d):
+    """Every weight K11's body reads, as one bf16 stream of chunk images (see
+    ``bwd_stream_index``), on w's device.  Returns (stream, sizes)."""
+    return _pack(bwd_stream_index, w, mlp, d)
+
+
+def fwd_operands(h, style, fixed, gam, bet, m, r, a, b, mlp, w, c):
+    """K10's host glue before the launch: the padded tables, the conv bias,
+    the weight stream and the output, in the C order."""
+    d = _dims(h, style, w, mlp)
+    stream, _ = pack_fwd_stream(w, mlp, d)
+    out = torch.empty(h.shape[:3] + (d["co"],), dtype=torch.bfloat16, device=h.device)
+    ptrs = _inputs(h, style, fixed, gam, bet, m, r, a, b, mlp, d) + [_row(c, d["cop"]), stream,
+                                                                     out]
+    return dict(d=d, ptrs=ptrs, ints=_ints(d, style, fixed), stream_bytes=stream.numel() * 2,
+                dev=h.device, out=out)
+
+
+def fwd_body(op):
+    """Launch K10's kernel on the operands of ``fwd_operands``."""
+    global launches_fwd
+    dev = op["dev"]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _build.library().thgt_half_block_fwd(*_ptrs(op["ptrs"], dev), *op["ints"],
+                                                   op["stream_bytes"], stream)
+    _build.check(err, "thgt_half_block_fwd")
+    launches_fwd += 1
+
+
 def half_block_forward_cuda(h, style, fixed, gam, bet, m, r, a, b, mlp, w, c,
                             compute_dtype=torch.bfloat16):
     """Launch K10; same contract as ``half_block_forward``."""
-    global launches_fwd
     _check_dtype(compute_dtype)
-    d = _dims(h, style, w, mlp)
-    dev = h.device
-    ops = _operands(h, style, fixed, gam, bet, m, r, a, b, mlp, d)
-    ops += [pad_to(w, (d["cip"], d["cop"]), torch.bfloat16),
-            pad_to(c, (d["cop"],), torch.float32)]
-    out = torch.empty(h.shape[:3] + (d["co"],), dtype=torch.bfloat16, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _build.library().thgt_half_block_fwd(*_ptrs(ops + [out], dev),
-                                                   *_ints(d, style, fixed), stream)
-    _build.check(err, "thgt_half_block_fwd")
-    launches_fwd += 1
-    return out
+    op = fwd_operands(h, style, fixed, gam, bet, m, r, a, b, mlp, w, c)
+    fwd_body(op)
+    return op["out"]
 
 
 def _wgrad(X, Y, stream):
@@ -286,55 +394,6 @@ def _wgrad(X, Y, stream):
 
 
 SUM_SLOTS = 4  # rows of column sums a K11 CTA writes, one per warp of a warpgroup
-_STREAM_INDEX: Dict = {}  # widths, variant, device -> (gather map, chunk sizes)
-
-
-def bwd_stream_index(d, spatial):
-    """The gather map of ``pack_bwd_stream``: for each element of K11's
-    weight stream, its index into the flat source [W, sh_w, g_w, bt_w, 0]
-    (the trailing 0 fills the padding), and the bytes of each chunk.  The
-    stream holds, as ``chunk_images`` in the order the kernel consumes them:
-    sh_w (csp x hidp), the gamma/beta heads in two column passes of
-    ``gamma_beta_pass`` (hidp x cip each), W^T (cop x cip), [g_w; bt_w]^T
-    (2 cip x hidp) and sh_w^T (hidp x csp); rank-1 holds W^T alone."""
-    ci, co, cs, hid = d["ci"], d["co"], d["cs"], d["hid"]
-    cip, cop, csp, hidp = d["cip"], d["cop"], d["csp"], d["hidp"]
-    n_w, n_sh, n_g = ci * co, (cs * hid if spatial else 0), (hid * ci if spatial else 0)
-    zero = n_w + n_sh + 2 * n_g
-
-    def block(off, rows, cols, shape):
-        idx = torch.full(shape, zero, dtype=torch.int64)
-        idx[:rows, :cols] = torch.arange(off, off + rows * cols).reshape(rows, cols)
-        return idx
-
-    w = block(0, ci, co, (cip, cop))
-    mats = []
-    if spatial:
-        sh = block(n_w, cs, hid, (csp, hidp))
-        gw = block(n_w + n_sh, hid, ci, (hidp, cip))
-        bt = block(n_w + n_sh + n_g, hid, ci, (hidp, cip))
-        mats += [sh, gamma_beta_pass(gw, bt, 0), gamma_beta_pass(gw, bt, 1)]
-    mats.append(w.t())
-    if spatial:
-        mats += [torch.cat([gw.t(), bt.t()], 0), sh.t()]
-    idx = torch.cat([chunk_images(x.contiguous()) for x in mats])
-    sizes = [CHUNK_ROWS * x.shape[1] * 2 for x in mats for _ in range(x.shape[0] // CHUNK_ROWS)]
-    return idx, sizes
-
-
-def pack_bwd_stream(w, mlp, d):
-    """Every weight K11's body reads, as one bf16 stream of chunk images (see
-    ``bwd_stream_index``), on w's device: one gather of the concatenated
-    weights through a map built once per shape.  Returns (stream, sizes)."""
-    spatial = mlp is not None
-    key = (d["ci"], d["co"], d["cs"], d["hid"], spatial, str(w.device))
-    if key not in _STREAM_INDEX:
-        idx, sizes = bwd_stream_index(d, spatial)
-        _STREAM_INDEX[key] = (idx.to(w.device), sizes)
-    idx, sizes = _STREAM_INDEX[key]
-    src = [w] + ([mlp["sh_w"], mlp["g_w"], mlp["bt_w"]] if spatial else [])
-    flat = torch.cat([t.reshape(-1).float() for t in src] + [w.new_zeros(1, dtype=torch.float32)])
-    return flat[idx].to(torch.bfloat16), sizes
 
 
 def bwd_operands(h, style, fixed, gam, bet, m, r, a, b, mlp, w, g):
@@ -342,9 +401,6 @@ def bwd_operands(h, style, fixed, gam, bet, m, r, a, b, mlp, w, g):
     tables, the outputs and the weight-gradient operand buffers, in the C
     order."""
     d = _dims(h, style, w, mlp)
-    if d["cip"] > MAX_BWD_WIDTH:
-        raise ValueError(f"the half-block backward kernel takes at most {MAX_BWD_WIDTH} "
-                         f"channels, got {d['ci']}")
     bf16, f32, dev = torch.bfloat16, torch.float32, h.device
     spatial = style is not None
     B, co, cs, cip, cop, csp, hidp = (d[k] for k in ("B", "co", "cs", "cip", "cop", "csp",
@@ -352,31 +408,19 @@ def bwd_operands(h, style, fixed, gam, bet, m, r, a, b, mlp, w, g):
     rows = B * d["tiles"] * PIXELS_PER_CTA
     n_part = cop + 4 * cip + (hidp if spatial else 0)
     e = lambda *shape, dt=bf16: torch.empty(*shape, dtype=dt, device=dev)
-    dummy = torch.zeros(16, dtype=f32, device=dev)
-    row = lambda t, n: F.pad(t.reshape(-1).float(), (0, n - t.numel()))
     stream, _ = pack_bwd_stream(w, mlp, d)
     g = g.to(bf16).contiguous()
     # g is the operand of dW = t^T g when the tiles cover the pixels exactly
     yg = None if d["HW"] % PIXELS_PER_CTA == 0 and co == cop else e(rows, cop)
     prods = {"dw": (e(rows, cip), g.reshape(rows, co) if yg is None else yg)}
-    ins = [h.to(bf16).contiguous()]
+    ins = _inputs(h, style, fixed, gam, bet, m, r, a, b, mlp, d)
     if spatial:
-        ins += [style.to(bf16).contiguous(),
-                fixed.reshape(B, -1).to(bf16).contiguous() if fixed is not None else dummy,
-                dummy, dummy]
-    else:
-        ins += [dummy, dummy, pad_to(gam.reshape(B, -1), (B, cip), bf16),
-                pad_to(bet.reshape(B, -1), (B, cip), bf16)]
-    ins += [row(m, cip), row(r, cip), row(a, cip), row(b, cip)]
-    if spatial:
-        ins += [row(mlp["sh_b"], hidp), row(mlp["g_b"], cip), row(mlp["bt_b"], cip)]
         dsty = e(*h.shape[:3], cs)
         prods.update(dsh_w=(e(rows, csp), e(rows, hidp)), dgb=(e(rows, hidp), e(rows, 2 * cip)))
         xst, ydact = prods["dsh_w"]
         xact, ygb = prods["dgb"]
     else:
-        ins += [dummy] * 3
-        dsty = xst = xact = ygb = ydact = dummy
+        dsty = xst = xact = ygb = ydact = torch.zeros(16, dtype=f32, device=dev)
     dh = e(*h.shape)
     part = e(B * d["tiles"], SUM_SLOTS, n_part, dt=f32)
     xt = prods["dw"][0]
