@@ -36,11 +36,13 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
   7. check    — K10/K11 against their plain versions (and K11 against
                 autograd through the plain forward) at the training shapes,
                 spatial with the fixed row and rank-1, and pointwise on a
-                narrow case with a ragged last tile; K11's call split into
-                host glue (and its weight pack), body, each weight-gradient
+                narrow case with a ragged last tile; K10's call split into
+                host glue (and its weight pack) and body, with its ptxas
+                line and shared memory a CTA; K11's call split into host
+                glue (and its weight pack), body, each weight-gradient
                 product (beside its bound and torch.matmul) and host sums;
-                two K11 calls bit for bit; the reduction against the plain
-                f32 X^T Y on K11's own operands.
+                two K10 and two K11 calls bit for bit; the reduction against
+                the plain f32 X^T Y on K11's own operands.
   8. train    — phase 6 on the fused half-blocks
                 (``pallas_synthesis_train=True``): 36 K10 and 18 K11 launches
                 a pair; and the TINY card-vs-CPU step on them.
@@ -408,13 +410,14 @@ def check_synthesis(gen, meta, styles, gcuda):
 
 def ptxas_of(source):
     """Registers and spill bytes that ``ptxas -v`` reported for the kernels of
-    one csrc source in this run's build log (the most over its kernels);
-    None when this run built nothing, since a log on disk may be another
-    build's."""
+    one csrc source, and its count of warnings that it serialized ``wgmma``
+    (C7510-C7519), in the build log of the loaded library (the most over
+    its kernels; the log is kept beside the library under the same source
+    hash); None when that log is missing."""
     from threedhumangan_tpu_torch import _build
 
-    out = dict(registers=None, spill_stores=None, spill_loads=None)
-    path = _build.BUILD_INFO.get("log")  # none when this run loaded a cached library
+    out = dict(registers=None, spill_stores=None, spill_loads=None, wgmma_serialized=None)
+    path = _build.BUILD_INFO.get("log")
     if not path:
         return out
     with open(path) as f:
@@ -426,7 +429,8 @@ def ptxas_of(source):
         st = [int(x) for x in re.findall(r"(\d+) bytes spill stores", sec)]
         ld = [int(x) for x in re.findall(r"(\d+) bytes spill loads", sec)]
         out.update(registers=max(regs, default=None), spill_stores=max(st, default=None),
-                   spill_loads=max(ld, default=None))
+                   spill_loads=max(ld, default=None),
+                   wgmma_serialized=len(re.findall(r"\(C751\d\)", sec)))
     return out
 
 
@@ -929,6 +933,27 @@ def check_wgrad(what, cases):
     return out
 
 
+def k10_split(args):
+    """K10's call in parts, each timed alone by CUDA events: the host glue
+    before the launch (of it the weight pack) and the body kernel; and the
+    shared memory a CTA and the weight ring as the C entry sizes them."""
+    import ctypes
+
+    from threedhumangan_tpu_torch import _build
+    from threedhumangan_tpu_torch.ops import synthesis_train as st
+
+    op = st.fwd_operands(**args)
+    d = op["d"]
+    ring = (ctypes.c_int * 2)()
+    smem = _build.library().thgt_half_block_fwd_smem(d["cip"], d["csp"], d["cop"], d["hidp"],
+                                                     int(args["style"] is not None),
+                                                     ctypes.cast(ring, ctypes.c_void_p))
+    return dict(glue_ms=cuda_ms(lambda: st.fwd_operands(**args), 3),
+                pack_ms=cuda_ms(lambda: st.pack_fwd_stream(args["w"], args["mlp"], d), 3),
+                body_ms=cuda_ms(lambda: st.fwd_body(op), 3),
+                smem_bytes=smem, ring_stages=ring[0], stage_bytes=ring[1])
+
+
 def k11_split(bargs, g):
     """K11's call in parts, each timed alone by CUDA events: the host glue
     before the launch, the body kernel, each weight-gradient product (beside
@@ -978,10 +1003,12 @@ def check_half_blocks(gcuda, B, H, W, C, hid):
     from threedhumangan_tpu_torch.ops import synthesis_train as st
 
     # narrow: Ci 40 / Cs 24 pad to 48 / 32; 5 x 30 = 150 pixels, a ragged
-    # last tile of 22; and MAP3DBN512L's width 420 (padded to 432, K11's
-    # largest shared-memory layout)
+    # last tile of 22; and MAP3DBN512L's width 420 (padded to 432, the
+    # half-block kernels' widest instantiation and largest shared-memory
+    # layout), spatial and rank-1
     for ci, cs, spatial, with_fixed in ((40, 24, True, True), (40, 24, True, False),
-                                        (40, 24, False, False), (420, 420, True, True)):
+                                        (40, 24, False, False), (420, 420, True, True),
+                                        (420, 420, False, False)):
         args, g = _half_block_case(2, 5, 30, ci, ci, cs, 128, spatial, with_fixed, gcuda)
         o_k = st.half_block_forward_cuda(**args)
         o_p = st.half_block_forward(**args)
@@ -1040,6 +1067,18 @@ def check_half_blocks(gcuda, B, H, W, C, hid):
             f"weight-gradient products) kernel {r['k11']['ms']:.3f} ms plain "
             f"{r['k11']['plain_ms']:.3f} ms bound {r['k11']['bound_ms']:.3f} ms "
             f"({r['k11']['bound_by']})")
+        r["k10"].update(k10_split(args))
+        k = r["k10"]
+        log(f"  K10 {name} split: glue {k['glue_ms']:.3f} ms (of it the weight pack "
+            f"{k['pack_ms']:.3f} ms), body {k['body_ms']:.3f} ms; shared memory a CTA (the C "
+            f"entry's) {k['smem_bytes']} bytes, weight ring {k['ring_stages']} stages of "
+            f"{k['stage_bytes']} bytes")
+        o1, o2 = run_fk(), run_fk()
+        same = torch.equal(o1, o2)
+        log(f"  K10 {name}: two calls on the same inputs bit-equal: {same}")
+        if not same:
+            raise AssertionError("K10 is not deterministic from run to run")
+        del o1, o2
         r["k11"]["split"] = k11_split(bargs, g)
         log_k11_split(name, r["k11"]["split"])
         d1, d2 = run_bk(), run_bk()
@@ -1056,10 +1095,16 @@ def check_half_blocks(gcuda, B, H, W, C, hid):
         res[name] = r
         del args, g, bargs
         torch.cuda.empty_cache()
-    core = ptxas_of("synthesis_train_bwd.cu")
-    log(f"  K11 ptxas: {core['registers']} registers, {core['spill_stores']} bytes spill stores, "
-        f"{core['spill_loads']} bytes spill loads (None: this run loaded a cached build)")
-    res["spatial"]["k11"].update(ptxas=core)
+    for k, source in (("k10", "synthesis_train.cu"), ("k11", "synthesis_train_bwd.cu")):
+        core = ptxas_of(source)
+        log(f"  {k.upper()} ptxas: {core['registers']} registers, {core['spill_stores']} bytes "
+            f"spill stores, {core['spill_loads']} bytes spill loads, "
+            f"{core['wgmma_serialized']} warnings of serialized wgmma")
+        if k == "k10" and (core["spill_stores"] is None or core["spill_loads"] is None):
+            raise AssertionError(f"no ptxas spill numbers for {source}: its build log is missing")
+        if k == "k10" and (core["spill_stores"] or core["spill_loads"]):
+            raise AssertionError(f"{source} spills registers: {core}")
+        res["spatial"][k].update(ptxas=core)
     return res
 
 

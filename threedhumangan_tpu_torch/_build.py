@@ -70,10 +70,12 @@ SIGNATURES = {
     "thgt_wgrad": [_P] * 3 + [_I] * 5 + [_P],
     # tri, face, bary, zbuf, B, T, K, tiles_x, tile, x_step, y_step, span, stream
     "thgt_rasterize": [_P] * 4 + [_I] * 5 + [_F] * 3 + [_P],
-    # h, style, fixed, gam, bet, m, r, a, b, sh_w, sh_b, g_w, g_b, bt_w, bt_b,
-    # w, c, out, B, HW, ci, cs, co, cip, csp, cop, hidp, spatial, add_fixed,
-    # stream
-    "thgt_half_block_fwd": [_P] * 18 + [_I] * 11 + [_P],
+    # h, style, fixed, gam, bet, m, r, a, b, sh_b, g_b, bt_b, c, weight
+    # stream, out, B, HW, ci, cs, co, cip, csp, cop, hidp, spatial,
+    # add_fixed, stream bytes, stream
+    "thgt_half_block_fwd": [_P] * 15 + [_I] * 11 + [ctypes.c_longlong, _P],
+    # cip, csp, cop, hidp, spatial, ring (2 ints out); returns K10's shared memory
+    "thgt_half_block_fwd_smem": [_I] * 5 + [_P],
     # h, style, fixed, gam, bet, m, r, a, b, sh_b, g_b, bt_b, weight stream,
     # g, dh, dsty, xt, yg, xst, xact, ygb, ydact, part, the ints of
     # thgt_half_block_fwd, stream bytes, stream
@@ -111,11 +113,15 @@ def _source_hash() -> str:
 def build() -> str:
     """Compile (if needed) and return the path of the shared library."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    lib_path = os.path.join(BUILD_DIR, f"libkernels_{_source_hash()}.so")
+    key = _source_hash()
+    lib_path = os.path.join(BUILD_DIR, f"libkernels_{key}.so")
+    log_path = os.path.join(BUILD_DIR, f"build_{key}.log")
     if os.path.exists(lib_path):
         BUILD_INFO.update(path=lib_path)
+        if os.path.exists(log_path):
+            BUILD_INFO.update(log=log_path)
         return lib_path
-    obj_dir = os.path.join(BUILD_DIR, f"obj_{_source_hash()}_{os.getpid()}")
+    obj_dir = os.path.join(BUILD_DIR, f"obj_{key}_{os.getpid()}")
     os.makedirs(obj_dir, exist_ok=True)
     nvcc = _nvcc()
     jobs = []
@@ -138,7 +144,6 @@ def build() -> str:
         log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
         if proc.returncode != 0:
             failed.append(f"link (rc {proc.returncode}):\n{proc.stderr[-4000:]}")
-    log_path = os.path.join(BUILD_DIR, "build.log")
     with open(log_path, "w") as f:
         f.write("\n".join(log))
     shutil.rmtree(obj_dir, ignore_errors=True)

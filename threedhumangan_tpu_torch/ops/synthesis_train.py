@@ -227,8 +227,9 @@ def _dims(h, style, w, mlp):
 
 
 def _row(t, n):
-    """t flat in float32, zero-padded to n."""
-    return F.pad(t.reshape(-1).float(), (0, n - t.numel()))
+    """t flat in float32, zero-padded to n (t itself where it already is)."""
+    t = t.reshape(-1).float()
+    return t if t.numel() == n else F.pad(t, (0, n - t.numel()))
 
 
 def _inputs(h, style, fixed, gam, bet, m, r, a, b, mlp, d):
@@ -338,7 +339,7 @@ def _pack(index, w, mlp, d):
     idx, sizes = _STREAM_INDEX[key]
     src = [w] + ([mlp["sh_w"], mlp["g_w"], mlp["bt_w"]] if spatial else [])
     flat = torch.cat([t.reshape(-1).float() for t in src] + [w.new_zeros(1, dtype=torch.float32)])
-    return flat[idx].to(torch.bfloat16), sizes
+    return flat.index_select(0, idx).to(torch.bfloat16), sizes
 
 
 def pack_fwd_stream(w, mlp, d):
