@@ -25,7 +25,10 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
                 plain versions at the training slice's shapes (K8/K9 also
                 pointwise at a narrow width, and against autograd through the
                 plain unfolded render); the weight-gradient reduction against
-                the plain f32 X^T Y at K9's ragged widths.
+                the plain f32 X^T Y at K9's ragged widths; K9's call split
+                into host glue, bodies, each weight-gradient product (beside
+                its bound and torch.matmul) and host sums, K8's into glue
+                and body, with their ptxas line.
   6. train    — the MAP3DBN D+G+R1 step at batch 8 in bf16, phase slot 3
                 (R1 on), nerf noise 0.5, lr_d 4e-4 / lr_g 1e-4, per-op
                 synthesis (``pallas_synthesis_train=False``): 2 warm-up + 5
@@ -787,8 +790,59 @@ def check_field_bwd(G, meta, cond, gcuda):
     log(f"  time: K8 kernel {ms8:.3f} ms plain {plain8:.3f} ms bound {b8['bound_ms']:.3f} ms "
         f"({b8['bound_by']}); K9 kernel {ms9:.3f} ms plain {plain9:.3f} ms bound "
         f"{b9['bound_ms']:.3f} ms ({b9['bound_by']})")
-    return (k2_train, dict(max_abs_err=smx, ms=ms8, plain_ms=plain8, **b8),
-            dict(max_abs_err=k9mx, ms=ms9, plain_ms=plain9, **b9))
+    split = k9_split(w, pk, fk, pk_, go, coef, dsig, S, exact)
+    log_k9_split(split)
+    ptx = ptxas_of("raymarch_bwd.cu")
+    return (k2_train, dict(max_abs_err=smx, ms=ms8, plain_ms=plain8, **b8, **split.pop("k8"),
+                           ptxas=ptx),
+            dict(max_abs_err=k9mx, ms=ms9, plain_ms=plain9, **b9, split=split, ptxas=ptx))
+
+
+def k9_split(w, pk, fk, pk_, go, coef, dsig, S, exact):
+    """K9's call in parts, each timed alone by CUDA events: the host glue
+    before its launches (tables, weights, buffers), the bodies of its
+    launches, each weight-gradient product of a launch (beside its bound and
+    one ``torch.matmul(X.t(), Y)`` on the same bf16 operands, a yardstick
+    never on the path) and the host's sums of the partials; and K8's call
+    in glue and body."""
+    import torch
+
+    from threedhumangan_tpu_torch.ops import raymarch_bwd as rb
+
+    args = (w, pk, fk, pk_, go, coef, dsig, S)
+    op = rb.field_bwd_step_operands(*args, exact_sin=exact)
+    groups = range(0, op["B"], rb.IMAGES_PER_LAUNCH)
+    bodies = lambda: [rb.field_bwd_step_body(op, b0) for b0 in groups]
+    bodies()
+    gw = rb.field_bwd_step_products(op, 0)
+    sums = lambda: rb.field_bwd_step_reduce(
+        op, gw, torch.cat([rb.field_bwd_step_partials(op, b0) for b0 in groups], 0))
+    out = dict(launches=len(groups),
+               glue_ms=cuda_ms(lambda: rb.field_bwd_step_operands(*args, exact_sin=exact), 3),
+               body_ms=cuda_ms(bodies, 3), sums_ms=cuda_ms(sums, 3), products={})
+    stream = torch.cuda.current_stream().cuda_stream
+    for k, (X, Y) in rb.field_bwd_step_pairs(op, 0).items():
+        out["products"][k] = dict(
+            shape=[X.shape[0], X.shape[1], Y.shape[1]],
+            ms=cuda_ms(lambda: rb.wgrad(X, Y, stream), 3),
+            library_ms=cuda_ms(lambda: torch_matmul_t(X, Y), 3), **wgrad_bound(X, Y))
+    out["products_ms"] = len(groups) * sum(p["ms"] for p in out["products"].values())
+    del op, gw
+    op8 = rb.field_stats_operands(w, pk, fk, pk_, go, S, exact_sin=exact)
+    out["k8"] = dict(
+        glue_ms=cuda_ms(lambda: rb.field_stats_operands(w, pk, fk, pk_, go, S, exact_sin=exact), 3),
+        body_ms=cuda_ms(lambda: rb.field_stats_body(op8), 3))
+    return out
+
+
+def log_k9_split(sp):
+    log(f"  K9 split: glue {sp['glue_ms']:.3f} ms, {sp['launches']} bodies {sp['body_ms']:.3f} ms, "
+        f"{sp['launches']} x {len(sp['products'])} weight-gradient products "
+        f"{sp['products_ms']:.3f} ms, sums {sp['sums_ms']:.3f} ms; K8 glue "
+        f"{sp['k8']['glue_ms']:.3f} ms, body {sp['k8']['body_ms']:.3f} ms")
+    for k, p in sp["products"].items():
+        log(f"    product {k} {p['shape']} (rows, K, N): {p['ms']:.3f} ms, bound "
+            f"{p['bound_ms']:.3f} ms ({p['bound_by']}), torch.matmul {p['library_ms']:.3f} ms")
 
 
 def check_small_train(fused=False):

@@ -295,26 +295,38 @@ def _launch(name, *args):
     _build.check(err, name)
 
 
-def field_stats_cuda(w, packed, freq_k, phase_k, g_out, num_steps: int, exact_sin=False):
-    """Launch K8; same contract as ``field_stats_plain``."""
-    global launches_stats
+def field_stats_operands(w, packed, freq_k, phase_k, g_out, num_steps: int, exact_sin=False):
+    """K8's host glue before the launch: the padded tables and the outputs,
+    in the C order."""
     _check_rows(packed, num_steps)
     B, P, n_cols = packed.shape
     t, d = kernel_tables(w, freq_k, phase_k)
-    pk = packed.to(torch.bfloat16).contiguous()
-    go = g_out.float().contiguous()
     sigma = torch.empty(B, P, dtype=torch.float32, device=packed.device)
     gdot = torch.empty_like(sigma)
-    with torch.cuda.device(packed.device):
-        stream = torch.cuda.current_stream(packed.device).cuda_stream
-        ptrs = rm.cuda_ptrs([pk, go] + [t[k] for k in KERNEL_TABLE_ORDER], "field backward kernel")
-        _launch("thgt_field_stats", *ptrs,
-                sigma.data_ptr(), gdot.data_ptr(), B, P, num_steps, n_cols, d["n_in"],
-                d["k0p"], d["n0p"], d["hp"], d["NB"], d["F"] + 3, d["headp"], int(exact_sin),
-                stream)
+    ops = ([packed.to(torch.bfloat16).contiguous(), g_out.float().contiguous()]
+           + [t[k] for k in KERNEL_TABLE_ORDER] + [sigma, gdot])
+    ints = [B, P, num_steps, n_cols, d["n_in"], d["k0p"], d["n0p"], d["hp"], d["NB"],
+            d["F"] + 3, d["headp"], int(exact_sin)]
+    return dict(d=d, ops=ops, ints=ints, dev=packed.device, sigma=sigma, gdot=gdot,
+                shape=(B, P // num_steps, num_steps))
+
+
+def field_stats_body(op):
+    """Launch K8's kernel on the operands of ``field_stats_operands``."""
+    global launches_stats
+    dev = op["dev"]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _launch("thgt_field_stats", *rm.cuda_ptrs(op["ops"], "field backward kernel"),
+                *op["ints"], stream)
     launches_stats += 1
-    R = P // num_steps
-    return sigma.reshape(B, R, num_steps), gdot.reshape(B, R, num_steps)
+
+
+def field_stats_cuda(w, packed, freq_k, phase_k, g_out, num_steps: int, exact_sin=False):
+    """Launch K8; same contract as ``field_stats_plain``."""
+    op = field_stats_operands(w, packed, freq_k, phase_k, g_out, num_steps, exact_sin)
+    field_stats_body(op)
+    return op["sigma"].reshape(op["shape"]), op["gdot"].reshape(op["shape"])
 
 
 WGRAD_TILE = 128  # output rows and columns a CTA of csrc/wgrad.cu owns
@@ -367,60 +379,113 @@ def _wgrad(X, Y, stream):
     return out
 
 
-def field_bwd_step_cuda(w, packed, freq_k, phase_k, g_out, coef, dsigma, num_steps: int,
-                        exact_sin=False):
-    """Launch K9 once per ``IMAGES_PER_LAUNCH`` images, then its
-    weight-gradient reduction; same contract as ``field_bwd_step_plain``."""
-    global launches_bwd
+def field_bwd_step_operands(w, packed, freq_k, phase_k, g_out, coef, dsigma, num_steps: int,
+                            exact_sin=False):
+    """K9's host glue before its launches: the padded tables, the transposed
+    weights, the inputs and one launch's buffers (flat, shaped per group of
+    images by ``_group``; the launches run in order on one stream, so each
+    reuses them)."""
     _check_rows(packed, num_steps)
     B, P, n_cols = packed.shape
     t, d = kernel_tables(w, freq_k, phase_k)
-    hp, n0p, headp, k0p, NB, H = d["hp"], d["n0p"], d["headp"], d["k0p"], d["NB"], d["H"]
-    cp = hp + 16
-    n_part = n0p + 3 * hp * (NB + 1) + headp + 1
+    hp, n0p, headp, k0p, NB = d["hp"], d["n0p"], d["headp"], d["k0p"], d["NB"]
     bf16, f32, dev = torch.bfloat16, torch.float32, packed.device
-    pk_all = packed.to(bf16).contiguous()
-    go_all = g_out.float().contiguous()
-    coef_all = coef.reshape(B, P).float().contiguous()
-    ds_all = dsigma.reshape(B, P).float().contiguous()
-    gw = {}  # padded weight-grad sums
-    parts = []
-    wt = dict(wT_head=t["w_head"].t().contiguous(), wT_color_x=t["w_color_x"].t().contiguous(),
-              wT_net_stk=t["w_net_stk"].transpose(1, 2).contiguous(),
-              wT_net0=t["w_net0"].t().contiguous())
+    cap = min(B, IMAGES_PER_LAUNCH) * P  # rows of one launch at most
+    sizes = dict(x0=k0p, xs0=n0p, xsk=max(NB - 1, 1) * hp, xcol=hp + 16, xc=hp, du=n0p,
+                 dv=NB * hp, dcol=hp + 16, dyh=headp)
+    flat = {k: torch.empty(cap * n, dtype=bf16, device=dev) for k, n in sizes.items()}
+    flat.update(U=torch.empty(cap * n0p, dtype=f32, device=dev),
+                V=torch.empty(cap * NB * hp, dtype=f32, device=dev),
+                VC=torch.empty(cap * hp, dtype=f32, device=dev),
+                part=torch.empty(cap // ROWS_PER_CTA * _n_part(d), dtype=f32, device=dev))
+    wt = [t["w_head"].t().contiguous(), t["w_color_x"].t().contiguous(),
+          t["w_net_stk"].transpose(1, 2).contiguous(), t["w_net0"].t().contiguous()]
+    ins = [packed.to(bf16).contiguous(), g_out.float().contiguous(),
+           coef.reshape(B, P).float().contiguous(), dsigma.reshape(B, P).float().contiguous()]
+    ints = [P, num_steps, n_cols, d["n_in"], k0p, n0p, hp, NB, d["F"] + 3, headp, int(exact_sin)]
+    return dict(d=d, B=B, P=P, dev=dev, t=t, wt=wt, ins=ins, flat=flat, ints=ints,
+                names=list(w))
+
+
+def _n_part(d):
+    """Columns of K9's per-CTA sums: du, 3 x hp a trunk layer and the colour
+    layer (sum dv, sum dpre v, sum dpre), the head's bias grads, b_sigma."""
+    return d["n0p"] + 3 * d["hp"] * (d["NB"] + 1) + d["headp"] + 1
+
+
+def _group(op, b0):
+    """Images [b0, b1) of one K9 launch and its buffers shaped for them."""
+    d, P = op["d"], op["P"]
+    b1 = min(op["B"], b0 + IMAGES_PER_LAUNCH)
+    rows = (b1 - b0) * P
+    hp, NB = d["hp"], d["NB"]
+
+    def v(name, *shape):
+        n = 1
+        for s in shape:
+            n *= s
+        return op["flat"][name][:n].view(*shape)
+
+    bufs = dict(x0=v("x0", rows, d["k0p"]), xs0=v("xs0", rows, d["n0p"]),
+                xsk=v("xsk", max(NB - 1, 1), rows, hp), xcol=v("xcol", rows, hp + 16),
+                xc=v("xc", rows, hp), du=v("du", rows, d["n0p"]), dv=v("dv", NB, rows, hp),
+                dcol=v("dcol", rows, hp + 16), dyh=v("dyh", rows, d["headp"]),
+                U=v("U", rows, d["n0p"]), V=v("V", NB, rows, hp), VC=v("VC", rows, hp),
+                part=v("part", rows // ROWS_PER_CTA, _n_part(d)))
+    return b1, bufs
+
+
+_SAVED_ORDER = ("x0", "xs0", "xsk", "xcol", "xc", "du", "dv", "dcol", "dyh", "U", "V", "VC",
+                "part")
+
+
+def field_bwd_step_body(op, b0):
+    """Launch K9's kernel on images [b0, b0 + IMAGES_PER_LAUNCH) of
+    ``field_bwd_step_operands``."""
+    global launches_bwd
+    b1, bufs = _group(op, b0)
+    t, dev = op["t"], op["dev"]
+    tabs = [t[k] for k in KERNEL_TABLE_ORDER]
+    tabs[5], tabs[6] = t["freq"][b0:b1], t["phase"][b0:b1]
+    args = [x[b0:b1] for x in op["ins"]] + tabs + op["wt"] + [bufs[k] for k in _SAVED_ORDER]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        for b0 in range(0, B, IMAGES_PER_LAUNCH):
-            b1 = min(B, b0 + IMAGES_PER_LAUNCH)
-            Bc = b1 - b0
-            rows = Bc * P
-            e = lambda *shape, dt=bf16: torch.empty(*shape, dtype=dt, device=dev)
-            x0, xs0, xsk = e(rows, k0p), e(rows, n0p), e(max(NB - 1, 1), rows, hp)
-            xcol, xc = e(rows, cp), e(rows, hp)
-            du, dv, dcol, dyh = e(rows, n0p), e(NB, rows, hp), e(rows, cp), e(rows, headp)
-            U, V, VC = e(rows, n0p, dt=f32), e(NB, rows, hp, dt=f32), e(rows, hp, dt=f32)
-            part = e(rows // ROWS_PER_CTA, n_part, dt=f32)
-            tabs = [t[k] for k in KERNEL_TABLE_ORDER]
-            tabs[5], tabs[6] = t["freq"][b0:b1].contiguous(), t["phase"][b0:b1].contiguous()
-            args = rm.cuda_ptrs(
-                [pk_all[b0:b1], go_all[b0:b1], coef_all[b0:b1], ds_all[b0:b1]] + tabs
-                + [wt["wT_head"], wt["wT_color_x"], wt["wT_net_stk"], wt["wT_net0"],
-                   x0, xs0, xsk, xcol, xc, du, dv, dcol, dyh, U, V, VC, part],
-                "field backward kernel")
-            _launch("thgt_field_bwd", *args, Bc, P, num_steps, n_cols, d["n_in"], k0p, n0p,
-                    hp, NB, d["F"] + 3, headp, int(exact_sin), stream)
-            launches_bwd += 1
-            prods = {"first": (x0, du), "net0": (xs0, dv[0]), "color": (xcol, dcol),
-                     "head": (xc, dyh)}
-            prods.update({f"net{i}": (xsk[i - 1], dv[i]) for i in range(1, NB)})
-            for k, (X, Y) in prods.items():
-                g = _wgrad(X, Y, stream)
-                gw[k] = gw[k] + g if k in gw else g
-            parts.append(part.reshape(Bc, -1, n_part).sum(1))
-    part = torch.cat(parts, 0)  # (B, n_part): per-image column sums
-    tot = part.sum(0)
+        _launch("thgt_field_bwd", *rm.cuda_ptrs(args, "field backward kernel"), b1 - b0,
+                *op["ints"], stream)
+    launches_bwd += 1
+
+
+def field_bwd_step_pairs(op, b0):
+    """The (X, Y) operands of each weight-gradient product of one launch."""
+    _, bufs = _group(op, b0)
+    prods = {"first": (bufs["x0"], bufs["du"]), "net0": (bufs["xs0"], bufs["dv"][0]),
+             "color": (bufs["xcol"], bufs["dcol"]), "head": (bufs["xc"], bufs["dyh"])}
+    prods.update({f"net{i}": (bufs["xsk"][i - 1], bufs["dv"][i]) for i in range(1, op["d"]["NB"])})
+    return prods
+
+
+def field_bwd_step_products(op, b0):
+    """One launch's weight-gradient products, X^T Y of each operand pair."""
+    dev = op["dev"]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        return {k: _wgrad(X, Y, stream) for k, (X, Y) in field_bwd_step_pairs(op, b0).items()}
+
+
+def field_bwd_step_partials(op, b0):
+    """One launch's column sums per image, (images, n_part), in a fixed order."""
+    b1, bufs = _group(op, b0)
+    return bufs["part"].reshape(b1 - b0, -1, _n_part(op["d"])).sum(1)
+
+
+def field_bwd_step_reduce(op, gw, part):
+    """The grads from the summed weight-gradient products ``gw`` (padded)
+    and the per-image column sums ``part`` (B, n_part), cut to the field's
+    widths."""
+    d = op["d"]
+    hp, n0p, headp, NB, H, F = d["hp"], d["n0p"], d["headp"], d["NB"], d["H"], d["F"]
     G = d["n_in"] - 3
-    F = d["F"]
+    tot = part.sum(0)
     grads = {
         "w_coord": gw["first"][:3, :H], "b_coord": tot[:H],
         "w_geo": gw["first"][3:3 + G, H:2 * H], "b_geo": tot[H:2 * H],
@@ -433,7 +498,7 @@ def field_bwd_step_cuda(w, packed, freq_k, phase_k, g_out, coef, dsigma, num_ste
     grads["b_color"] = tot[off_c:off_c + H]
     grads["b_rgb"], grads["b_feat"] = tot[off_h:off_h + 3], tot[off_h + 3:off_h + 3 + F]
     grads["b_sigma"] = tot[off_h + headp:off_h + headp + 1]
-    d_freq = torch.zeros(B, NB, H, dtype=f32, device=dev)
+    d_freq = part.new_zeros(op["B"], NB, H)
     d_phase = torch.zeros_like(d_freq)
     for i in range(NB):
         o = n0p + 3 * hp * i
@@ -443,4 +508,20 @@ def field_bwd_step_cuda(w, packed, freq_k, phase_k, g_out, coef, dsigma, num_ste
         d_phase[:, i] = part[:, o + 2 * hp:o + 2 * hp + H]
     d_freq[:, -1] += part[:, off_c + hp:off_c + hp + H]
     d_phase[:, -1] += part[:, off_c + 2 * hp:off_c + 2 * hp + H]
-    return {k: grads[k].contiguous() for k in w}, d_freq, d_phase
+    return {k: grads[k].contiguous() for k in op["names"]}, d_freq, d_phase
+
+
+def field_bwd_step_cuda(w, packed, freq_k, phase_k, g_out, coef, dsigma, num_steps: int,
+                        exact_sin=False):
+    """Launch K9 once per ``IMAGES_PER_LAUNCH`` images, each launch followed
+    by its weight-gradient products; same contract as
+    ``field_bwd_step_plain``."""
+    op = field_bwd_step_operands(w, packed, freq_k, phase_k, g_out, coef, dsigma, num_steps,
+                                 exact_sin)
+    gw, parts = {}, []
+    for b0 in range(0, op["B"], IMAGES_PER_LAUNCH):
+        field_bwd_step_body(op, b0)
+        for k, g in field_bwd_step_products(op, b0).items():
+            gw[k] = gw[k] + g if k in gw else g
+        parts.append(field_bwd_step_partials(op, b0))
+    return field_bwd_step_reduce(op, gw, torch.cat(parts, 0))
