@@ -255,27 +255,44 @@ def field_dims(n_in: int, H: int, F: int, NB: int) -> Dict[str, int]:
 _STREAM_SOURCE = ("w_coord", "w_geo", "w_net", "w_color", "w_sigma", "w_rgb", "w_feat")
 
 
-def field_stream_index(d):
-    """The gather maps of ``pack_field_stream`` for one image (int32): for
-    each stream element, its index into the flat source (``_STREAM_SOURCE``
-    in order, each matrix (out, in) row-major, the trunk's layers in turn,
-    then [0, 30, 1]) and its index into the image's scale row [freq*15+30
-    (NB x H) | 30 | 1]; and the bytes of each chunk.  The stream holds, as
-    ``chunk_images`` in the order K2 consumes them: the first layer [coords |
-    geo] block-diagonal (k0p x n0p, scale 30) in column products of
-    ``d["first"]`` columns, w_net0 (n0p x hp) and the NB-1 trunk layers (hp x
-    hp) scaled by their freq column, the colour layer (hp x nc) scaled by the
-    last trunk freq with w_sigma (scale 1) in column H, and the head [rgb 3 |
-    feat F] (hp x headp, scale 1)."""
-    n_in, H, F, NB = d["n_in"], d["H"], d["F"], d["NB"]
-    k0p, n0p, hp, nc, headp = d["k0p"], d["n0p"], d["hp"], d["nc"], d["headp"]
-    G = n_in - 3
+def field_source_offsets(d):
+    """Where each weight of ``_STREAM_SOURCE`` starts in the flat source
+    (each matrix (out, in) row-major, the trunk's layers in turn), and the
+    index just past them, where the source's trailing 0 lies."""
+    H, F, NB, G = d["H"], d["F"], d["NB"], d["n_in"] - 3
     sizes = {"w_coord": 3 * H, "w_geo": G * H, "w_net": 2 * H * H + (NB - 1) * H * H,
              "w_color": (H + 3) * H, "w_sigma": H, "w_rgb": 3 * H, "w_feat": F * H}
     off, pos = {}, 0
     for k in _STREAM_SOURCE:
         off[k], pos = pos, pos + sizes[k]
-    zero, s30, s1 = pos, NB * H, NB * H + 1
+    return off, pos
+
+
+def field_source(w):
+    """The flat float32 source of the field's weights (``_STREAM_SOURCE``
+    in order, see ``field_source_offsets``)."""
+    NB = sum(k.startswith("w_net") for k in w)
+    mats = [w["w_coord"], w["w_geo"]] + [w[f"w_net{i}"] for i in range(NB)] + [
+        w[k] for k in _STREAM_SOURCE[3:]]
+    return torch.cat([t.t().reshape(-1) for t in mats])
+
+
+def field_index_mats(d):
+    """The value and scale maps (int32, (K, N) each) of the field's
+    products in K2's order: the first layer [coords | geo] block-diagonal
+    (k0p x n0p, scale 30) in column products of ``d["first"]`` columns,
+    w_net0 (n0p x hp) and the NB-1 trunk layers (hp x hp) scaled by their
+    freq column, the colour layer (hp x nc) scaled by the last trunk freq
+    with w_sigma (scale 1) in column H, and the head [rgb 3 | feat F] (hp x
+    headp, scale 1).  A value is an index into the flat source
+    (``_STREAM_SOURCE`` in order, each matrix (out, in) row-major, the
+    trunk's layers in turn, then [0, 30, 1]: padding reads the 0), a scale
+    an index into an image's scale row [freq*15+30 (NB x H) | 30 | 1]."""
+    H, F, NB = d["H"], d["F"], d["NB"]
+    k0p, n0p, hp, nc, headp = d["k0p"], d["n0p"], d["hp"], d["nc"], d["headp"]
+    G = d["n_in"] - 3
+    off, zero = field_source_offsets(d)
+    s30, s1 = NB * H, NB * H + 1
 
     def mat(K, N):
         return torch.full((K, N), zero, dtype=torch.int32), torch.full((K, N), s1,
@@ -311,10 +328,24 @@ def field_stream_index(d):
     head = mat(hp, headp)
     put(head, 0, 0, off["w_rgb"], H, 3, H, s1)
     put(head, 0, 3, off["w_feat"], H, F, H, s1)
-    mats += [color, head]
-    idx = torch.cat([chunk_images(v.contiguous()) for v, _ in mats])
-    sidx = torch.cat([chunk_images(sc.contiguous()) for _, sc in mats])
-    chunk = [CHUNK_ROWS * v.shape[1] * 2 for v, _ in mats for _ in range(v.shape[0] // CHUNK_ROWS)]
+    return mats + [color, head]
+
+
+def chunk_map(mats):
+    """The (K, N) maps' ``chunk_images`` in order, and the bytes of each chunk."""
+    idx = torch.cat([chunk_images(m.contiguous()) for m in mats])
+    return idx, [CHUNK_ROWS * m.shape[1] * 2 for m in mats for _ in range(m.shape[0] // CHUNK_ROWS)]
+
+
+def field_stream_index(d):
+    """The gather maps of ``pack_field_stream`` for one image (int32): for
+    each stream element, its index into the flat source and into the
+    image's scale row (``field_index_mats``); and the bytes of each chunk.
+    The stream holds the products of ``field_index_mats`` as
+    ``chunk_images``, in the order K2 consumes them."""
+    mats = field_index_mats(d)
+    idx, chunk = chunk_map([v for v, _ in mats])
+    sidx, _ = chunk_map([sc for _, sc in mats])
     return idx, sidx, chunk
 
 
@@ -336,9 +367,7 @@ def pack_field_stream(w, freq_k):
         consts = torch.tensor([0.0, 30.0, 1.0], device=dev)
         _STREAM_INDEX[key] = (idx.to(dev), sidx.to(dev), consts, chunk)
     idx, sidx, consts, chunk = _STREAM_INDEX[key]
-    mats = [w["w_coord"], w["w_geo"]] + [w[f"w_net{i}"] for i in range(NB)] + [
-        w[k] for k in _STREAM_SOURCE[3:]]
-    flat = torch.cat([t.t().reshape(-1) for t in mats] + [consts]).index_select(0, idx)
+    flat = torch.cat([field_source(w), consts]).index_select(0, idx)
     scales = torch.cat([freq_k.reshape(B, NB * H), consts[1:].expand(B, 2)], 1)
     stream = torch.empty(B, idx.numel(), dtype=torch.bfloat16, device=dev)
     torch.mul(scales.index_select(1, sidx), flat, out=stream)

@@ -45,7 +45,7 @@ from threedhumangan_tpu_torch.ops import raymarch as rm
 from threedhumangan_tpu_torch.ops.raymarch import (KERNEL_TABLE_ORDER, film_tables,
                                                   flat_weights, kernel_tables, layer_names,
                                                   slab_forward)
-from threedhumangan_tpu_torch.utils.misc import mm
+from threedhumangan_tpu_torch.utils.misc import mm, pad_to, round16
 
 launches_stats = 0  # K8 launches (the CUDA path only)
 launches_bwd = 0    # K9 launches (the CUDA path only)
@@ -281,6 +281,101 @@ ROWS_PER_CTA = 64
 IMAGES_PER_LAUNCH = 2
 
 
+# the widest padded width of one product of K8/K9: 54 n8 tiles, 18 for each
+# of the 3 consumer warpgroups (csrc/synthesis_core.cuh), as K2's
+MAX_FIELD_WIDTH = 8 * rm.FIELD_UNITS
+_STREAM_INDEX: Dict = {}  # widths, device -> (gather map, chunk sizes)
+
+
+def field_bwd_dims(w, n_blocks: int) -> Dict:
+    """K8's and K9's padded widths: K2's (``field_dims``: the first layer's
+    column products ``first``, the colour product's nc with w_sigma in
+    column H) with the head padded to 16 (headp, the width of K9's operand
+    dyh); ``fwd_bytes`` and ``bwd_bytes`` the two halves of
+    ``pack_field_bwd_stream``.  Raises above the kernels' widths."""
+    H, F = w["w_coord"].shape[1], w["w_feat"].shape[1]
+    d = rm.field_dims(3 + w["w_geo"].shape[0], H, F, n_blocks)
+    d["headp"] = round16(F + 3)
+    k0p, n0p, hp, nc, headp, NB = (d[k] for k in ("k0p", "n0p", "hp", "nc", "headp", "NB"))
+    if max(hp, nc, headp) > MAX_FIELD_WIDTH:
+        raise ValueError(f"the field backward kernels take products of at most "
+                         f"{MAX_FIELD_WIDTH} columns: hidden {H} pads to {hp} ({nc} with the "
+                         f"sigma column), the head {F + 3} to {headp}")
+    d["fwd_bytes"] = 2 * (k0p * n0p + n0p * hp + (NB - 1) * hp * hp + hp * nc + hp * headp)
+    d["bwd_bytes"] = 2 * (headp * hp + hp * hp + (NB - 1) * hp * hp + hp * n0p)
+    return d
+
+
+def field_bwd_stream_index(d):
+    """The gather map of ``pack_field_bwd_stream`` (int32, into
+    ``field_source`` and its trailing 0) and the bytes of each chunk.  The
+    stream holds, as ``chunk_images`` in the order the kernels consume them:
+
+      forward half (K8 walks it alone): K2's products (``field_index_mats``)
+          with neither omega nor freq folded: the first layer [coords | geo]
+          block-diagonal (k0p x n0p) in column products of ``d["first"]``,
+          w_net0 (n0p x hp), the NB-1 trunk layers (hp x hp), the colour
+          layer w_color_x (hp x nc) with w_sigma in column H, the head [rgb 3
+          | feat F] (hp x headp);
+      backward half (K9 walks it after the forward): W_head^T (headp x hp),
+          W_color_x^T (hp x hp, without w_sigma), W_net{NB-1}^T .. W_net1^T
+          (hp x hp), W_net0^T (hp x n0p) in column products of ``d["first"]``."""
+    H, hp, NB = d["H"], d["hp"], d["NB"]
+    fwd = [v for v, _ in rm.field_index_mats(d)]
+    n_first = len(d["first"])
+    net, color, head = fwd[n_first:n_first + NB], fwd[-2], fwd[-1]
+    _, zero = rm.field_source_offsets(d)
+    color_x = color[:, :hp].clone()
+    if H < hp:
+        color_x[:, H] = zero  # w_sigma's column
+    bwd = [head.t(), color_x.t()] + [net[i].t() for i in range(NB - 1, 0, -1)]
+    net0_t = net[0].t()
+    c0 = 0
+    for n in d["first"]:
+        bwd.append(net0_t[:, c0:c0 + n])
+        c0 += n
+    return rm.chunk_map(fwd + bwd)
+
+
+def pack_field_bwd_stream(w, d):
+    """Every weight K8 and K9 read, as one bf16 stream of chunk images (see
+    ``field_bwd_stream_index``; the first ``d["fwd_bytes"]`` are K8's), on
+    w's device: one gather of the field's own float32 weights through a map
+    built once per widths and device, rounded to bf16 once, so every value
+    is bit-equal to ``kernel_tables``' (and to its transposes).  The same
+    stream serves every image.  w: ``flat_weights``.  Returns (stream, the
+    bytes of each chunk)."""
+    dev = w["w_coord"].device
+    key = (d["n_in"], d["H"], d["F"], d["NB"], str(dev))
+    if key not in _STREAM_INDEX:
+        idx, sizes = field_bwd_stream_index(d)
+        _STREAM_INDEX[key] = (idx.to(dev), sizes)
+    idx, sizes = _STREAM_INDEX[key]
+    flat = torch.cat([rm.field_source(w), w["w_coord"].new_zeros(1)])
+    return flat.index_select(0, idx).to(torch.bfloat16), sizes
+
+
+def field_bwd_side_tables(w, freq_k, phase_k, d):
+    """K8's and K9's float32 tables beside the stream, zero-padded, in the C
+    order: b_first (n0p), b_net (NB, hp), freq*15+30 and phase (B, NB, nc),
+    w_color_d (3, nc) and w_sigma (hp) as bf16 values, b_color (nc),
+    b_sigma (1), b_head (headp) — ``kernel_tables``' values."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    B, NB, _ = freq_k.shape
+    n0p, hp, nc = d["n0p"], d["hp"], d["nc"]
+    return [
+        pad_to(torch.cat([w["b_coord"], w["b_geo"]]), (n0p,), f32),
+        pad_to(torch.stack([w[f"b_net{i}"] for i in range(NB)], 0), (NB, hp), f32),
+        pad_to(freq_k, (B, NB, nc), f32),
+        pad_to(phase_k, (B, NB, nc), f32),
+        pad_to(w["w_color"][:3].to(bf16), (3, nc), f32),
+        pad_to(w["w_sigma"][:, 0].to(bf16), (hp,), f32),
+        pad_to(w["b_color"], (nc,), f32),
+        w["b_sigma"].reshape(1).float().contiguous(),
+        pad_to(torch.cat([w["b_rgb"], w["b_feat"]]), (d["headp"],), f32),
+    ]
+
+
 def _check_rows(packed, num_steps):
     B, P, n_cols = packed.shape
     rm.check_packed_width(n_cols)
@@ -299,6 +394,7 @@ def field_stats_operands(w, packed, freq_k, phase_k, g_out, num_steps: int, exac
     """K8's host glue before the launch: the padded tables and the outputs,
     in the C order."""
     _check_rows(packed, num_steps)
+    field_bwd_dims(w, freq_k.shape[1])  # raises above the kernels' widths
     B, P, n_cols = packed.shape
     t, d = kernel_tables(w, freq_k, phase_k)
     sigma = torch.empty(B, P, dtype=torch.float32, device=packed.device)
@@ -386,6 +482,7 @@ def field_bwd_step_operands(w, packed, freq_k, phase_k, g_out, coef, dsigma, num
     images by ``_group``; the launches run in order on one stream, so each
     reuses them)."""
     _check_rows(packed, num_steps)
+    field_bwd_dims(w, freq_k.shape[1])  # raises above the kernels' widths
     B, P, n_cols = packed.shape
     t, d = kernel_tables(w, freq_k, phase_k)
     hp, n0p, headp, k0p, NB = d["hp"], d["n0p"], d["headp"], d["k0p"], d["NB"]
