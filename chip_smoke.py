@@ -687,10 +687,14 @@ def check_field_bwd(G, meta, cond, gcuda):
 
     bf16 = torch.bfloat16
     # narrow, exact sine: pointwise, with and without noise, both residual
-    # routings; hidden 40 pads to 48 channels
-    for hidden, noise, last_back in ((32, False, False), (32, True, False), (40, True, True),
-                                     (32, False, True)):
-        field, pk, zv, fr, ph, go, gd = _random_field_case(hidden, 4, noise, gcuda)
+    # routings; hidden 40 pads to 48 channels, 200 to 208 (26 n8 tiles: ragged
+    # column runs over the three warpgroups; a generator of its own keeps
+    # the draws of every other phase as they were)
+    g200 = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    for hidden, noise, last_back, gen in ((32, False, False, gcuda), (32, True, False, gcuda),
+                                          (40, True, True, gcuda), (32, False, True, gcuda),
+                                          (200, True, False, g200)):
+        field, pk, zv, fr, ph, go, gd = _random_field_case(hidden, 4, noise, gen)
         smx, gmx, errs, k9mx, _ = _bwd_compare(rb.flat_weights(field), pk, fr, ph, zv, go, gd, 32,
                                                not last_back, last_back, True)
         worst = max(errs, key=errs.get)
@@ -770,6 +774,16 @@ def check_field_bwd(G, meta, cond, gcuda):
         "amplifies a flip; autograd's forward runs the products in another order)")
     if smx > 5e-2 or gmx > 5e-2 or max(errs.values()) > 2e-2 or max(aerr.values()) > 5e-2:
         raise AssertionError("K8/K9 (full width) disagree with their references")
+    # two calls of each kernel, bit for bit (no atomics, fixed-order sums)
+    run8 = lambda: rb.field_stats_cuda(w, pk, fk, pk_, go, S, exact_sin=exact)
+    run9 = lambda: rb.field_bwd_step_cuda(w, pk, fk, pk_, go, coef, dsig, S, exact_sin=exact)
+    same8 = all(torch.equal(x, y) for x, y in zip(run8(), run8()))
+    (g1, f1, p1), (g2, f2, p2) = run9(), run9()
+    same9 = all(torch.equal(g1[k], g2[k]) for k in g1) and torch.equal(f1, f2) and torch.equal(p1, p2)
+    log(f"  two calls bit for bit: K8 {same8}, K9 {same9}")
+    if not (same8 and same9):
+        raise AssertionError("two K8 or K9 calls on the same inputs differ")
+    del g1, g2
     ms8 = cuda_ms(lambda: rb.field_stats_cuda(w, pk, fk, pk_, go, S, exact_sin=exact), 3)
     plain8 = cuda_ms(lambda: rb.field_stats_plain(w, pk, fk, pk_, go, S, exact_sin=exact), 1)
     ms9 = cuda_ms(lambda: rb.field_bwd_step_cuda(w, pk, fk, pk_, go, coef, dsig, S,
@@ -779,7 +793,7 @@ def check_field_bwd(G, meta, cond, gcuda):
     b8, b9 = field_bound(pk, go, meta, backward=1), field_bound(pk, go, meta, backward=2)
     # the reduction at K9's ragged widths: the first layer's narrow K (k0p)
     # and the 16-column-padded colour layer (hp + 16), at one launch's rows
-    _, dims = rb.kernel_tables(w, fk, pk_)
+    dims = rb.field_bwd_dims(w, fk.shape[1])
     rows = rb.IMAGES_PER_LAUNCH * pk.shape[1]
     rnd = lambda n: torch.randn(rows, n, generator=gcuda, device="cuda").to(bf16)
     cp = dims["hp"] + 16
@@ -792,10 +806,39 @@ def check_field_bwd(G, meta, cond, gcuda):
         f"{b9['bound_ms']:.3f} ms ({b9['bound_by']})")
     split = k9_split(w, pk, fk, pk_, go, coef, dsig, S, exact)
     log_k9_split(split)
-    ptx = ptxas_of("raymarch_bwd.cu")
+    lm = field_bwd_metrics(w, fk.shape[1])
     return (k2_train, dict(max_abs_err=smx, ms=ms8, plain_ms=plain8, **b8, **split.pop("k8"),
-                           ptxas=ptx),
-            dict(max_abs_err=k9mx, ms=ms9, plain_ms=plain9, **b9, split=split, ptxas=ptx))
+                           **lm),
+            dict(max_abs_err=k9mx, ms=ms9, plain_ms=plain9, **b9, split=split, **lm))
+
+
+def field_bwd_metrics(w, n_blocks):
+    """K8's and K9's layer metrics: ``pack_field_bwd_stream`` alone (inside
+    both kernels' times), the stream's bytes, the shared memory a CTA and
+    the ring as the C entry sizes them, and the ``ptxas`` line of
+    raymarch_bwd.cu (a spill, or a missing build log, fails the run)."""
+    import ctypes
+
+    from threedhumangan_tpu_torch import _build
+    from threedhumangan_tpu_torch.ops import raymarch_bwd as rb
+
+    d = rb.field_bwd_dims(w, n_blocks)
+    ring = (ctypes.c_int * 2)()
+    smem = _build.library().thgt_field_bwd_smem(d["k0p"], d["n0p"], d["hp"], d["nc"], d["headp"],
+                                                ctypes.cast(ring, ctypes.c_void_p))
+    out = dict(pack_ms=cuda_ms(lambda: rb.pack_field_bwd_stream(w, d), 3),
+               stream_bytes=d["fwd_bytes"] + d["bwd_bytes"], fwd_bytes=d["fwd_bytes"],
+               smem_bytes=smem, ring_stages=ring[0], stage_bytes=ring[1],
+               ptxas=ptxas_of("raymarch_bwd.cu"))
+    ptx = out["ptxas"]
+    log(f"  K8/K9 pack_field_bwd_stream {out['pack_ms']:.3f} ms ({out['stream_bytes']} bytes, K8 "
+        f"reads {out['fwd_bytes']}); {smem} bytes of shared memory a CTA, {ring[0]} ring stages "
+        f"of {ring[1]} bytes; ptxas: {ptx['registers']} registers, {ptx['spill_stores']} bytes "
+        f"spill stores, {ptx['spill_loads']} bytes spill loads, {ptx['wgmma_serialized']} "
+        f"serialized-wgmma warnings")
+    if ptx["spill_stores"] is None or ptx["spill_stores"] or ptx["spill_loads"]:
+        raise AssertionError(f"raymarch_bwd.cu spills or left no build log: {ptx}")
+    return out
 
 
 def k9_split(w, pk, fk, pk_, go, coef, dsig, S, exact):

@@ -11,10 +11,13 @@ here: the kernels' math is held against the JAX package through their
 plain versions (tests/test_torch_field_bwd.py) and on the card
 (chip_smoke.py)."""
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
+from threedhumangan_tpu_torch import _build
 from threedhumangan_tpu_torch.models.siren import CoordConcatSiren
 from threedhumangan_tpu_torch.ops import raymarch as rm
 from threedhumangan_tpu_torch.ops import raymarch_bwd as rb
@@ -197,3 +200,31 @@ def test_widths_above_the_cap_raise():
     g_out = torch.zeros(B, 4, 443)
     with pytest.raises(ValueError, match="at most 432"):
         rb.field_stats_cuda(w, packed, freq_k, phase_k, g_out, 16)
+
+
+@pytest.mark.parametrize("noise", [False, True])
+def test_operands_come_in_the_c_order(noise):
+    """``field_stats_operands`` hands the C entry its pointers in the order
+    of ``_build.SIGNATURES``: the inputs, the forward half of the stream,
+    the side tables, the outputs; and the ints the C entry checks."""
+    hidden, nb, R, S = 40, 3, 8, 16
+    w, fk, pk_ = _case(hidden, nb, seed=4)
+    rs = np.random.RandomState(4)
+    P, n_cols = R * S, 3 + G + 3 + noise
+    packed = torch.as_tensor(rs.randn(B, P, n_cols).astype(np.float32))
+    g_out = torch.as_tensor(rs.randn(B, R, hidden + 3).astype(np.float32))
+    d = rb.field_bwd_dims(w, nb)
+    stream, _ = rb.pack_field_bwd_stream(w, d)
+    tabs = rb.field_bwd_side_tables(w, fk, pk_, d)
+    ints = [B, P, S, n_cols, 3 + G, hidden, d["k0p"], d["n0p"], d["hp"], d["nc"], d["headp"], nb,
+            hidden + 3, 0]
+    n_ptr = lambda name: _build.SIGNATURES[name].count(ctypes.c_void_p) - 1  # less the stream
+    op = rb.field_stats_operands(w, packed, fk, pk_, g_out, S)
+    ops = op["ops"]
+    assert len(ops) == n_ptr("thgt_field_stats") == 14
+    assert torch.equal(ops[0], packed.to(torch.bfloat16)) and torch.equal(ops[1], g_out)
+    assert torch.equal(ops[2], stream[:d["fwd_bytes"] // 2])
+    assert op["stream_bytes"] == d["fwd_bytes"]
+    for got, ref in zip(ops[3:12], tabs):
+        assert torch.equal(got, ref)
+    assert ops[12].shape == ops[13].shape == (B, P) and op["ints"] == ints

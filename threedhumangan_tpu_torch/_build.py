@@ -45,27 +45,30 @@ SIGNATURES = {
     "thgt_raymarch_smem": [_I] * 5 + [_P],
     # pts, verts, dist, idx, B, P, V, stream
     "thgt_nn": [_P] * 4 + [_I] * 3 + [_P],
-    # packed (f32), z, the 14 tables of thgt_field_stats, out, depth, B, R, S,
+    # packed (f32), z, the 14 kernel_tables, out, depth, B, R, S,
     # n_cols, n_in, k0p, n0p, hp, n_blocks, out_width, headp, white_back,
     # last_back, exact_sin, stream
     "thgt_raymarch_unfolded": [_P] * 18 + [_I] * 14 + [_P],
     # packed (raw f32), z, verts, vfeat, skel, idx_out (or null), the 14
-    # tables, out, depth, B, R, S, n_cols, V, J, legacy, scaler, k0p, n0p,
+    # kernel_tables, out, depth, B, R, S, n_cols, V, J, legacy, scaler, k0p, n0p,
     # hp, n_blocks, out_width, headp, white_back, last_back, exact_sin, stream
     "thgt_raymarch_geo": [_P] * 22 + [_I] * 7 + [_F] + [_I] * 9 + [_P],
     # style, fixed, gab, in_w, in_b, weight stream, conv_b, sh_b, g_b, bt_b,
     # rgb_w, rgb_b, rgb_out, B, H, W, F, fp, hp, num_blocks, n_gab,
     # add_fixed, mod_mask, stream bytes, stream
     "thgt_synthesis": [_P] * 13 + [_I] * 10 + [ctypes.c_longlong, _P],
-    # packed, go, w_first, b_first, w_net0, w_net_stk, b_net, freq, phase,
-    # w_color_x, w_color_d, b_color, w_sigma, b_sigma, w_head, b_head, sigma,
-    # gdot, B, P, S, n_cols, n_in, k0p, n0p, hp, n_blocks, width, headp,
-    # exact_sin, stream
-    "thgt_field_stats": [_P] * 18 + [_I] * 12 + [_P],
+    # packed, go, weight stream (its forward half), b_first, b_net, freq,
+    # phase, w_color_d, w_sigma, b_color, b_sigma, b_head, sigma, gdot, B, P,
+    # S, n_cols, n_in, H, k0p, n0p, hp, nc, headp, n_blocks, width,
+    # exact_sin, stream bytes, stream
+    "thgt_field_stats": [_P] * 14 + [_I] * 14 + [ctypes.c_longlong, _P],
     # packed, go, coef, dsig, the 14 tables of thgt_field_stats, wT_head,
     # wT_color_x, wT_net_stk, wT_net0, x0, xs0, xsk, xcol, xc, du, dv, dcol,
     # dyh, U, V, VC, part, then the ints of thgt_field_stats, stream
     "thgt_field_bwd": [_P] * 35 + [_I] * 12 + [_P],
+    # k0p, n0p, hp, nc, headp, ring (2 ints out); returns K8's and K9's
+    # shared memory
+    "thgt_field_bwd_smem": [_I] * 5 + [_P],
     # X, Y, part, K, N, rows, chunk_rows, n_chunks, stream
     "thgt_wgrad": [_P] * 3 + [_I] * 5 + [_P],
     # tri, face, bary, zbuf, B, T, K, tiles_x, tile, x_step, y_step, span, stream

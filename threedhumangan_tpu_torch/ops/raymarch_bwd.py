@@ -25,6 +25,10 @@ packed inputs and the depth samples are no-grad data on every caller path.
 
 ``fused_field_render_bwd`` launches csrc/raymarch_bwd.cu on CUDA tensors
 and runs ``field_stats_plain`` / ``field_bwd_step_plain`` on CPU tensors.
+Both kernels read the field's own weights as one packed bf16 stream
+(``pack_field_bwd_stream``: the forward half, which K8 walks alone, then the
+transposes K9's backprop takes) beside small float32 tables
+(``field_bwd_side_tables``).
 ``FieldRender`` is the ``torch.autograd.Function``: K2 forward on folded
 tables, or K4 on the unfolded ones under ``fold_film=False`` (JAX
 raymarch.py:920-927), and this backward.  The tables,
@@ -390,20 +394,37 @@ def _launch(name, *args):
     _build.check(err, name)
 
 
-def field_stats_operands(w, packed, freq_k, phase_k, g_out, num_steps: int, exact_sin=False):
-    """K8's host glue before the launch: the padded tables and the outputs,
-    in the C order."""
+def _ints(d, B, P, num_steps, n_cols, exact_sin):
+    """The C entries' int arguments."""
+    return [B, P, num_steps, n_cols, d["n_in"], d["H"], d["k0p"], d["n0p"], d["hp"], d["nc"],
+            d["headp"], d["NB"], d["F"] + 3, int(exact_sin)]
+
+
+def _field_inputs(w, packed, num_steps, n_blocks):
+    """The widths of a call (``field_bwd_dims``); raises on inputs the
+    kernels do not take."""
     _check_rows(packed, num_steps)
-    field_bwd_dims(w, freq_k.shape[1])  # raises above the kernels' widths
+    d = field_bwd_dims(w, n_blocks)
+    if d["n_in"] != rm.INPUT_PACK - 3:
+        raise ValueError(f"the packed inputs carry {rm.INPUT_PACK - 3} field inputs, the field "
+                         f"takes {d['n_in']}")
+    return d
+
+
+def field_stats_operands(w, packed, freq_k, phase_k, g_out, num_steps: int, exact_sin=False):
+    """K8's host glue before the launch: the forward half of
+    ``pack_field_bwd_stream``, the side tables and the outputs, in the C
+    order."""
+    d = _field_inputs(w, packed, num_steps, freq_k.shape[1])
     B, P, n_cols = packed.shape
-    t, d = kernel_tables(w, freq_k, phase_k)
+    stream, _ = pack_field_bwd_stream(w, d)
+    fwd = stream[:d["fwd_bytes"] // 2]
     sigma = torch.empty(B, P, dtype=torch.float32, device=packed.device)
     gdot = torch.empty_like(sigma)
-    ops = ([packed.to(torch.bfloat16).contiguous(), g_out.float().contiguous()]
-           + [t[k] for k in KERNEL_TABLE_ORDER] + [sigma, gdot])
-    ints = [B, P, num_steps, n_cols, d["n_in"], d["k0p"], d["n0p"], d["hp"], d["NB"],
-            d["F"] + 3, d["headp"], int(exact_sin)]
-    return dict(d=d, ops=ops, ints=ints, dev=packed.device, sigma=sigma, gdot=gdot,
+    ops = ([packed.to(torch.bfloat16).contiguous(), g_out.float().contiguous(), fwd]
+           + field_bwd_side_tables(w, freq_k, phase_k, d) + [sigma, gdot])
+    return dict(d=d, ops=ops, ints=_ints(d, B, P, num_steps, n_cols, exact_sin),
+                stream_bytes=fwd.numel() * 2, dev=packed.device, sigma=sigma, gdot=gdot,
                 shape=(B, P // num_steps, num_steps))
 
 
@@ -414,7 +435,7 @@ def field_stats_body(op):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _launch("thgt_field_stats", *rm.cuda_ptrs(op["ops"], "field backward kernel"),
-                *op["ints"], stream)
+                *op["ints"], op["stream_bytes"], stream)
     launches_stats += 1
 
 
