@@ -204,15 +204,18 @@ def test_widths_above_the_cap_raise():
 
 @pytest.mark.parametrize("noise", [False, True])
 def test_operands_come_in_the_c_order(noise):
-    """``field_stats_operands`` hands the C entry its pointers in the order
-    of ``_build.SIGNATURES``: the inputs, the forward half of the stream,
-    the side tables, the outputs; and the ints the C entry checks."""
+    """``field_stats_operands`` and ``field_bwd_step_operands`` hand the C
+    entries their pointers in the order of ``_build.SIGNATURES``: the inputs,
+    the stream (K8: its forward half), the side tables, the outputs; and
+    the ints the C entries check."""
     hidden, nb, R, S = 40, 3, 8, 16
     w, fk, pk_ = _case(hidden, nb, seed=4)
     rs = np.random.RandomState(4)
     P, n_cols = R * S, 3 + G + 3 + noise
     packed = torch.as_tensor(rs.randn(B, P, n_cols).astype(np.float32))
     g_out = torch.as_tensor(rs.randn(B, R, hidden + 3).astype(np.float32))
+    coef = torch.as_tensor(rs.rand(B, R, S).astype(np.float32))
+    dsig = torch.as_tensor(rs.rand(B, R, S).astype(np.float32))
     d = rb.field_bwd_dims(w, nb)
     stream, _ = rb.pack_field_bwd_stream(w, d)
     tabs = rb.field_bwd_side_tables(w, fk, pk_, d)
@@ -228,3 +231,13 @@ def test_operands_come_in_the_c_order(noise):
     for got, ref in zip(ops[3:12], tabs):
         assert torch.equal(got, ref)
     assert ops[12].shape == ops[13].shape == (B, P) and op["ints"] == ints
+    op = rb.field_bwd_step_operands(w, packed, fk, pk_, g_out, coef, dsig, S)
+    b1, bufs = rb._group(op, 0)
+    assert b1 == B and len(op["ins"]) + 1 + len(op["tabs"]) + len(bufs) == n_ptr("thgt_field_bwd")
+    assert torch.equal(op["stream"], stream) and list(bufs) == list(rb._SAVED_ORDER)
+    assert torch.equal(op["ins"][2], coef.reshape(B, P)) and torch.equal(op["ins"][3], dsig.reshape(B, P))
+    rows, hp = B * P, d["hp"]
+    assert bufs["xcol"].shape == bufs["dcol"].shape == (rows, hp + 16)
+    assert bufs["dv"].shape == bufs["V"].shape == (nb, rows, hp)
+    assert bufs["part"].shape == (rows // 64, rb.SUM_SLOTS, d["n0p"] + 3 * hp * (nb + 1))
+    assert bufs["hsum"].shape == (rows // 64, d["headp"] + 1)

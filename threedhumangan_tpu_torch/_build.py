@@ -62,10 +62,10 @@ SIGNATURES = {
     # S, n_cols, n_in, H, k0p, n0p, hp, nc, headp, n_blocks, width,
     # exact_sin, stream bytes, stream
     "thgt_field_stats": [_P] * 14 + [_I] * 14 + [ctypes.c_longlong, _P],
-    # packed, go, coef, dsig, the 14 tables of thgt_field_stats, wT_head,
-    # wT_color_x, wT_net_stk, wT_net0, x0, xs0, xsk, xcol, xc, du, dv, dcol,
-    # dyh, U, V, VC, part, then the ints of thgt_field_stats, stream
-    "thgt_field_bwd": [_P] * 35 + [_I] * 12 + [_P],
+    # packed, go, coef, dsig, weight stream, the 9 tables of
+    # thgt_field_stats, x0, xs0, xsk, xcol, xc, du, dv, dcol, dyh, U, V, VC,
+    # part, hsum, then the ints of thgt_field_stats, stream bytes, stream
+    "thgt_field_bwd": [_P] * 28 + [_I] * 14 + [ctypes.c_longlong, _P],
     # k0p, n0p, hp, nc, headp, ring (2 ints out); returns K8's and K9's
     # shared memory
     "thgt_field_bwd_smem": [_I] * 5 + [_P],

@@ -687,6 +687,24 @@ extern "C" int thgt_field_stats(const bf16* packed, const float* go, const void*
   return launch<false>(a, wstream, stream_bytes, exact_sin, stream);
 }
 
+extern "C" int thgt_field_bwd(const bf16* packed, const float* go, const float* coef, const float* dsig,
+                              const void* wstream, const float* b_first, const float* b_net,
+                              const float* freq, const float* phase, const float* w_color_d,
+                              const float* w_sigma, const float* b_color, const float* b_sigma,
+                              const float* b_head, bf16* x0, bf16* xs0, bf16* xsk, bf16* xcol, bf16* xc,
+                              bf16* du, bf16* dv, bf16* dcol, bf16* dyh, float* U, float* V, float* VC,
+                              float* part, float* hsum, int B, int P, int S, int n_cols, int n_in, int H,
+                              int k0p, int n0p, int hp, int nc, int headp, int n_blocks, int width,
+                              int exact_sin, long long stream_bytes, cudaStream_t stream) {
+  Args a{packed, go, coef, dsig, nullptr, b_first, b_net, freq, phase, w_color_d, w_sigma, b_color,
+         b_sigma, b_head, nullptr, nullptr, x0, xs0, xsk, xcol, xc, du, dv, dcol, dyh, U, V, VC, part, hsum,
+         B, P, S, n_cols, n_in, H, k0p, n0p, hp, nc, headp, n_blocks, width, 0, 0};
+  const void* bufs[] = {x0, xs0, xsk, xcol, xc, du, dv, dcol, dyh, U, V, VC, part, hsum};
+  for (const void* p : bufs)
+    if (reinterpret_cast<size_t>(p) & 15) return (int)cudaErrorInvalidValue;
+  return launch<true>(a, wstream, stream_bytes, exact_sin, stream);
+}
+
 // The shared memory thgt_field_stats and thgt_field_bwd give a CTA at these
 // padded widths, in bytes (they refuse more than 232,448); ring[0] the
 // ring's stages, ring[1] the bytes of a stage.

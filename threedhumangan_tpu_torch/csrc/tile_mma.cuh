@@ -1,6 +1,6 @@
 // Tile-GEMM helpers of the field kernels K4, K5 (raymarch_unfolded.cu,
-// raymarch_geo.cu through field_unfolded.cuh), K8 and K9 (raymarch_bwd.cu;
-// K2's raymarch.cu takes its sine alone): one CTA holds a
+// raymarch_geo.cu through field_unfolded.cuh; K2's raymarch.cu and K8/K9's
+// raymarch_bwd.cu take its sine, its derivative and FiLM alone): one CTA holds a
 // 64-row activation tile in shared memory (bf16) and multiplies it by each
 // layer's weights on tensor cores through nvcuda::wmma bf16 16x16x16
 // fragments with float32 accumulation.

@@ -37,9 +37,10 @@ csrc/raymarch_geo.cu (``field_render_geo_cuda``) or runs
 ``field_render_geo_plain``.
 
 Each entry point launches its kernel on CUDA tensors (bf16 products only)
-and runs the plain version on CPU tensors.  The unfolded tables
-(``flat_weights``, ``film_tables``, ``kernel_tables``) and ``slab_forward``
-also serve the field backward (ops/raymarch_bwd.py).
+and runs the plain version on CPU tensors.  ``flat_weights``,
+``film_tables``, ``slab_forward`` and K2's index maps
+(``field_index_mats``) also serve the field backward
+(ops/raymarch_bwd.py).
 """
 
 from __future__ import annotations
@@ -547,9 +548,10 @@ KERNEL_TABLE_ORDER = ("w_first", "b_first", "w_net0", "w_net_stk", "b_net", "fre
 
 
 def kernel_tables(w, freq_k, phase_k):
-    """Zero-padded bf16/f32 operands of K4, K5, K8 and K9 (widths rounded up
-    to 16): the field's own weights (the first layers block-diagonal, omega
-    not folded) and the per-image freq/phase tables."""
+    """Zero-padded bf16/f32 operands of K4 and K5 (widths rounded up to 16):
+    the field's own weights (the first layers block-diagonal, omega not
+    folded) and the per-image freq/phase tables.  K8's and K9's packed
+    stream and side tables hold the same values (ops/raymarch_bwd.py)."""
     bf16, f32 = torch.bfloat16, torch.float32
     H = w["w_coord"].shape[1]
     G = w["w_geo"].shape[0]

@@ -46,8 +46,7 @@ import torch
 from threedhumangan_tpu_torch import _build
 from threedhumangan_tpu_torch.models.volume_rendering import ray_integration
 from threedhumangan_tpu_torch.ops import raymarch as rm
-from threedhumangan_tpu_torch.ops.raymarch import (KERNEL_TABLE_ORDER, film_tables,
-                                                  flat_weights, kernel_tables, layer_names,
+from threedhumangan_tpu_torch.ops.raymarch import (film_tables, flat_weights, layer_names,
                                                   slab_forward)
 from threedhumangan_tpu_torch.utils.misc import mm, pad_to, round16
 
@@ -496,39 +495,47 @@ def _wgrad(X, Y, stream):
     return out
 
 
+SUM_SLOTS = 4  # rows of column sums a K9 CTA writes, one per warp of a warpgroup
+
+
+def _n_ws(d):
+    """Columns of K9's per-warp sums: du (n0p), then 3 x hp for each trunk
+    layer and the colour layer (sum dv, sum dpre v, sum dpre)."""
+    return d["n0p"] + 3 * d["hp"] * (d["NB"] + 1)
+
+
+def _n_part(d):
+    """Columns of an image's column sums: K9's per-warp ones, the head's
+    bias grads (headp) and b_sigma's."""
+    return _n_ws(d) + d["headp"] + 1
+
+
 def field_bwd_step_operands(w, packed, freq_k, phase_k, g_out, coef, dsigma, num_steps: int,
                             exact_sin=False):
-    """K9's host glue before its launches: the padded tables, the transposed
-    weights, the inputs and one launch's buffers (flat, shaped per group of
-    images by ``_group``; the launches run in order on one stream, so each
-    reuses them)."""
-    _check_rows(packed, num_steps)
-    field_bwd_dims(w, freq_k.shape[1])  # raises above the kernels' widths
+    """K9's host glue before its launches: ``pack_field_bwd_stream``, the
+    side tables, the inputs and one launch's buffers (flat, shaped per
+    group of images by ``_group``; the launches run in order on one stream,
+    so each reuses them)."""
+    d = _field_inputs(w, packed, num_steps, freq_k.shape[1])
     B, P, n_cols = packed.shape
-    t, d = kernel_tables(w, freq_k, phase_k)
-    hp, n0p, headp, k0p, NB = d["hp"], d["n0p"], d["headp"], d["k0p"], d["NB"]
+    hp, n0p, headp, NB = d["hp"], d["n0p"], d["headp"], d["NB"]
     bf16, f32, dev = torch.bfloat16, torch.float32, packed.device
     cap = min(B, IMAGES_PER_LAUNCH) * P  # rows of one launch at most
-    sizes = dict(x0=k0p, xs0=n0p, xsk=max(NB - 1, 1) * hp, xcol=hp + 16, xc=hp, du=n0p,
+    tiles = cap // ROWS_PER_CTA
+    sizes = dict(x0=d["k0p"], xs0=n0p, xsk=max(NB - 1, 1) * hp, xcol=hp + 16, xc=hp, du=n0p,
                  dv=NB * hp, dcol=hp + 16, dyh=headp)
     flat = {k: torch.empty(cap * n, dtype=bf16, device=dev) for k, n in sizes.items()}
     flat.update(U=torch.empty(cap * n0p, dtype=f32, device=dev),
                 V=torch.empty(cap * NB * hp, dtype=f32, device=dev),
                 VC=torch.empty(cap * hp, dtype=f32, device=dev),
-                part=torch.empty(cap // ROWS_PER_CTA * _n_part(d), dtype=f32, device=dev))
-    wt = [t["w_head"].t().contiguous(), t["w_color_x"].t().contiguous(),
-          t["w_net_stk"].transpose(1, 2).contiguous(), t["w_net0"].t().contiguous()]
+                part=torch.empty(tiles * SUM_SLOTS * _n_ws(d), dtype=f32, device=dev),
+                hsum=torch.empty(tiles * (headp + 1), dtype=f32, device=dev))
+    stream, _ = pack_field_bwd_stream(w, d)
     ins = [packed.to(bf16).contiguous(), g_out.float().contiguous(),
            coef.reshape(B, P).float().contiguous(), dsigma.reshape(B, P).float().contiguous()]
-    ints = [P, num_steps, n_cols, d["n_in"], k0p, n0p, hp, NB, d["F"] + 3, headp, int(exact_sin)]
-    return dict(d=d, B=B, P=P, dev=dev, t=t, wt=wt, ins=ins, flat=flat, ints=ints,
-                names=list(w))
-
-
-def _n_part(d):
-    """Columns of K9's per-CTA sums: du, 3 x hp a trunk layer and the colour
-    layer (sum dv, sum dpre v, sum dpre), the head's bias grads, b_sigma."""
-    return d["n0p"] + 3 * d["hp"] * (d["NB"] + 1) + d["headp"] + 1
+    return dict(d=d, B=B, P=P, S=num_steps, n_cols=n_cols, exact_sin=exact_sin, dev=dev,
+                stream=stream, tabs=field_bwd_side_tables(w, freq_k, phase_k, d), ins=ins,
+                flat=flat, names=list(w))
 
 
 def _group(op, b0):
@@ -549,12 +556,13 @@ def _group(op, b0):
                 xc=v("xc", rows, hp), du=v("du", rows, d["n0p"]), dv=v("dv", NB, rows, hp),
                 dcol=v("dcol", rows, hp + 16), dyh=v("dyh", rows, d["headp"]),
                 U=v("U", rows, d["n0p"]), V=v("V", NB, rows, hp), VC=v("VC", rows, hp),
-                part=v("part", rows // ROWS_PER_CTA, _n_part(d)))
+                part=v("part", rows // ROWS_PER_CTA, SUM_SLOTS, _n_ws(d)),
+                hsum=v("hsum", rows // ROWS_PER_CTA, d["headp"] + 1))
     return b1, bufs
 
 
 _SAVED_ORDER = ("x0", "xs0", "xsk", "xcol", "xc", "du", "dv", "dcol", "dyh", "U", "V", "VC",
-                "part")
+                "part", "hsum")
 
 
 def field_bwd_step_body(op, b0):
@@ -562,14 +570,16 @@ def field_bwd_step_body(op, b0):
     ``field_bwd_step_operands``."""
     global launches_bwd
     b1, bufs = _group(op, b0)
-    t, dev = op["t"], op["dev"]
-    tabs = [t[k] for k in KERNEL_TABLE_ORDER]
-    tabs[5], tabs[6] = t["freq"][b0:b1], t["phase"][b0:b1]
-    args = [x[b0:b1] for x in op["ins"]] + tabs + op["wt"] + [bufs[k] for k in _SAVED_ORDER]
+    dev = op["dev"]
+    tabs = list(op["tabs"])
+    tabs[2], tabs[3] = tabs[2][b0:b1], tabs[3][b0:b1]  # this group's freq and phase
+    args = ([x[b0:b1] for x in op["ins"]] + [op["stream"]] + tabs
+            + [bufs[k] for k in _SAVED_ORDER])
+    ints = _ints(op["d"], b1 - b0, op["P"], op["S"], op["n_cols"], op["exact_sin"])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _launch("thgt_field_bwd", *rm.cuda_ptrs(args, "field backward kernel"), b1 - b0,
-                *op["ints"], stream)
+        _launch("thgt_field_bwd", *rm.cuda_ptrs(args, "field backward kernel"), *ints,
+                op["stream"].numel() * 2, stream)
     launches_bwd += 1
 
 
@@ -591,9 +601,12 @@ def field_bwd_step_products(op, b0):
 
 
 def field_bwd_step_partials(op, b0):
-    """One launch's column sums per image, (images, n_part), in a fixed order."""
+    """One launch's column sums per image, (images, n_part), each summed over
+    the image's CTAs and warps in a fixed order."""
     b1, bufs = _group(op, b0)
-    return bufs["part"].reshape(b1 - b0, -1, _n_part(op["d"])).sum(1)
+    n = b1 - b0
+    return torch.cat([bufs["part"].reshape(n, -1, _n_ws(op["d"])).sum(1),
+                      bufs["hsum"].reshape(n, -1, op["d"]["headp"] + 1).sum(1)], 1)
 
 
 def field_bwd_step_reduce(op, gw, part):
