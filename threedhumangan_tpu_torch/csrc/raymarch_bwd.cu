@@ -315,12 +315,10 @@ __global__ void __launch_bounds__(kThreads, 1) field_bwd_kernel(Args a) {
     }
   }
   const int cp = hp + 16;  // columns of the colour layer's operands
-  if constexpr (kBwd) {
-    finish_tile(a.x0 + g0 * a.k0p, a.k0p, t1, ldi, a.k0p);
-  } else {
+  if constexpr (!kBwd) {
     consumer_sync();
-  }
-  if constexpr (kBwd) {
+  } else {
+    finish_tile(a.x0 + g0 * a.k0p, a.k0p, t1, ldi, a.k0p);
     // the 16 columns past hp of the colour operands: [dirs | 0] and [dsigma | 0]
     for (int e = tid; e < kRows * 16; e += kConsumers) {
       const int r = e >> 4, c = e & 15;
