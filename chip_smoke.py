@@ -10,11 +10,14 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
   2. build    — nvcc builds K1-K11 and the weight-gradient reduction of K9
                 and K11 from threedhumangan_tpu_torch/csrc, one process per
                 source.
-  3. check    — K1-K3 against their plain PyTorch versions at the generation
-                slice's shapes (and K2/K3 pointwise at a narrow width, K2 at
-                S 4-64), with the tolerance and its reason; two K2 calls bit
-                for bit; kernel, plain and bound times; K2's weight pack,
-                ptxas line, shared-memory budget and L2 stream.
+  3. check    — K1-K6 against their plain PyTorch versions at the generation
+                slice's shapes (and K2-K5 pointwise at a narrow width, K2 at
+                S 4-64; K4 and K5 at full width by statistics, K5 and K6
+                with 100% index agreement), with the tolerance and its
+                reason; two K2, K4 and K5 calls bit for bit; kernel, plain
+                and bound times; the weight pack, ptxas line (K4/K5: a spill
+                fails the run), shared-memory budget of K2, K4 and K5, and
+                K2's L2 stream.
   4. generate — MAP3DBN512L generation at batch 8 in bf16 with seeded random
                 weights: 2 warm-up + 5 timed batches through
                 ``generator_forward``, per-stage ms/batch, imgs/s; the output
@@ -806,17 +809,18 @@ def check_field_bwd(G, meta, cond, gcuda):
         f"{b9['bound_ms']:.3f} ms ({b9['bound_by']})")
     split = k9_split(w, pk, fk, pk_, go, coef, dsig, S, exact)
     log_k9_split(split)
-    lm = field_bwd_metrics(w, fk.shape[1])
+    lm = field_core_metrics(w, fk.shape[1], "raymarch_bwd.cu")
     return (k2_train, dict(max_abs_err=smx, ms=ms8, plain_ms=plain8, **b8, **split.pop("k8"),
                            **lm),
             dict(max_abs_err=k9mx, ms=ms9, plain_ms=plain9, **b9, split=split, **lm))
 
 
-def field_bwd_metrics(w, n_blocks):
-    """K8's and K9's layer metrics: ``pack_field_bwd_stream`` alone (inside
-    both kernels' times), the stream's bytes, the shared memory a CTA and
-    the ring as the C entry sizes them, and the ``ptxas`` line of
-    raymarch_bwd.cu (a spill, or a missing build log, fails the run)."""
+def field_core_metrics(w, n_blocks, source, forward_only=False):
+    """Layer metrics of a kernel on csrc/field_core.cuh (K4, K5, K8, K9):
+    ``pack_field_bwd_stream`` alone (inside the kernel's time; K4 and K5
+    pack the forward half alone), the stream's bytes, the shared memory a
+    CTA and the ring as the C entry sizes them, and the ``ptxas`` line of
+    its source (a spill, or a missing build log, fails the run)."""
     import ctypes
 
     from threedhumangan_tpu_torch import _build
@@ -826,18 +830,18 @@ def field_bwd_metrics(w, n_blocks):
     ring = (ctypes.c_int * 2)()
     smem = _build.library().thgt_field_bwd_smem(d["k0p"], d["n0p"], d["hp"], d["nc"], d["headp"],
                                                 ctypes.cast(ring, ctypes.c_void_p))
-    out = dict(pack_ms=cuda_ms(lambda: rb.pack_field_bwd_stream(w, d), 3),
-               stream_bytes=d["fwd_bytes"] + d["bwd_bytes"], fwd_bytes=d["fwd_bytes"],
-               smem_bytes=smem, ring_stages=ring[0], stage_bytes=ring[1],
-               ptxas=ptxas_of("raymarch_bwd.cu"))
+    out = dict(pack_ms=cuda_ms(lambda: rb.pack_field_bwd_stream(w, d, forward_only), 3),
+               stream_bytes=d["fwd_bytes"] + (0 if forward_only else d["bwd_bytes"]),
+               fwd_bytes=d["fwd_bytes"], smem_bytes=smem, ring_stages=ring[0], stage_bytes=ring[1],
+               ptxas=ptxas_of(source))
     ptx = out["ptxas"]
-    log(f"  K8/K9 pack_field_bwd_stream {out['pack_ms']:.3f} ms ({out['stream_bytes']} bytes, K8 "
-        f"reads {out['fwd_bytes']}); {smem} bytes of shared memory a CTA, {ring[0]} ring stages "
-        f"of {ring[1]} bytes; ptxas: {ptx['registers']} registers, {ptx['spill_stores']} bytes "
-        f"spill stores, {ptx['spill_loads']} bytes spill loads, {ptx['wgmma_serialized']} "
+    log(f"  {source}: pack_field_bwd_stream {out['pack_ms']:.3f} ms ({out['stream_bytes']} bytes, "
+        f"the forward half {out['fwd_bytes']}); {smem} bytes of shared memory a CTA, {ring[0]} ring "
+        f"stages of {ring[1]} bytes; ptxas: {ptx['registers']} registers, {ptx['spill_stores']} "
+        f"bytes spill stores, {ptx['spill_loads']} bytes spill loads, {ptx['wgmma_serialized']} "
         f"serialized-wgmma warnings")
     if ptx["spill_stores"] is None or ptx["spill_stores"] or ptx["spill_loads"]:
-        raise AssertionError(f"raymarch_bwd.cu spills or left no build log: {ptx}")
+        raise AssertionError(f"{source} spills or left no build log: {ptx}")
     return out
 
 
@@ -1356,6 +1360,11 @@ def check_unfolded(gen, inp, geo_feats, meta, gcuda):
                                                    compute_dtype=bf16, **kw)
     (o_k, d_k), (o_p, d_p) = run_k(), run_p()
     mx = check_render_stats(f"K4 unfolded field full width {tuple(o_k.shape)}", o_k, d_k, o_p, d_p)
+    o_2, d_2 = run_k()
+    same = torch.equal(o_k, o_2) and torch.equal(d_k, d_2)
+    log(f"  two K4 calls on the same inputs bit for bit: {same}")
+    if not same:
+        raise AssertionError("two K4 calls on the same inputs differ")
     o_2, _ = rm.fused_field_render(gen.neural_field, packed, inp["freq"], inp["phase"],
                                    inp["z_vals"], S, compute_dtype=bf16, **kw)
     fmx, fmean, fp99 = diff_stats(o_k, o_2)
@@ -1364,9 +1373,10 @@ def check_unfolded(gen, inp, geo_feats, meta, gcuda):
     ms = cuda_ms(run_k, 3)
     plain_ms = cuda_ms(run_p, 1)
     bd = field_bound(packed, o_k, meta, backward=0)
-    log(f"  time: kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound {bd['bound_ms']:.3f} ms "
-        f"({bd['bound_by']})")
-    return dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms, **bd)
+    log(f"  time: kernel {ms:.3f} ms (with its weight pack)  plain {plain_ms:.3f} ms  bound "
+        f"{bd['bound_ms']:.3f} ms ({bd['bound_by']})")
+    lm = field_core_metrics(w, meta["neural_field_blocks"], "raymarch_unfolded.cu", True)
+    return dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms, **bd, **lm)
 
 
 def _geo_case(inp, B, samples):
@@ -1440,12 +1450,20 @@ def check_geo_fused(gen, inp, meta, gcuda):
     run_k = lambda: rm.field_render_geo_cuda(*args, legacy_mode=legacy, **kw)
     run_p = lambda: rm.field_render_geo_plain(*args, compute_dtype=torch.bfloat16,
                                               legacy_mode=legacy, **kw)
+    runs = [rm.field_render_geo_cuda(*args, legacy_mode=legacy, return_index=True, **kw)
+            for _ in range(2)]
+    same = all(torch.equal(x, y) for x, y in zip(*runs))
+    log(f"  two K5 calls on the same inputs bit for bit (map, depth, nearest vertex): {same}")
+    if not same:
+        raise AssertionError("two K5 calls on the same inputs differ")
+    del runs
     ms = cuda_ms(run_k, 3)
     plain_ms = cuda_ms(run_p, 1)
     bd = geo_bound(packed, o_k, meta, full["verts"].shape[1])
-    log(f"  time: kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound {bd['bound_ms']:.3f} ms "
-        f"({bd['bound_by']})")
-    return dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms, **bd)
+    log(f"  time: kernel {ms:.3f} ms (with its weight pack)  plain {plain_ms:.3f} ms  bound "
+        f"{bd['bound_ms']:.3f} ms ({bd['bound_by']})")
+    lm = field_core_metrics(w, meta["neural_field_blocks"], "raymarch_geo.cu", True)
+    return dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms, **bd, **lm)
 
 
 def check_train_unfolded(G, meta, cond, gcuda):
@@ -1824,9 +1842,11 @@ def main():
              **k3),
         dict(name="K7 rasterizer tile z-test", route="cuda", source=src + "rasterize.cu",
              replaces="threedhumangan_tpu/ops/rasterize.py:335", launches=tc["K7"], **k7),
-        dict(name="K8 field backward stats", route="cuda", source=src + "raymarch_bwd.cu",
+        dict(name="K8 field backward stats", route="cuda", source=src + "field_core.cuh",
+             entry_source=src + "raymarch_bwd.cu",
              replaces="threedhumangan_tpu/ops/raymarch_bwd.py:132", launches=tc["K8"], **k8),
-        dict(name="K9 field backward step", route="cuda", source=src + "raymarch_bwd.cu",
+        dict(name="K9 field backward step", route="cuda", source=src + "field_core.cuh",
+             entry_source=src + "raymarch_bwd.cu",
              replaces="threedhumangan_tpu/ops/raymarch_bwd.py:154", launches=tc["K9"],
              reduction_source=src + "wgrad.cu",
              weight_gradient_reduction_launches=tc["K9 weight-gradient reduction"], **k9),
@@ -1841,10 +1861,12 @@ def main():
              weight_gradient_reduction_launches=fc["K11 weight-gradient reduction"],
              case="spatial with the fixed row", rank1=hb["rank1"]["k11"],
              **hb["spatial"]["k11"]),
-        dict(name="K4 unfolded field render", route="cuda", source=src + "raymarch_unfolded.cu",
+        dict(name="K4 unfolded field render", route="cuda", source=src + "field_core.cuh",
+             entry_source=src + "raymarch_unfolded.cu",
              replaces="threedhumangan_tpu/ops/raymarch.py:149",
              launches=sel_runs["K4"]["counts"]["K4"], training_shapes=k4_train, **k4),
-        dict(name="K5 geo-fused field render", route="cuda", source=src + "raymarch_geo.cu",
+        dict(name="K5 geo-fused field render", route="cuda", source=src + "field_core.cuh",
+             entry_source=src + "raymarch_geo.cu",
              replaces="threedhumangan_tpu/ops/raymarch.py:1037",
              launches=sel_runs["K5"]["counts"]["K5"], training_shapes=k5_train, **k5),
         dict(name="K6 1-NN search", route="cuda", source=src + "knn.cu",

@@ -11,12 +11,12 @@ package runs as Pallas kernels:
   ops/geo.py               K1  1-NN geo features      csrc/geo.cu
   ops/raymarch.py          K2  folded field render    csrc/raymarch.cu
   ops/synthesis_kernel.py  K3  fused SPADE synthesis  csrc/synthesis.cu
-  ops/raymarch.py          K4  unfolded field render  csrc/raymarch_unfolded.cu
-                           K5  geo-fused field render csrc/raymarch_geo.cu
+  ops/raymarch.py          K4  unfolded field render  csrc/raymarch_unfolded.cu (+ field_core.cuh)
+                           K5  geo-fused field render csrc/raymarch_geo.cu (+ field_core.cuh)
   ops/knn.py               K6  1-NN search            csrc/knn.cu
   ops/rasterize.py         K7  tile rasterizer        csrc/rasterize.cu
-  ops/raymarch_bwd.py      K8  field-backward stats   csrc/raymarch_bwd.cu
-                           K9  field-backward step    csrc/raymarch_bwd.cu
+  ops/raymarch_bwd.py      K8  field-backward stats   csrc/raymarch_bwd.cu (+ field_core.cuh)
+                           K9  field-backward step    csrc/raymarch_bwd.cu (+ field_core.cuh)
   ops/synthesis_train.py   K10 SPADE half-block fwd   csrc/synthesis_train.cu
                            K11 SPADE half-block bwd   csrc/synthesis_train.cu
 

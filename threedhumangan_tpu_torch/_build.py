@@ -45,14 +45,16 @@ SIGNATURES = {
     "thgt_raymarch_smem": [_I] * 5 + [_P],
     # pts, verts, dist, idx, B, P, V, stream
     "thgt_nn": [_P] * 4 + [_I] * 3 + [_P],
-    # packed (f32), z, the 14 kernel_tables, out, depth, B, R, S,
-    # n_cols, n_in, k0p, n0p, hp, n_blocks, out_width, headp, white_back,
-    # last_back, exact_sin, stream
-    "thgt_raymarch_unfolded": [_P] * 18 + [_I] * 14 + [_P],
-    # packed (raw f32), z, verts, vfeat, skel, idx_out (or null), the 14
-    # kernel_tables, out, depth, B, R, S, n_cols, V, J, legacy, scaler, k0p, n0p,
-    # hp, n_blocks, out_width, headp, white_back, last_back, exact_sin, stream
-    "thgt_raymarch_geo": [_P] * 22 + [_I] * 7 + [_F] + [_I] * 9 + [_P],
+    # packed (f32), z, weight stream (its forward half), b_first, b_net,
+    # freq, phase, w_color_d, w_sigma, b_color, b_sigma, b_head, out, depth,
+    # the 14 ints of thgt_field_stats, white_back, last_back, stream bytes,
+    # stream
+    "thgt_raymarch_unfolded": [_P] * 14 + [_I] * 16 + [ctypes.c_longlong, _P],
+    # packed (raw f32), z, verts, vfeat, skel, idx_out (or null), weight
+    # stream (its forward half), the 9 tables and the outputs of
+    # thgt_raymarch_unfolded, its 16 ints, V, J, legacy, scaler, stream
+    # bytes, stream
+    "thgt_raymarch_geo": [_P] * 18 + [_I] * 19 + [_F, ctypes.c_longlong, _P],
     # style, fixed, gab, in_w, in_b, weight stream, conv_b, sh_b, g_b, bt_b,
     # rgb_w, rgb_b, rgb_out, B, H, W, F, fp, hp, num_blocks, n_gab,
     # add_fixed, mod_mask, stream bytes, stream
@@ -66,8 +68,8 @@ SIGNATURES = {
     # thgt_field_stats, x0, xs0, xsk, xcol, xc, du, dv, dcol, dyh, U, V, VC,
     # part, hsum, then the ints of thgt_field_stats, stream bytes, stream
     "thgt_field_bwd": [_P] * 28 + [_I] * 14 + [ctypes.c_longlong, _P],
-    # k0p, n0p, hp, nc, headp, ring (2 ints out); returns K8's and K9's
-    # shared memory
+    # k0p, n0p, hp, nc, headp, ring (2 ints out); returns the shared memory
+    # of K4, K5, K8 and K9 (one layout)
     "thgt_field_bwd_smem": [_I] * 5 + [_P],
     # X, Y, part, K, N, rows, chunk_rows, n_chunks, stream
     "thgt_wgrad": [_P] * 3 + [_I] * 5 + [_P],

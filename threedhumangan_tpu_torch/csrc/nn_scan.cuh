@@ -1,4 +1,4 @@
-// The 1-NN scan shared by K1 (geo.cu), K6 (knn.cu) and K5 (raymarch_geo.cu).
+// The 1-NN scan shared by K1 (geo.cu), K6 (knn.cu) and K5 (field_core.cuh).
 //
 // The squared distance is formed elementwise, ((px-vx)^2 + (py-vy)^2) +
 // (pz-vz)^2, with __fsub_rn/__fmul_rn/__fadd_rn: every op rounded once and

@@ -45,7 +45,7 @@
 #include <stdint.h>
 
 #include "synthesis_core.cuh"
-#include "tile_mma.cuh"  // thgt::fast_sin (the JAX package's sine)
+#include "siren_math.cuh"  // thgt::fast_sin (the JAX package's sine)
 
 namespace {
 

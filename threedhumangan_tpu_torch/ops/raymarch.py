@@ -26,15 +26,17 @@ takes it when ``fold_film`` is off and for a field with fewer than 2 trunk
 blocks (JAX raymarch.py:341-355).  The packed inputs stay float32: their
 product columns are rounded to bf16 at the product, the noise column is
 added to sigma in float32.  ``field_render_unfolded_cuda`` launches
-csrc/raymarch_unfolded.cu, ``field_render_unfolded_plain`` is
-``slab_forward`` then ``ray_integration``.
+csrc/raymarch_unfolded.cu (K8's forward with K2's composite, csrc/
+field_core.cuh) on the forward half of the field backward's weight stream
+(ops/raymarch_bwd.py::pack_field_bwd_stream); ``field_render_unfolded_plain``
+is ``slab_forward`` then ``ray_integration``.
 
 K5 replaces ``_raymarch_geo_kernel``: K4 with the 31 geo columns computed
 from the raw points inside the kernel (``geo_slab``: joint distances, the
 1-NN over the posed vertices, the winner's [inverse-FK 16; T-pose 3] row,
 canonicalisation).  ``fused_field_render_geo`` launches
-csrc/raymarch_geo.cu (``field_render_geo_cuda``) or runs
-``field_render_geo_plain``.
+csrc/raymarch_geo.cu (``field_render_geo_cuda``, K4's kernel with the scan
+in its prologue) or runs ``field_render_geo_plain``.
 
 Each entry point launches its kernel on CUDA tensors (bf16 products only)
 and runs the plain version on CPU tensors.  ``flat_weights``,
@@ -541,50 +543,6 @@ def _render_unfolded_plain(w, slabs, B, R, freq_k, phase_k, z_vals, S, white_bac
     return out, depth
 
 
-# kernel_tables keys in the order of the CUDA entry points' table arguments
-KERNEL_TABLE_ORDER = ("w_first", "b_first", "w_net0", "w_net_stk", "b_net", "freq", "phase",
-                      "w_color_x", "w_color_d", "b_color", "w_sigma", "b_sigma", "w_head",
-                      "b_head")
-
-
-def kernel_tables(w, freq_k, phase_k):
-    """Zero-padded bf16/f32 operands of K4 and K5 (widths rounded up to 16):
-    the field's own weights (the first layers block-diagonal, omega not
-    folded) and the per-image freq/phase tables.  K8's and K9's packed
-    stream and side tables hold the same values (ops/raymarch_bwd.py)."""
-    bf16, f32 = torch.bfloat16, torch.float32
-    H = w["w_coord"].shape[1]
-    G = w["w_geo"].shape[0]
-    F = w["w_feat"].shape[1]
-    B, NB, _ = freq_k.shape
-    n_in = 3 + G
-    k0p, n0p, hp, headp = round16(n_in), round16(2 * H), round16(H), round16(F + 3)
-    first = w["w_coord"].new_zeros(n_in, 2 * H)
-    first[:3, :H] = w["w_coord"]
-    first[3:, H:] = w["w_geo"]
-    stk = (torch.stack([w[f"w_net{i}"] for i in range(1, NB)], 0) if NB > 1
-           else w["w_coord"].new_zeros(1, H, H))
-    head = torch.cat([w["w_rgb"], w["w_feat"]], 1)
-    t = dict(
-        w_first=pad_to(first, (k0p, n0p), bf16),
-        b_first=pad_to(torch.cat([w["b_coord"], w["b_geo"]]), (n0p,), f32),
-        w_net0=pad_to(w["w_net0"], (n0p, hp), bf16),
-        w_net_stk=pad_to(stk, (max(NB - 1, 1), hp, hp), bf16),
-        b_net=pad_to(torch.stack([w[f"b_net{i}"] for i in range(NB)], 0), (NB, hp), f32),
-        freq=pad_to(freq_k, (B, NB, hp), f32),
-        phase=pad_to(phase_k, (B, NB, hp), f32),
-        w_color_x=pad_to(w["w_color"][3:], (hp, hp), bf16),
-        w_color_d=pad_to(w["w_color"][:3].to(bf16), (3, hp), f32),
-        b_color=pad_to(w["b_color"], (hp,), f32),
-        w_sigma=pad_to(w["w_sigma"][:, 0].to(bf16), (hp,), f32),
-        b_sigma=w["b_sigma"].reshape(1).float().contiguous(),
-        w_head=pad_to(head, (hp, headp), bf16),
-        b_head=pad_to(torch.cat([w["b_rgb"], w["b_feat"]]), (headp,), f32),
-    )
-    dims = dict(H=H, F=F, NB=NB, n_in=n_in, k0p=k0p, n0p=n0p, hp=hp, headp=headp)
-    return t, dims
-
-
 def cuda_ptrs(ts, what: str = "field kernel"):
     """Data pointers of contiguous CUDA tensors (raises on any other)."""
     for t in ts:
@@ -596,36 +554,64 @@ def cuda_ptrs(ts, what: str = "field kernel"):
 def _check_tiling(B, P, num_steps, z_vals):
     S = num_steps
     R = P // S
-    if P != R * S or ROWS_PER_CTA % S or R % (ROWS_PER_CTA // S):
-        raise ValueError(f"field kernel needs num_steps dividing {ROWS_PER_CTA} and "
-                         f"rays divisible by {ROWS_PER_CTA} // num_steps (R={R}, S={S})")
+    if P != R * S or S < 4 or ROWS_PER_CTA % S or R % (ROWS_PER_CTA // S):
+        raise ValueError(f"field kernel needs num_steps a power of two in [4, {ROWS_PER_CTA}] "
+                         f"and rays divisible by {ROWS_PER_CTA} // num_steps (R={R}, S={S})")
     if tuple(z_vals.shape) != (B, R, S):
         raise ValueError(f"z_vals: expected {(B, R, S)}, got {tuple(z_vals.shape)}")
     return R
+
+
+def _render_outputs(B, R, d, dev):
+    return (torch.empty(B, R, d["F"] + 3, dtype=torch.float32, device=dev),
+            torch.empty(B, R, 1, dtype=torch.float32, device=dev))
+
+
+def _stream_handle(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def field_render_unfolded_operands(w, packed, freq_k, phase_k, z_vals, num_steps: int,
+                                   white_back: bool = False, last_back: bool = False,
+                                   exact_sin: bool = False):
+    """K4's host glue before its launch, in the C order of
+    ``thgt_raymarch_unfolded``: the float32 packed rows and z, the forward
+    half of the field backward's weight stream with its side tables
+    (``raymarch_bwd.field_forward_operands``, as K8 reads them), the
+    outputs; then the ints.  Raises on inputs the kernel does not take."""
+    from threedhumangan_tpu_torch.ops import raymarch_bwd as rb  # it imports this module
+
+    B, P, n_cols = packed.shape
+    check_packed_width(n_cols)
+    R = _check_tiling(B, P, num_steps, z_vals)
+    d, fwd = rb.field_forward_operands(w, freq_k, phase_k)
+    out, depth = _render_outputs(B, R, d, packed.device)
+    ops = [packed.float().contiguous(), z_vals.float().contiguous()] + fwd + [out, depth]
+    ints = rb.kernel_ints(d, B, P, num_steps, n_cols, exact_sin) + [int(white_back),
+                                                                    int(last_back)]
+    return dict(d=d, ops=ops, ints=ints, stream_bytes=fwd[0].numel() * 2, dev=packed.device,
+                out=out, depth=depth)
+
+
+def field_render_unfolded_body(op):
+    """Launch K4's kernel on the operands of ``field_render_unfolded_operands``."""
+    global launches_unfolded
+    dev = op["dev"]
+    with torch.cuda.device(dev):
+        err = _build.library().thgt_raymarch_unfolded(
+            *cuda_ptrs(op["ops"]), *op["ints"], op["stream_bytes"], _stream_handle(dev))
+    _build.check(err, "thgt_raymarch_unfolded")
+    launches_unfolded += 1
 
 
 def field_render_unfolded_cuda(w, packed, freq_k, phase_k, z_vals, num_steps: int,
                                white_back: bool = False, last_back: bool = False,
                                exact_sin: bool = False):
     """Launch K4; same contract as ``field_render_unfolded_plain`` (bf16 products)."""
-    global launches_unfolded
-    B, P, n_cols = packed.shape
-    check_packed_width(n_cols)
-    R = _check_tiling(B, P, num_steps, z_vals)
-    t, d = kernel_tables(w, freq_k, phase_k)
-    out = torch.empty(B, R, d["F"] + 3, dtype=torch.float32, device=packed.device)
-    depth = torch.empty(B, R, 1, dtype=torch.float32, device=packed.device)
-    ops = [packed.float().contiguous(), z_vals.float().contiguous()]
-    ops += [t[k] for k in KERNEL_TABLE_ORDER] + [out, depth]
-    with torch.cuda.device(packed.device):
-        stream = torch.cuda.current_stream(packed.device).cuda_stream
-        err = _build.library().thgt_raymarch_unfolded(
-            *cuda_ptrs(ops), B, R, num_steps, n_cols, d["n_in"], d["k0p"], d["n0p"], d["hp"],
-            d["NB"], d["F"] + 3, d["headp"], int(white_back), int(last_back), int(exact_sin),
-            stream)
-    _build.check(err, "thgt_raymarch_unfolded")
-    launches_unfolded += 1
-    return out, depth
+    op = field_render_unfolded_operands(w, packed, freq_k, phase_k, z_vals, num_steps,
+                                        white_back, last_back, exact_sin)
+    field_render_unfolded_body(op)
+    return op["out"], op["depth"]
 
 
 # ---------------------------------------------------------------------------
@@ -706,14 +692,17 @@ def fused_field_render_geo(field, packed, freq, phase, z_vals, verts, vfeat, ske
     return field_render_geo_cuda(*args, exact_sin, legacy_mode)
 
 
-def field_render_geo_cuda(w, packed, freq_k, phase_k, z_vals, verts, vfeat, skeletons,
-                          num_steps: int, input_scaler: float, white_back: bool = False,
-                          last_back: bool = False, exact_sin: bool = False,
-                          legacy_mode: bool = False, return_index: bool = False):
-    """Launch K5; same contract as ``field_render_geo_plain``.  With
-    ``return_index`` it also returns each sample's nearest vertex (B, R*S)
-    int32, which the kernel then writes."""
-    global launches_geo
+def field_render_geo_operands(w, packed, freq_k, phase_k, z_vals, verts, vfeat, skeletons,
+                              num_steps: int, input_scaler: float, white_back: bool = False,
+                              last_back: bool = False, exact_sin: bool = False,
+                              legacy_mode: bool = False, return_index: bool = False):
+    """K5's host glue before its launch, in the C order of
+    ``thgt_raymarch_geo``: the raw float32 rows, z, the posed vertices, their
+    feature rows and the joints (``ops``); the nearest-vertex output or None
+    (``idx``); K4's weight operands and the outputs (``tabs``); then the ints
+    and the input scale.  Raises on inputs the kernel does not take."""
+    from threedhumangan_tpu_torch.ops import raymarch_bwd as rb  # it imports this module
+
     B, P, n_cols = packed.shape
     _check_geo_pack(n_cols)
     R = _check_tiling(B, P, num_steps, z_vals)
@@ -724,21 +713,40 @@ def field_render_geo_cuda(w, packed, freq_k, phase_k, z_vals, verts, vfeat, skel
     if J + 7 != GEO_DIM or w["w_geo"].shape[0] != GEO_DIM:
         raise ValueError(f"the geo-fused kernel computes {GEO_DIM} geo columns from 24 joints, "
                          f"got {J} joints and a field taking {w['w_geo'].shape[0]}")
-    t, d = kernel_tables(w, freq_k, phase_k)
+    d, fwd = rb.field_forward_operands(w, freq_k, phase_k)
     dev = packed.device
-    out = torch.empty(B, R, d["F"] + 3, dtype=torch.float32, device=dev)
-    depth = torch.empty(B, R, 1, dtype=torch.float32, device=dev)
-    idx = torch.empty(B, P, dtype=torch.int32, device=dev) if return_index else None
+    out, depth = _render_outputs(B, R, d, dev)
     f32 = lambda x: x.float().contiguous()
-    ops = [f32(packed), f32(z_vals), f32(verts), f32(vfeat), f32(skeletons)]
-    tabs = [t[k] for k in KERNEL_TABLE_ORDER] + [out, depth]
+    ints = rb.kernel_ints(d, B, P, num_steps, n_cols, exact_sin) + [
+        int(white_back), int(last_back), V, J, int(legacy_mode)]
+    return dict(d=d, ops=[f32(packed), f32(z_vals), f32(verts), f32(vfeat), f32(skeletons)],
+                idx=torch.empty(B, P, dtype=torch.int32, device=dev) if return_index else None,
+                tabs=fwd + [out, depth], ints=ints, scaler=float(input_scaler),
+                stream_bytes=fwd[0].numel() * 2, dev=dev, out=out, depth=depth)
+
+
+def field_render_geo_body(op):
+    """Launch K5's kernel on the operands of ``field_render_geo_operands``."""
+    global launches_geo
+    dev, idx = op["dev"], op["idx"]
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = _build.library().thgt_raymarch_geo(
-            *cuda_ptrs(ops), None if idx is None else idx.data_ptr(), *cuda_ptrs(tabs),
-            B, R, num_steps, n_cols, V, J, int(legacy_mode), float(input_scaler), d["k0p"],
-            d["n0p"], d["hp"], d["NB"], d["F"] + 3, d["headp"], int(white_back),
-            int(last_back), int(exact_sin), stream)
+            *cuda_ptrs(op["ops"]), None if idx is None else idx.data_ptr(),
+            *cuda_ptrs(op["tabs"]), *op["ints"], op["scaler"], op["stream_bytes"],
+            _stream_handle(dev))
     _build.check(err, "thgt_raymarch_geo")
     launches_geo += 1
-    return (out, depth, idx) if return_index else (out, depth)
+
+
+def field_render_geo_cuda(w, packed, freq_k, phase_k, z_vals, verts, vfeat, skeletons,
+                          num_steps: int, input_scaler: float, white_back: bool = False,
+                          last_back: bool = False, exact_sin: bool = False,
+                          legacy_mode: bool = False, return_index: bool = False):
+    """Launch K5; same contract as ``field_render_geo_plain``.  With
+    ``return_index`` it also returns each sample's nearest vertex (B, R*S)
+    int32, which the kernel then writes."""
+    op = field_render_geo_operands(w, packed, freq_k, phase_k, z_vals, verts, vfeat, skeletons,
+                                   num_steps, input_scaler, white_back, last_back, exact_sin,
+                                   legacy_mode, return_index)
+    field_render_geo_body(op)
+    return (op["out"], op["depth"], op["idx"]) if return_index else (op["out"], op["depth"])

@@ -39,6 +39,7 @@ differentiable render that the tests hold both against.
 
 from __future__ import annotations
 
+import itertools
 from typing import Dict, Tuple
 
 import torch
@@ -340,20 +341,24 @@ def field_bwd_stream_index(d):
     return rm.chunk_map(fwd + bwd)
 
 
-def pack_field_bwd_stream(w, d):
+def pack_field_bwd_stream(w, d, forward_only: bool = False):
     """Every weight K8 and K9 read, as one bf16 stream of chunk images (see
-    ``field_bwd_stream_index``; the first ``d["fwd_bytes"]`` are K8's), on
-    w's device: one gather of the field's own float32 weights through a map
-    built once per widths and device, rounded to bf16 once, so every value
-    is bit-equal to ``kernel_tables``' (and to its transposes).  The same
-    stream serves every image.  w: ``flat_weights``.  Returns (stream, the
-    bytes of each chunk)."""
+    ``field_bwd_stream_index``; the first ``d["fwd_bytes"]`` are the forward
+    half, all that K4, K5 and K8 read, and ``forward_only`` packs that half
+    alone), on w's device: one gather of the field's own float32 weights
+    through a map built once per widths and device, rounded to bf16 once, so
+    every value is bit-equal to the padded tables of the field's weights
+    (and to their transposes).  The same stream serves every image.  w:
+    ``flat_weights``.  Returns (stream, the bytes of each chunk)."""
     dev = w["w_coord"].device
     key = (d["n_in"], d["H"], d["F"], d["NB"], str(dev))
     if key not in _STREAM_INDEX:
         idx, sizes = field_bwd_stream_index(d)
         _STREAM_INDEX[key] = (idx.to(dev), sizes)
     idx, sizes = _STREAM_INDEX[key]
+    if forward_only:
+        idx = idx[:d["fwd_bytes"] // 2]
+        sizes = sizes[:list(itertools.accumulate(sizes)).index(d["fwd_bytes"]) + 1]
     flat = torch.cat([rm.field_source(w), w["w_coord"].new_zeros(1)])
     return flat.index_select(0, idx).to(torch.bfloat16), sizes
 
@@ -362,7 +367,7 @@ def field_bwd_side_tables(w, freq_k, phase_k, d):
     """K8's and K9's float32 tables beside the stream, zero-padded, in the C
     order: b_first (n0p), b_net (NB, hp), freq*15+30 and phase (B, NB, nc),
     w_color_d (3, nc) and w_sigma (hp) as bf16 values, b_color (nc),
-    b_sigma (1), b_head (headp) — ``kernel_tables``' values."""
+    b_sigma (1), b_head (headp) — the field's weights, padded."""
     f32, bf16 = torch.float32, torch.bfloat16
     B, NB, _ = freq_k.shape
     n0p, hp, nc = d["n0p"], d["hp"], d["nc"]
@@ -393,16 +398,14 @@ def _launch(name, *args):
     _build.check(err, name)
 
 
-def _ints(d, B, P, num_steps, n_cols, exact_sin):
-    """The C entries' int arguments."""
+def kernel_ints(d, B, P, num_steps, n_cols, exact_sin):
+    """The int arguments that the C entries of K4, K5, K8 and K9 begin with."""
     return [B, P, num_steps, n_cols, d["n_in"], d["H"], d["k0p"], d["n0p"], d["hp"], d["nc"],
             d["headp"], d["NB"], d["F"] + 3, int(exact_sin)]
 
 
-def _field_inputs(w, packed, num_steps, n_blocks):
-    """The widths of a call (``field_bwd_dims``); raises on inputs the
-    kernels do not take."""
-    _check_rows(packed, num_steps)
+def _field_dims(w, n_blocks):
+    """``field_bwd_dims``; raises on a field the kernels do not take."""
     d = field_bwd_dims(w, n_blocks)
     if d["n_in"] != rm.INPUT_PACK - 3:
         raise ValueError(f"the packed inputs carry {rm.INPUT_PACK - 3} field inputs, the field "
@@ -410,20 +413,27 @@ def _field_inputs(w, packed, num_steps, n_blocks):
     return d
 
 
+def field_forward_operands(w, freq_k, phase_k):
+    """What K4, K5 and K8 read beside their inputs and outputs, in the C
+    order: the forward half of ``pack_field_bwd_stream`` and the side
+    tables.  Returns (the widths, ``field_bwd_dims``; the operands)."""
+    d = _field_dims(w, freq_k.shape[1])
+    stream, _ = pack_field_bwd_stream(w, d, forward_only=True)
+    return d, [stream] + field_bwd_side_tables(w, freq_k, phase_k, d)
+
+
 def field_stats_operands(w, packed, freq_k, phase_k, g_out, num_steps: int, exact_sin=False):
     """K8's host glue before the launch: the forward half of
     ``pack_field_bwd_stream``, the side tables and the outputs, in the C
     order."""
-    d = _field_inputs(w, packed, num_steps, freq_k.shape[1])
+    _check_rows(packed, num_steps)
+    d, fwd = field_forward_operands(w, freq_k, phase_k)
     B, P, n_cols = packed.shape
-    stream, _ = pack_field_bwd_stream(w, d)
-    fwd = stream[:d["fwd_bytes"] // 2]
     sigma = torch.empty(B, P, dtype=torch.float32, device=packed.device)
     gdot = torch.empty_like(sigma)
-    ops = ([packed.to(torch.bfloat16).contiguous(), g_out.float().contiguous(), fwd]
-           + field_bwd_side_tables(w, freq_k, phase_k, d) + [sigma, gdot])
-    return dict(d=d, ops=ops, ints=_ints(d, B, P, num_steps, n_cols, exact_sin),
-                stream_bytes=fwd.numel() * 2, dev=packed.device, sigma=sigma, gdot=gdot,
+    ops = [packed.to(torch.bfloat16).contiguous(), g_out.float().contiguous()] + fwd + [sigma, gdot]
+    return dict(d=d, ops=ops, ints=kernel_ints(d, B, P, num_steps, n_cols, exact_sin),
+                stream_bytes=fwd[0].numel() * 2, dev=packed.device, sigma=sigma, gdot=gdot,
                 shape=(B, P // num_steps, num_steps))
 
 
@@ -516,7 +526,8 @@ def field_bwd_step_operands(w, packed, freq_k, phase_k, g_out, coef, dsigma, num
     side tables, the inputs and one launch's buffers (flat, shaped per
     group of images by ``_group``; the launches run in order on one stream,
     so each reuses them)."""
-    d = _field_inputs(w, packed, num_steps, freq_k.shape[1])
+    _check_rows(packed, num_steps)
+    d = _field_dims(w, freq_k.shape[1])
     B, P, n_cols = packed.shape
     hp, n0p, headp, NB = d["hp"], d["n0p"], d["headp"], d["NB"]
     bf16, f32, dev = torch.bfloat16, torch.float32, packed.device
@@ -575,7 +586,7 @@ def field_bwd_step_body(op, b0):
     tabs[2], tabs[3] = tabs[2][b0:b1], tabs[3][b0:b1]  # this group's freq and phase
     args = ([x[b0:b1] for x in op["ins"]] + [op["stream"]] + tabs
             + [bufs[k] for k in _SAVED_ORDER])
-    ints = _ints(op["d"], b1 - b0, op["P"], op["S"], op["n_cols"], op["exact_sin"])
+    ints = kernel_ints(op["d"], b1 - b0, op["P"], op["S"], op["n_cols"], op["exact_sin"])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _launch("thgt_field_bwd", *rm.cuda_ptrs(args, "field backward kernel"), *ints,
