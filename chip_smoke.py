@@ -1462,8 +1462,14 @@ def check_geo_fused(gen, inp, meta, gcuda):
     bd = geo_bound(packed, o_k, meta, full["verts"].shape[1])
     log(f"  time: kernel {ms:.3f} ms (with its weight pack)  plain {plain_ms:.3f} ms  bound "
         f"{bd['bound_ms']:.3f} ms ({bd['bound_by']})")
+    # the prologue's 1-NN scan: the same call over the body's first 8 vertices
+    few = list(args)
+    few[5], few[6] = (full[k][:, :8].contiguous() for k in ("verts", "vfeat"))
+    scan_ms = ms - cuda_ms(lambda: rm.field_render_geo_cuda(*few, legacy_mode=legacy, **kw), 3)
+    log(f"  of which the 1-NN scan over {full['verts'].shape[1]} vertices: {scan_ms:.3f} ms (the "
+        "kernel's time less its time over 8 vertices)")
     lm = field_core_metrics(w, meta["neural_field_blocks"], "raymarch_geo.cu", True)
-    return dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms, **bd, **lm)
+    return dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms, scan_ms=scan_ms, **bd, **lm)
 
 
 def check_train_unfolded(G, meta, cond, gcuda):

@@ -73,9 +73,8 @@
 // producer lane first fills the ring's stages, then 8 threads a row scan the
 // posed vertices staged as float4 in the activation tiles (idle until the
 // first layer), each every 8th vertex in ascending order with a strict-less
-// compare, in four interleaved chains (a chain's compare and select wait on
-// its last); the minima merge, then the 8 lanes' by shuffles, lower index
-// first on equal distances.  The distance is nn_scan.cuh's elementwise form (as K1 and
+// compare; the 8 minima merge by shuffles, lower index first on equal
+// distances.  The distance is nn_scan.cuh's elementwise form (as K1 and
 // K6), so the argmin is bit-identical to the plain version's.  The row's
 // first thread then writes its bf16 input row (the coordinates times
 // input_scaler and the 31 geo columns, geo_slab's formulas on the float32
@@ -107,8 +106,6 @@ constexpr int kFloats = 12 * kRows;            // dirs (3), noise, coef, dsigma,
 constexpr int kGeoCols = 31;                   // K5's geo columns
 constexpr int kMaxJoints = 32;
 constexpr int kScanLanes = kThreads / kRows;   // K5: threads scanning one row's vertices
-constexpr int kScanChains = 4;                 // K5: running minima a scanning thread
-constexpr int kStageLoads = 8;                 // K5: vertex loads a thread issues together
 static_assert(kScanLanes == 8, "the 1-NN merge shuffles over 8 lanes");
 
 template <bool kExact>
@@ -327,62 +324,20 @@ __device__ __forceinline__ void geo_prologue(const Args& a, size_t g0, float4* s
     joints[3 * j + 2] = q[2];
     ssq[j] = (q[0] * q[0] + q[1] * q[1]) + q[2] * q[2];
   }
-  // kScanChains running minima a thread, over every (kScanChains
-  // kScanLanes)-th vertex from sub + j kScanLanes (the tail's into chain
-  // 0), so the compare-and-select chains run side by side; each keeps its
-  // lowest index on equal distances, and the merge takes the lower one
   const float* vb = a.verts + (size_t)b * a.n_verts * 3;
-  float best[kScanChains];
-  int best_i[kScanChains];
-#pragma unroll
-  for (int j = 0; j < kScanChains; ++j) {
-    best[j] = __int_as_float(0x7f800000);  // +inf
-    best_i[j] = 0;
-  }
-  auto scan = [&](int j, const float4& v, int i) {
-    const float d = thgt::nn_dist(px, py, pz, v);
-    if (d < best[j]) {
-      best[j] = d;
-      best_i[j] = i;
-    }
-  };
+  float bd = __int_as_float(0x7f800000);  // +inf
+  int bi = 0;
   for (int v0 = 0; v0 < a.n_verts; v0 += chunk) {
     const int n = min(chunk, a.n_verts - v0);
-    // stage vertices [v0, v0 + n) as float4, a thread's loads all issued
-    // before its stores (nn_scan.cuh's nn_stage, unrolled)
-    __syncthreads();
-    for (int e0 = tid; e0 < n; e0 += kStageLoads * kThreads) {
-      float4 q[kStageLoads];
-#pragma unroll
-      for (int k = 0; k < kStageLoads; ++k) {
-        const int e = e0 + k * kThreads;
-        const float* v = vb + (size_t)(v0 + min(e, n - 1)) * 3;
-        q[k] = make_float4(v[0], v[1], v[2], 0.f);
+    thgt::nn_stage(vb, v0, n, sv);
+    for (int i = sub; i < n; i += kScanLanes) {
+      const float d = thgt::nn_dist(px, py, pz, sv[i]);
+      if (d < bd) {
+        bd = d;
+        bi = v0 + i;
       }
-#pragma unroll
-      for (int k = 0; k < kStageLoads; ++k)
-        if (e0 + k * kThreads < n) sv[e0 + k * kThreads] = q[k];
-    }
-    __syncthreads();
-    // a chain keeps its step's first index; chain j's vertex lies j kScanLanes past it
-    int i = sub;
-    for (; i + (kScanChains - 1) * kScanLanes < n; i += kScanChains * kScanLanes) {
-      const int step = v0 + i;
-#pragma unroll
-      for (int j = 0; j < kScanChains; ++j) scan(j, sv[i + j * kScanLanes], step);
-    }
-    for (; i < n; i += kScanLanes) scan(0, sv[i], v0 + i);
-  }
-#pragma unroll
-  for (int j = 1; j < kScanChains; ++j) {
-    best_i[j] += j * kScanLanes;
-    if (thgt::nn_better(best[j], best_i[j], best[0], best_i[0])) {
-      best[0] = best[j];
-      best_i[0] = best_i[j];
     }
   }
-  float bd = best[0];
-  int bi = best_i[0];
 #pragma unroll
   for (int o = kScanLanes / 2; o; o >>= 1) {
     const float od = __shfl_xor_sync(0xffffffffu, bd, o);
@@ -393,23 +348,21 @@ __device__ __forceinline__ void geo_prologue(const Args& a, size_t g0, float4* s
     }
   }
   __syncthreads();  // every thread is done with the vertices: the rows overwrite them
-  // [coords * scaler | 31 geo columns | 0] as bf16, directions, noise; the
-  // row's 8 lanes share the joint distances and the zero columns
-  bf16* row = rows + r * ldi;
-  const int jd0 = 3 + (a.legacy ? 0 : 3);              // joint distances
-  const int cano0 = 3 + (a.legacy ? a.n_joints : 0);  // canonical coords
-  const float psq = (px * px + py * py) + pz * pz;
-  for (int j = sub; j < a.n_joints; j += kScanLanes) {
-    const float cross = px * joints[3 * j] + py * joints[3 * j + 1] + pz * joints[3 * j + 2];
-    const float jd = sqrtf(fmaxf(psq - 2.f * cross + ssq[j], 0.f) + 1e-12f) / 2.4f;
-    row[jd0 + j] = __float2bfloat16(jd);
-  }
-  for (int c = 3 + kGeoCols + sub; c < a.k0p; c += kScanLanes) row[c] = __float2bfloat16(0.f);
   if (sub == 0) {
+    // [coords * scaler | 31 geo columns | 0] as bf16, directions, noise
     const float* gf = a.vfeat + ((size_t)b * a.n_verts + bi) * 19;
+    bf16* row = rows + r * ldi;
     row[0] = __float2bfloat16(px * a.scaler);
     row[1] = __float2bfloat16(py * a.scaler);
     row[2] = __float2bfloat16(pz * a.scaler);
+    const int jd0 = 3 + (a.legacy ? 0 : 3);              // joint distances
+    const int cano0 = 3 + (a.legacy ? a.n_joints : 0);  // canonical coords
+    const float psq = (px * px + py * py) + pz * pz;
+    for (int j = 0; j < a.n_joints; ++j) {
+      const float cross = px * joints[3 * j] + py * joints[3 * j + 1] + pz * joints[3 * j + 2];
+      const float jd = sqrtf(fmaxf(psq - 2.f * cross + ssq[j], 0.f) + 1e-12f) / 2.4f;
+      row[jd0 + j] = __float2bfloat16(jd);
+    }
     const float c0 = gf[0] * px + gf[1] * py + gf[2] * pz + gf[3];
     const float c1 = gf[4] * px + gf[5] * py + gf[6] * pz + gf[7];
     const float c2 = gf[8] * px + gf[9] * py + gf[10] * pz + gf[11];
@@ -421,6 +374,7 @@ __device__ __forceinline__ void geo_prologue(const Args& a, size_t g0, float4* s
     row[t0 + 1] = __float2bfloat16(gf[17]);
     row[t0 + 2] = __float2bfloat16(gf[18] / 0.2f);
     row[t0 + 3] = __float2bfloat16(sqrtf(bd) / 1.3f);
+    for (int c = 3 + kGeoCols; c < a.k0p; ++c) row[c] = __float2bfloat16(0.f);
     for (int k = 0; k < 3; ++k) dirs[3 * r + k] = bf(pr[3 + k]);
     noise[r] = a.n_cols > 6 ? pr[6] : 0.f;
     if (a.idx_out) a.idx_out[g0 + r] = bi;

@@ -567,10 +567,6 @@ def _render_outputs(B, R, d, dev):
             torch.empty(B, R, 1, dtype=torch.float32, device=dev))
 
 
-def _stream_handle(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def field_render_unfolded_operands(w, packed, freq_k, phase_k, z_vals, num_steps: int,
                                    white_back: bool = False, last_back: bool = False,
                                    exact_sin: bool = False):
@@ -599,7 +595,8 @@ def field_render_unfolded_body(op):
     dev = op["dev"]
     with torch.cuda.device(dev):
         err = _build.library().thgt_raymarch_unfolded(
-            *cuda_ptrs(op["ops"]), *op["ints"], op["stream_bytes"], _stream_handle(dev))
+            *cuda_ptrs(op["ops"]), *op["ints"], op["stream_bytes"],
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "thgt_raymarch_unfolded")
     launches_unfolded += 1
 
@@ -733,7 +730,7 @@ def field_render_geo_body(op):
         err = _build.library().thgt_raymarch_geo(
             *cuda_ptrs(op["ops"]), None if idx is None else idx.data_ptr(),
             *cuda_ptrs(op["tabs"]), *op["ints"], op["scaler"], op["stream_bytes"],
-            _stream_handle(dev))
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "thgt_raymarch_geo")
     launches_geo += 1
 
