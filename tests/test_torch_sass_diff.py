@@ -23,3 +23,16 @@ def test_compare_counts_instructions_and_differing_lines():
     assert res["instructions"] == [4, 6]
     assert res["differing_lines"] == 1 + 2
     assert sass_diff.compare(other, other)["differing_lines"] == 0
+
+
+def test_rename_maps_a_renamed_kernel_onto_its_new_name():
+    """A kernel renamed between the two sides (a template's name and its
+    first argument's kind) compares equal once the other side's names are
+    mapped; a mapping that matches nothing leaves the names as they were."""
+    old = "_ZNANON16field_bwd_kernelILb1ELb0EEEvNS_4ArgsE"
+    new = "_ZNANON12field_kernelILi1ELb0EEEvNS_4ArgsE"
+    other, this = {old: ["MOV R1, R2", "EXIT"]}, {new: ["MOV R1, R2", "EXIT"]}
+    assert sass_diff.compare(other, this)["differing_lines"] == 4
+    mapped = sass_diff.rename(other, [("16field_bwd_kernelILb1E", "12field_kernelILi1E")])
+    assert mapped == this and sass_diff.compare(mapped, this)["differing_lines"] == 0
+    assert sass_diff.rename(other, [("nothing", "else")]) == other

@@ -2,6 +2,7 @@
 package's.
 
     python -m threedhumangan_tpu_torch.apps.sass_diff OTHER_CSRC [SOURCE ...]
+        [--rename OLD=NEW ...]
 
 compiles each SOURCE (default: synthesis.cu, synthesis_train_bwd.cu and
 raymarch.cu, the kernels on K3's core besides K10) from OTHER_CSRC and from
@@ -10,8 +11,11 @@ this package's csrc/, each copied to the same scratch path, with
 -sass``; replaces the names nvcc gives anonymous namespaces (they carry
 hashes) by one token; and prints one JSON line a source: the instructions of
 each function on both sides and the instruction lines that differ over the
-whole listings (addresses left out).  Needs the CUDA toolkit (nvcc,
-cuobjdump); exits 1 if any line differs.
+whole listings (addresses left out).  ``--rename OLD=NEW`` reads
+OTHER_CSRC's function names with OLD replaced by NEW, so a kernel that was
+only renamed (a template's name or its arguments' kinds) is compared with
+itself.  Needs the CUDA toolkit (nvcc, cuobjdump); exits 1 if any line
+differs.
 """
 
 from __future__ import annotations
@@ -58,6 +62,17 @@ def listing(csrc: str, source: str, scratch: str) -> dict:
     return funcs
 
 
+def rename(funcs: dict, pairs) -> dict:
+    """``funcs`` with OLD replaced by NEW in each function's name, for each
+    (OLD, NEW) of ``pairs`` in turn."""
+    out = {}
+    for name, insns in funcs.items():
+        for old, new in pairs:
+            name = name.replace(old, new)
+        out[name] = insns
+    return out
+
+
 def compare(other: dict, this: dict) -> dict:
     diff = 0
     for name in sorted(set(other) | set(this)):
@@ -75,12 +90,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other_csrc")
     ap.add_argument("sources", nargs="*", default=list(SOURCES))
+    ap.add_argument("--rename", action="append", default=[], metavar="OLD=NEW",
+                    help="read OTHER_CSRC's function names with OLD replaced by NEW")
     args = ap.parse_args(argv)
+    pairs = [r.split("=", 1) for r in args.rename]
     differ = False
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as scratch:
         for source in args.sources:
-            res = compare(listing(args.other_csrc, source, scratch),
+            res = compare(rename(listing(args.other_csrc, source, scratch), pairs),
                           listing(_build.CSRC_DIR, source, scratch))
             differ |= res["differing_lines"] > 0
             print(json.dumps(dict(source=source, **res)), flush=True)
