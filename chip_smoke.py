@@ -13,18 +13,24 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
   3. check    — K1-K6 against their plain PyTorch versions at the generation
                 slice's shapes (and K2-K5 pointwise at a narrow width, K2 at
                 S 4-64; K4 and K5 at full width by statistics, K5 and K6
-                with 100% index agreement), with the tolerance and its
-                reason; two K2, K4 and K5 calls bit for bit; kernel, plain
-                and bound times; the weight pack, ptxas line (K4/K5: a spill
-                fails the run), shared-memory budget of K2, K4 and K5, and
-                K2's L2 stream.
+                with 100% index agreement; K1 and K6 also with the vertex
+                order shuffled and on ties over a ragged ray grid, with the
+                share of pairs their search scanned, <= 35% on the slice,
+                beside the share these inputs need, which sets their bound,
+                and their cluster build bit for bit against its plain
+                version and timed beside it), with the tolerance and its
+                reason; two K1, K2,
+                K4, K5 and K6 calls bit for bit; kernel, plain and bound
+                times; the weight pack, ptxas line (K1, K4, K5, K6 and the
+                cluster build: a spill fails the run), shared-memory budget
+                of K2, K4 and K5, and K2's L2 stream.
   4. generate — MAP3DBN512L generation at batch 8 in bf16 with seeded random
                 weights: 2 warm-up + 5 timed batches through
                 ``generator_forward``, per-stage ms/batch, imgs/s; the output
                 must be (8, 512, 256, 3), finite and not constant, K1-K3 must
                 launch, and a small config run on the card must agree with
                 the same run on the CPU.
-  5. check    — K7, K2 (with the nerf-noise column), K8 and K9 against their
+  5. check    — K7, K1, K2 (with the nerf-noise column), K8 and K9 against their
                 plain versions at the training slice's shapes (K8/K9 also
                 pointwise at a narrow width, and against autograd through the
                 plain unfolded render); the weight-gradient reduction against
@@ -173,35 +179,214 @@ def field_inputs(gen, cond, z, meta):
                 z_vals=z_vals.reshape(B, W * H, S).contiguous(), freq=freq, phase=phase)
 
 
-def check_geo(inp, meta):
+def nn_sets(inp, meta):
+    """The input sets of K1's and K6's checks, on the card: the slice's
+    points and posed vertices with the points' ray layout; the same with the
+    vertex order shuffled; and ties on a ragged grid: every vertex twice, a
+    third of the points on vertices, a third at midpoints of two, on a grid
+    of 5 rays a row (the last row 3) and 3 steps a ray."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    pts, verts = inp["points"], inp["vertices"]
+    B, V = verts.shape[:2]
+    perm = torch.randperm(V, generator=g, device="cuda")
+    twice = torch.cat([verts[:, :V // 2], verts[:, :V // 2]], 1).contiguous()
+    third = 5 * 611 + 3  # rays: rows of 5, the last of 3; 3 steps a ray
+    pick = lambda: torch.gather(twice, 1, torch.randint(0, twice.shape[1], (B, third, 1), generator=g,
+                                                        device="cuda").expand(-1, -1, 3))
+    ties = torch.cat([pick(), 0.5 * (pick() + pick()),
+                      pick() + 0.05 * torch.randn(B, third, 3, generator=g, device="cuda")], 1)
+    base = dict(vfeat=inp["vfeat"], skeletons=inp["skeletons"], perm=None)
+    return [dict(base, name="slice", points=pts, vertices=verts,
+                 layout=(meta["render_width"], meta["num_steps"])),
+            dict(base, name="slice, vertex order shuffled", points=pts,
+                 vertices=verts[:, perm].contiguous(), vfeat=inp["vfeat"][:, perm].contiguous(),
+                 layout=(meta["render_width"], meta["num_steps"]), perm=perm),
+            dict(base, name="ties on a ragged grid (every vertex twice, 5 rays a row, 3 steps)",
+                 points=ties.contiguous(), vertices=twice,
+                 vfeat=inp["vfeat"][:, :twice.shape[1]].contiguous(), layout=(5, 3))]
+
+
+def check_clusters(verts, what):
+    """The cluster build (csrc/nn_clusters.cu) against its plain version,
+    bit for bit."""
     import torch
 
     from threedhumangan_tpu_torch.ops import geo
 
-    args = (inp["points"], inp["vertices"], inp["vfeat"], inp["skeletons"])
+    (tk, bk), (tp, bp) = geo.vertex_clusters(verts), geo.vertex_clusters_plain(verts)
+    bits = lambda t: t.contiguous().view(torch.int32)
+    same = torch.equal(bits(tk), bits(tp)) and torch.equal(bits(bk), bits(bp))
+    log(f"  vertex clusters ({what}, {verts.shape[1]} vertices, {bk.shape[1]} clusters): "
+        f"{'bit-equal to' if same else 'DIFFER from'} the plain version")
+    if not same:
+        raise AssertionError("the cluster build disagrees with its plain version")
+
+
+def nn_ptxas():
+    """ptxas of K1, K6 and the cluster build; a spill or a missing log fails."""
+    bad = {}
+    for source in ("geo.cu", "knn.cu", "nn_clusters.cu"):
+        ptx = ptxas_of(source)
+        log(f"  {source} ptxas: {ptx['registers']} registers, {ptx['spill_stores']} bytes spill "
+            f"stores, {ptx['spill_loads']} bytes spill loads")
+        if ptx["spill_stores"] is None or ptx["spill_stores"] or ptx["spill_loads"]:
+            bad[source] = ptx
+    if bad:
+        raise AssertionError(f"spills, or no build log: {bad}")
+
+
+def needed_pairs(points, vertices, best_d, chunk=4096):
+    """The (point, vertex) pairs these inputs need of a search on the
+    kernels' clusters: for each point, the members of every cluster whose
+    box lies no farther from the point than its nearest vertex (nn_prune.cuh's
+    bound for a box of one point; ``best_d`` the plain version's squared
+    distances (B, P)).  What the warp tiles scan beyond that is not counted."""
+    import torch
+
+    from threedhumangan_tpu_torch.ops import geo
+
+    _, boxes = geo.vertex_clusters_plain(vertices)
+    B, P, _ = points.shape
+    V, n = vertices.shape[1], boxes.shape[1]
+    members = torch.clamp(V - geo.CLUSTER * torch.arange(n, device=points.device),
+                          max=geo.CLUSTER)
+    mn, mx = boxes[:, None, :, :3], boxes[:, None, :, 4:7]
+    total = 0
+    for p0 in range(0, P, chunk):
+        p = points[:, p0:p0 + chunk, None, :]
+        g = torch.clamp(torch.maximum(mn - p, p - mx), min=0.0)
+        lb = (g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1]) + g[..., 2] * g[..., 2]
+        total += int(((lb <= best_d[:, p0:p0 + chunk, None]) * members).sum())
+    return total
+
+
+def nn_bounds(B, P, V, scanned, needed, nbytes):
+    """K1's or K6's bound: the pairs these inputs need (``needed_pairs``) x
+    9 FP32 operations, or its bytes; beside it the pairs the search scanned
+    (the kernel's work) and the brute-force scan's bound."""
+    bd = bound(9 * needed, nbytes, PEAK_F32)
+    brute = bound(9 * B * P * V, nbytes, PEAK_F32)
+    return dict(bd, needed_pairs=needed, needed_share=needed / (B * P * V),
+                scanned_pairs=scanned, scanned_share=scanned / (B * P * V),
+                brute_force_bound_ms=brute["bound_ms"])
+
+
+def check_geo(inp, meta):
+    """K1 against its plain version on the three sets of ``nn_sets`` (and the
+    slice without its ray layout), two calls bit for bit, the scanned pairs,
+    the cluster build's ms and bound."""
+    import torch
+
+    from threedhumangan_tpu_torch.ops import geo
+
     legacy = meta["legacy_mode"]
-    feats, idx = geo.geo_features(*args, legacy_mode=legacy, return_index=True)
-    ref, ref_idx = geo.geo_features_plain(*args, legacy_mode=legacy, point_chunk=1024)
-    torch.cuda.synchronize()
-    agree = float((idx.long() == ref_idx).float().mean())
-    mx, mean, p99 = diff_stats(feats, ref)
-    log(f"check K1 geo: shape {tuple(feats.shape)}  index agreement {agree * 100:.6f}%  "
-        f"max|d| {mx:.3e} mean|d| {mean:.3e}")
-    log("  tolerance: index agreement 100% and max|d| <= 1e-5 (the distance is formed "
-        "with the same f32 op order in both, so the argmin is bit-identical; the features "
-        "differ only by FMA contraction)")
-    if agree != 1.0 or mx > 1e-5:
-        raise AssertionError("K1 disagrees with its plain version")
-    ms = cuda_ms(lambda: geo.geo_features(*args, legacy_mode=legacy), 3)
+    nn_ptxas()
+    res, first = {}, None
+    sets = nn_sets(inp, meta)
+    for case in sets + [dict(sets[0], name="slice without its ray layout", layout=None)]:
+        args = (case["points"], case["vertices"], case["vfeat"], case["skeletons"])
+        B, P, _ = case["points"].shape
+        V = case["vertices"].shape[1]
+        check_clusters(case["vertices"], case["name"])
+        pairs = torch.zeros(1, dtype=torch.int64, device="cuda")
+        feats, idx = geo._geo_cuda(*args, legacy, True, case["layout"], pairs)
+        again = geo.geo_features(*args, legacy_mode=legacy, return_index=True,
+                                 ray_layout=case["layout"])
+        ref, ref_idx = geo.geo_features_plain(*args, legacy_mode=legacy, point_chunk=1024)
+        torch.cuda.synchronize()
+        agree = float((idx.long() == ref_idx).float().mean())
+        mx, mean, _ = diff_stats(feats, ref)
+        equal = torch.equal(feats, again[0]) and torch.equal(idx, again[1])
+        share = int(pairs) / (B * P * V)
+        ms = cuda_ms(lambda: geo.geo_features(*args, legacy_mode=legacy,
+                                              ray_layout=case["layout"]), 5)
+        log(f"check K1 geo, {case['name']}: {P} points x {V} vertices, layout {case['layout']}: "
+            f"index agreement {agree * 100:.6f}%  max|d| {mx:.3e} mean|d| {mean:.3e}  two calls "
+            f"{'bit-equal' if equal else 'DIFFER'}  scanned pairs {int(pairs)} = {share:.4f} of "
+            f"P x V  kernel {ms:.3f} ms")
+        if case["perm"] is not None:
+            ref0 = geo.geo_features_plain(inp["points"], inp["vertices"], inp["vfeat"],
+                                          inp["skeletons"], legacy_mode=legacy,
+                                          point_chunk=1024)[1]
+            back = float((case["perm"][idx.long()] == ref0).float().mean())
+            log(f"  indices mapped back through the permutation: agreement with the unshuffled "
+                f"plain version {back * 100:.6f}% (less only where distinct vertices tie)")
+        if agree != 1.0 or mx > 1e-5 or not equal:
+            raise AssertionError(f"K1 disagrees with its plain version ({case['name']})")
+        res[case["name"]] = dict(index_agreement=agree, max_abs_err=mx, ms=ms,
+                                 scanned_share=share)
+        if first is None:
+            first = dict(args=args, pairs=int(pairs), max_abs_err=mx, feats=feats, ms=ms)
+    log("  tolerance: index agreement 100% and max|d| <= 1e-5 (the distance is formed with "
+        "the same f32 op order in both, so the argmin is bit-identical; the features differ "
+        "only by FMA contraction); the same output from two calls")
+    args, slice_layout = first["args"], sets[0]["layout"]
+    B, P, _ = args[0].shape
+    V, Cf = args[2].shape[1:]
+    if res["slice"]["scanned_share"] > 0.35:
+        raise AssertionError(f"K1's search scanned {res['slice']['scanned_share']:.4f} of the "
+                             "slice's pairs (at most 0.35)")
+    build_ms = cuda_ms(lambda: geo.vertex_clusters(args[1]), 5)
+    torch_build_ms = cuda_ms(lambda: geo.vertex_clusters_plain(args[1]), 5)
     plain_ms = cuda_ms(lambda: geo.geo_features_plain(*args, legacy_mode=legacy,
                                                       point_chunk=1024), 1)
-    B, P, _ = inp["points"].shape
-    V, Cf = inp["vfeat"].shape[1:]
-    # ~9 float32 operations a (point, vertex) distance (csrc/geo.cu)
-    bd = bound(9 * B * P * V, 4 * (B * P * (3 + 31 + 1) + B * V * (3 + Cf)), PEAK_F32)
-    log(f"  time: kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound {bd['bound_ms']:.3f} ms "
-        f"({bd['bound_by']})")
-    return feats, dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms, **bd)
+    needed = needed_pairs(args[0], args[1], geo.nearest_vertex(args[0], args[1], 1024)[0])
+    bd = nn_bounds(B, P, V, first["pairs"], needed,
+                   4 * (B * P * (3 + 31 + 1) + B * V * (3 + Cf)))
+    ms = first["ms"]
+    shuffled_ms = res["slice, vertex order shuffled"]["ms"]
+    log(f"  time (slice, its layout {slice_layout}): kernel {ms:.3f} ms, of which the cluster "
+        f"build alone {build_ms:.3f} ms ({build_ms / ms * 100:.1f}%; its plain version on the "
+        f"card {torch_build_ms:.3f} ms); shuffled vertices {shuffled_ms:.3f} ms "
+        f"({(shuffled_ms / ms - 1) * 100:+.1f}%); plain {plain_ms:.3f} ms; bound "
+        f"{bd['bound_ms']:.3f} ms ({bd['bound_by']}: {needed} pairs needed = "
+        f"{bd['needed_share']:.4f} of P x V, x 9 FP32 operations; the search scanned "
+        f"{first['pairs']} = {bd['scanned_share']:.4f}; brute force "
+        f"{bd['brute_force_bound_ms']:.3f} ms)")
+    return first["feats"], dict(max_abs_err=max(r["max_abs_err"] for r in res.values()), ms=ms,
+                                plain_ms=plain_ms, build_ms=build_ms,
+                                torch_build_ms=torch_build_ms, shuffled_ms=shuffled_ms,
+                                sets=res, **bd)
+
+
+def check_geo_train(meta, cond, gcuda):
+    """K1 at the MAP3DBN training shapes (jittered rays, their layout)
+    against its plain version, and its time."""
+    import torch
+
+    from threedhumangan_tpu_torch.models import volume_rendering as vr
+    from threedhumangan_tpu_torch.ops import geo
+
+    S, W, H = meta["num_steps"], meta["render_width"], meta["render_height"]
+    B = cond["scales"].shape[0]
+    pts_cam, z_vals, d_cam = vr.get_initial_rays_weak_perspective(
+        cond["intrinsics"][:, 0, 0], cond["scales"].float(), S, (W, H), meta["ray_start"],
+        meta["ray_end"])
+    pts = vr.transform_sampled_points(pts_cam, z_vals, d_cam, cond["cam2world_matrices"], gcuda,
+                                      True)[0].reshape(B, -1, 3).contiguous()
+    vfeat = geo.build_vertex_features(cond["tpose_vertices"], cond["fk_matrices"],
+                                      cond["lbs_weights"])
+    args = (pts, cond["vertices"].float().contiguous(), vfeat,
+            cond["skeletons_xyz"].float().contiguous())
+    legacy = meta.get("legacy_mode", False)
+    pairs = torch.zeros(1, dtype=torch.int64, device="cuda")
+    feats, idx = geo._geo_cuda(*args, legacy, True, (W, S), pairs)
+    ref, ref_idx = geo.geo_features_plain(*args, legacy_mode=legacy, point_chunk=1024)
+    agree = float((idx.long() == ref_idx).float().mean())
+    mx = diff_stats(feats, ref)[0]
+    ms = cuda_ms(lambda: geo.geo_features(*args, legacy_mode=legacy, ray_layout=(W, S)), 5)
+    P, V = pts.shape[1], args[1].shape[1]
+    needed = needed_pairs(pts, args[1], geo.nearest_vertex(pts, args[1], 1024)[0])
+    bd = nn_bounds(B, P, V, int(pairs), needed, 4 * (B * P * 35 + B * V * 22))
+    log(f"check K1 geo, training shapes {tuple(pts.shape)} x {V} vertices, layout {(W, S)}: "
+        f"index agreement {agree * 100:.6f}%  max|d| {mx:.3e}  scanned {bd['scanned_share']:.4f} "
+        f"of P x V (needed {bd['needed_share']:.4f})  kernel {ms:.3f} ms  bound "
+        f"{bd['bound_ms']:.3f} ms ({bd['bound_by']})")
+    if agree != 1.0 or mx > 1e-5:
+        raise AssertionError("K1 disagrees with its plain version at the training shapes")
+    return dict(max_abs_err=mx, ms=ms, **bd)
 
 
 def check_field(gen, inp, geo_feats, meta):
@@ -675,7 +860,8 @@ def train_field_inputs(G, meta, cond, gcuda):
                                                      cond["cam2world_matrices"], gcuda, True)
         pts = pts.reshape(B, -1, 3)
         geo = get_geo_features(pts, cond["skeletons_xyz"], cond["vertices"],
-                               cond["tpose_vertices"], cond["fk_matrices"], cond["lbs_weights"])
+                               cond["tpose_vertices"], cond["fk_matrices"], cond["lbs_weights"],
+                               ray_layout=(W, S))
         dirs = torch.zeros_like(pts)
         dirs[..., -1] = -1.0
         noise = 0.5 * torch.randn(B, pts.shape[1], 1, generator=gcuda, device="cuda")
@@ -1217,40 +1403,73 @@ SELECTIONS = {"K4": dict(pallas_fold_film=False), "K5": dict(pallas_fuse_geo=Tru
               "K6": dict(pallas_geo=False, pallas_knn=True)}
 
 
-def check_knn(inp):
-    """K6 against its plain version at the slice's shapes; cdist + min as
-    the library yardstick."""
+def check_knn(inp, meta):
+    """K6 against its plain version on the three sets of ``nn_sets``, two
+    calls bit for bit, the scanned pairs; cdist + min as the library
+    yardstick."""
     import torch
 
-    from threedhumangan_tpu_torch.ops import knn
+    from threedhumangan_tpu_torch.ops import geo, knn
 
-    pts, verts = inp["points"], inp["vertices"]
-    run_k = lambda: knn.nn_points_cuda(pts, verts)
-    run_p = lambda: knn.nn_points_plain(pts, verts, point_chunk=1024)
-    (dk, ik), (dp, ip) = run_k(), run_p()
-    torch.cuda.synchronize()
-    agree = float((ik == ip).float().mean())
-    mx = float((dk - dp).abs().max())
-    log(f"check K6 1-NN {tuple(pts.shape)} points x {verts.shape[1]} vertices: index agreement "
-        f"{agree * 100:.6f}%  distance max|d| {mx:.3e}")
+    res, first = {}, None
+    for case in nn_sets(inp, meta):
+        pts, verts, layout = case["points"], case["vertices"], case["layout"]
+        B, P, _ = pts.shape
+        V = verts.shape[1]
+        pairs = torch.zeros(1, dtype=torch.int64, device="cuda")
+        dk, ik = knn.nn_points_cuda(pts, verts, layout, pairs)
+        again = knn.nn_points(pts, verts, layout)
+        dp, ip = knn.nn_points_plain(pts, verts, point_chunk=1024)
+        torch.cuda.synchronize()
+        agree = float((ik == ip).float().mean())
+        mx = float((dk - dp).abs().max())
+        equal = torch.equal(dk, again[0]) and torch.equal(ik, again[1])
+        share = int(pairs) / (B * P * V)
+        ms = cuda_ms(lambda: knn.nn_points_cuda(pts, verts, layout), 5)
+        log(f"check K6 1-NN, {case['name']}: {tuple(pts.shape)} points x {V} vertices, layout "
+            f"{layout}: index agreement {agree * 100:.6f}%  distance max|d| {mx:.3e}  two calls "
+            f"{'bit-equal' if equal else 'DIFFER'}  scanned {share:.4f} of P x V  kernel "
+            f"{ms:.3f} ms")
+        if case["perm"] is not None:
+            d0 = knn.nn_points_plain(inp["points"], inp["vertices"], point_chunk=1024)[0]
+            log(f"  distances equal to the unshuffled plain version's: {torch.equal(dk, d0)}")
+            if not torch.equal(dk, d0):
+                raise AssertionError("K6's distances changed with the vertex order")
+        if agree != 1.0 or mx > 0 or not equal:
+            raise AssertionError(f"K6 disagrees with its plain version ({case['name']})")
+        res[case["name"]] = dict(index_agreement=agree, max_abs_err=mx, ms=ms,
+                                 scanned_share=share)
+        if first is None:
+            first = dict(pts=pts, verts=verts, layout=layout, pairs=int(pairs), ms=ms,
+                         best_d=dp[..., 0])
     log("  tolerance: index agreement 100% and distance max|d| == 0 (the same elementwise f32 "
-        "distance as the plain version, lowest index on ties)")
-    if agree != 1.0 or mx > 0:
-        raise AssertionError("K6 disagrees with its plain version")
-    ms = cuda_ms(run_k, 3)
+        "distance as the plain version, lowest index on ties); the same output from two calls")
+    pts, verts, layout = first["pts"], first["verts"], first["layout"]
+    run_p = lambda: knn.nn_points_plain(pts, verts, point_chunk=1024)
     plain_ms = cuda_ms(run_p, 1)
     # one PyTorch call pair computes the same function: cdist, then min (a
     # (B, P, V) float32 matrix of 32.5 GB at this shape)
     lib_ms = cuda_ms(lambda: torch.cdist(pts, verts).min(-1), 1)
     torch.cuda.empty_cache()
+    build_ms = cuda_ms(lambda: geo.vertex_clusters(verts), 5)
     B, P, _ = pts.shape
     V = verts.shape[1]
-    # ~9 float32 operations a (point, vertex) distance (csrc/nn_scan.cuh)
-    bd = bound(9 * B * P * V, 4 * (B * P * (3 + 1 + 1) + B * V * 3), PEAK_F32)
-    log(f"  time: kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  library (torch.cdist + min, two "
-        f"calls) {lib_ms:.3f} ms  bound {bd['bound_ms']:.3f} ms ({bd['bound_by']})")
-    return dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                library_call="torch.cdist(points, verts).min(-1): two calls", **bd)
+    bd = nn_bounds(B, P, V, first["pairs"], needed_pairs(pts, verts, first["best_d"]),
+                   4 * (B * P * (3 + 1 + 1) + B * V * 3))
+    ms = first["ms"]
+    shuffled_ms = res["slice, vertex order shuffled"]["ms"]
+    if res["slice"]["scanned_share"] > 0.35:
+        raise AssertionError(f"K6's search scanned {res['slice']['scanned_share']:.4f} of the "
+                             "slice's pairs (at most 0.35)")
+    log(f"  time (slice, layout {layout}): kernel {ms:.3f} ms, of which the cluster build "
+        f"alone {build_ms:.3f} ms ({build_ms / ms * 100:.1f}%); shuffled vertices "
+        f"{shuffled_ms:.3f} ms ({(shuffled_ms / ms - 1) * 100:+.1f}%); plain {plain_ms:.3f} ms; "
+        f"library (torch.cdist + min, two calls) {lib_ms:.3f} ms; bound {bd['bound_ms']:.3f} ms "
+        f"({bd['bound_by']}: {bd['needed_share']:.4f} of P x V needed, {bd['scanned_share']:.4f} "
+        f"scanned; brute force {bd['brute_force_bound_ms']:.3f} ms)")
+    return dict(max_abs_err=max(r["max_abs_err"] for r in res.values()), ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, build_ms=build_ms, shuffled_ms=shuffled_ms,
+                sets=res, library_call="torch.cdist(points, verts).min(-1): two calls", **bd)
 
 
 def _narrow_field(H, NB, F=24):
@@ -1564,6 +1783,7 @@ def reset_counts():
 
     for mod in (geo, knn, raymarch, rasterize, synthesis_kernel):
         mod.launches = 0
+    geo.launches_clusters = 0
     raymarch.launches_unfolded = raymarch.launches_geo = 0
     raymarch_bwd.launches_stats = raymarch_bwd.launches_bwd = raymarch_bwd.launches_wgrad = 0
     synthesis_train.launches_fwd = synthesis_train.launches_bwd = 0
@@ -1576,6 +1796,7 @@ def read_counts():
 
     return {"K1": geo.launches, "K2": raymarch.launches, "K3": synthesis_kernel.launches,
             "K4": raymarch.launches_unfolded, "K5": raymarch.launches_geo, "K6": knn.launches,
+            "K1/K6 vertex clusters": geo.launches_clusters,
             "K7": rasterize.launches, "K8": raymarch_bwd.launches_stats,
             "K9": raymarch_bwd.launches_bwd,
             "K9 weight-gradient reduction": raymarch_bwd.launches_wgrad,
@@ -1766,7 +1987,7 @@ def main():
         # K6, K4, K5 at the slice's shapes (a generator of their own keeps
         # the draws of every other phase as they were)
         gsel = torch.Generator(device=dev).manual_seed(SEED + 4)
-        k6 = check_knn(inp)
+        k6 = check_knn(inp, meta)
         k4 = check_unfolded(gen, inp, geo_feats, meta, gsel)
         k5 = check_geo_fused(gen, inp, meta, gsel)
     del inp, geo_feats
@@ -1804,6 +2025,7 @@ def main():
     ts = init_train_state(tmeta, torch.Generator().manual_seed(SEED), dev)
     tcond = tpre(tbatch, rotate=True, generator=gcuda)
     k7 = check_raster(tpre, tcond, tmeta)
+    k1_train = check_geo_train(tmeta, tcond, torch.Generator(device=dev).manual_seed(SEED + 8))
     k2_train, k8, k9 = check_field_bwd(ts.G, tmeta, tcond, gcuda)
     k4_train, k5_train = check_train_unfolded(ts.G, tmeta, tcond,
                                               torch.Generator(device=dev).manual_seed(SEED + 6))
@@ -1839,7 +2061,9 @@ def main():
     tc, fc = per_op["counts"], fused["counts"]
     kernels = [
         dict(name="K1 geo features", route="cuda", source=src + "geo.cu",
-             replaces="threedhumangan_tpu/ops/geo.py:94", launches=counts["K1"], **k1),
+             replaces="threedhumangan_tpu/ops/geo.py:94", launches=counts["K1"],
+             search_source=src + "nn_prune.cuh", build_source=src + "nn_clusters.cu",
+             training_shapes=k1_train, **k1),
         dict(name="K2 folded field render", route="cuda", source=src + "raymarch.cu",
              replaces="threedhumangan_tpu/ops/raymarch.py:525", launches=counts["K2"],
              training_shapes=k2_train, **k2),
@@ -1877,7 +2101,7 @@ def main():
              launches=sel_runs["K5"]["counts"]["K5"], training_shapes=k5_train, **k5),
         dict(name="K6 1-NN search", route="cuda", source=src + "knn.cu",
              replaces="threedhumangan_tpu/ops/knn.py:80", launches=sel_runs["K6"]["counts"]["K6"],
-             **k6),
+             search_source=src + "nn_prune.cuh", build_source=src + "nn_clusters.cu", **k6),
     ]
     # time above the bound, ms per iteration of the kernel's main path(s):
     # launches per batch (generation; K4-K6 on their selections) or per

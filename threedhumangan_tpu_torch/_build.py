@@ -34,8 +34,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: argument types; every one returns cudaGetLastError()
 SIGNATURES = {
-    # pts, verts, vfeat, skel, out, idx, B, P, V, J, legacy, stream
-    "thgt_geo": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # pts, table, boxes, vfeat, skel, out, idx, pairs (or null), B, P, V,
+    # n_clusters, J, legacy, row_len, steps, stream
+    "thgt_geo": [_P] * 8 + [_I] * 8 + [_P],
+    # verts, table, boxes, B, V, n_clusters, stream
+    "thgt_nn_clusters": [_P] * 3 + [_I] * 3 + [_P],
     # packed, z, weight stream, b_first, b_net, w_color_d, b_color, b_sigma,
     # b_head, out, depth, B, R, S, n_cols, n_in, H, k0p, n0p, hp, nc, headp,
     # n_blocks, out_width, white_back, last_back, exact_sin, stream bytes,
@@ -43,8 +46,9 @@ SIGNATURES = {
     "thgt_raymarch": [_P] * 11 + [_I] * 16 + [ctypes.c_longlong, _P],
     # k0p, n0p, hp, nc, headp, ring (2 ints out); returns K2's shared memory
     "thgt_raymarch_smem": [_I] * 5 + [_P],
-    # pts, verts, dist, idx, B, P, V, stream
-    "thgt_nn": [_P] * 4 + [_I] * 3 + [_P],
+    # pts, table, boxes, dist, idx, pairs (or null), B, P, V, n_clusters,
+    # row_len, steps, stream
+    "thgt_nn": [_P] * 6 + [_I] * 6 + [_P],
     # packed (f32), z, weight stream (its forward half), b_first, b_net,
     # freq, phase, w_color_d, w_sigma, b_color, b_sigma, b_head, out, depth,
     # the 14 ints of thgt_field_stats, white_back, last_back, stream bytes,

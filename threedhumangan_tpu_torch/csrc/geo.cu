@@ -5,50 +5,51 @@
 //
 // Replaces threedhumangan_tpu/ops/geo.py::_geo_kernel (Pallas, TPU).
 //
-// What bounds it on an H100: the 1-NN scan is points x vertices distance
-// evaluations (147,456 x 6,844 per image at the 512L shape, 8.1e9 per
-// batch of 8), each ~9 FP32 instructions — FP32 issue-bound; the output
-// (31 floats a point) is a minor byte stream.  A K=4 distance product is no
-// tensor-core shape, so the TPU's MXU formulation does not carry over.
+// What bounds it on an H100: the FP32 instructions of the distances the
+// search must evaluate (~9 a (point, vertex) pair; a brute-force scan is
+// 147,456 x 6,844 pairs per image at the 512L shape), or the output stream
+// (31 floats a point) when the search scans few pairs.  A K=4 distance
+// product is no tensor-core shape, so the TPU's MXU formulation does not
+// carry over.
 //
-// Design: one thread per point, 256 points per CTA.  The CTA stages the
-// image's vertex table into shared memory in chunks (every thread then reads
-// the same vertex: a broadcast, no bank conflicts) and each thread scans it
-// with a strict-less compare, which keeps the lowest index on exact ties
-// (nn_scan.cuh, shared with K5 and K6: the distance is formed in the plain
-// PyTorch version's elementwise op order, so the argmin is bit-identical to
-// it).  The winner's 19-float feature row is one indexed global load (the
-// TPU's one-hot gather matmul has no place here); joint distances read a
-// shared-memory skeleton.
+// Design: the pruned warp search of nn_prune.cuh on the clusters that
+// nn_clusters.cu builds for each image (the wrapper launches both): a warp a
+// tile of 32 points that lie close together (a step pair over a 4 x 4 patch
+// of rays when the caller passes the ray layout), 16 warps a CTA, the
+// image's cluster table staged into shared memory by one bulk copy while
+// the warps form their clusters' lower bounds; only the clusters whose
+// bound does not exceed the warp's largest current best are scanned, and
+// the argmin is the plain version's bit for bit.  The winner's 19-float
+// feature row is one indexed global load (the TPU's one-hot gather matmul
+// has no place here); joint distances read a shared-memory skeleton.
 #include <cuda_runtime.h>
 
-#include "nn_scan.cuh"
+#include "nn_prune.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kChunk = 2048;  // vertices staged per pass: 2048 x 16 B = 32 KB
 constexpr int kMaxJoints = 32;
 constexpr int kVfeat = 19;
 constexpr int kGeo = 31;
 
-__global__ void __launch_bounds__(kThreads) geo_kernel(
-    const float* __restrict__ pts, const float* __restrict__ verts,
-    const float* __restrict__ vfeat, const float* __restrict__ skel,
-    float* __restrict__ out, int* __restrict__ idx_out, int P, int V, int J, int legacy) {
-  __shared__ float4 sv[kChunk];
+template <bool kCount>
+__global__ void __launch_bounds__(nnp::kThreads, 2) geo_kernel(
+    const float* __restrict__ pts, const float4* __restrict__ table,
+    const float4* __restrict__ boxes, const float* __restrict__ vfeat,
+    const float* __restrict__ skel, float* __restrict__ out, int* __restrict__ idx_out,
+    unsigned long long* __restrict__ pairs_out, int P, int V, int n_clusters, int J, int legacy,
+    nnp::Tiles tiles) {
+  extern __shared__ float4 sv[];
   __shared__ float sskel[kMaxJoints * 3];
+  __shared__ uint64_t bar;
   const int b = blockIdx.y;
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-  const bool valid = p < P;
-  const float* pb = pts + ((size_t)b * P + (valid ? p : 0)) * 3;
-  const float px = pb[0], py = pb[1], pz = pb[2];
-  for (int j = threadIdx.x; j < J * 3; j += kThreads) sskel[j] = skel[(size_t)b * J * 3 + j];
-
-  float best;
+  for (int j = threadIdx.x; j < J * 3; j += nnp::kThreads) sskel[j] = skel[(size_t)b * J * 3 + j];
+  int p;
+  float px, py, pz, best;
   int best_i;
-  thgt::nn_scan_cta(verts + (size_t)b * V * 3, V, sv, kChunk, px, py, pz, best, best_i);
-  if (!valid) return;
+  if (!nnp::tile_search<kCount>(pts, table, boxes, pairs_out, P, V, n_clusters, tiles, sv, &bar,
+                                p, px, py, pz, best, best_i))
+    return;
 
   const float* g = vfeat + ((size_t)b * V + best_i) * kVfeat;
   float gf[kVfeat];
@@ -77,11 +78,21 @@ __global__ void __launch_bounds__(kThreads) geo_kernel(
 
 }  // namespace
 
-extern "C" int thgt_geo(const float* pts, const float* verts, const float* vfeat,
-                        const float* skel, float* out, int* idx, int B, int P, int V, int J,
-                        int legacy, cudaStream_t stream) {
+// table / boxes: ops/geo.py::vertex_clusters of the vertices; pairs: null,
+// or a counter that receives the (point, vertex) pairs scanned; row_len > 0
+// passes the points' ray layout (row_len rays a row, steps points a ray).
+extern "C" int thgt_geo(const float* pts, const float* table, const float* boxes,
+                        const float* vfeat, const float* skel, float* out, int* idx,
+                        unsigned long long* pairs, int B, int P, int V, int n_clusters, int J,
+                        int legacy, int row_len, int steps, cudaStream_t stream) {
   if (J > kMaxJoints || J + 7 != kGeo) return (int)cudaErrorInvalidValue;
-  dim3 grid((P + kThreads - 1) / kThreads, B);
-  geo_kernel<<<grid, kThreads, 0, stream>>>(pts, verts, vfeat, skel, out, idx, P, V, J, legacy);
-  return (int)cudaGetLastError();
+  if (int err = nnp::check_args(B, P, V, n_clusters, row_len, steps)) return err;
+  const nnp::Tiles tiles = nnp::make_tiles(P, row_len, steps);
+  const auto go = [&](auto kernel) {
+    return nnp::launch(kernel, tiles, B, n_clusters, stream, pts,
+                       reinterpret_cast<const float4*>(table),
+                       reinterpret_cast<const float4*>(boxes), vfeat, skel, out, idx, pairs, P,
+                       V, n_clusters, J, legacy, tiles);
+  };
+  return pairs ? go(geo_kernel<true>) : go(geo_kernel<false>);
 }

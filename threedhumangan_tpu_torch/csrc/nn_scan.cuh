@@ -1,4 +1,5 @@
-// The 1-NN scan shared by K1 (geo.cu), K6 (knn.cu) and K5 (field_core.cuh).
+// The 1-NN distance, tie rule and vertex staging of K5's scan (field_core.cuh),
+// whose distance and tie rule K1's and K6's pruned search (nn_prune.cuh) use too.
 //
 // The squared distance is formed elementwise, ((px-vx)^2 + (py-vy)^2) +
 // (pz-vz)^2, with __fsub_rn/__fmul_rn/__fadd_rn: every op rounded once and
@@ -35,27 +36,6 @@ __device__ __forceinline__ void nn_stage(const float* vb, int v0, int n, float4*
     sv[i] = make_float4(v[0], v[1], v[2], 0.f);
   }
   __syncthreads();
-}
-
-// One thread per point: scan all V vertices of the image in chunks of
-// `chunk` staged in `sv`, keeping the running (best, best_i) with a
-// strict-less compare, so the lowest index wins exact ties.  Every thread
-// of the CTA must call it (threads without a point pass any coordinates).
-__device__ __forceinline__ void nn_scan_cta(const float* vb, int V, float4* sv, int chunk, float px,
-                                            float py, float pz, float& best, int& best_i) {
-  best = __int_as_float(0x7f800000);  // +inf
-  best_i = 0;
-  for (int v0 = 0; v0 < V; v0 += chunk) {
-    const int n = min(chunk, V - v0);
-    nn_stage(vb, v0, n, sv);
-    for (int i = 0; i < n; ++i) {
-      const float d = nn_dist(px, py, pz, sv[i]);
-      if (d < best) {
-        best = d;
-        best_i = v0 + i;
-      }
-    }
-  }
 }
 
 }  // namespace thgt

@@ -183,7 +183,7 @@ def render(gen: Map3DGenerator, freq, phase, conditions: Dict, meta: Dict,
                 f32(conditions["tpose_vertices"]), f32(conditions["fk_matrices"]),
                 f32(conditions["lbs_weights"]), legacy_mode=meta.get("legacy_mode", False),
                 use_pallas_knn=meta.get("pallas_knn", True),
-                use_pallas_geo=meta.get("pallas_geo", True))
+                use_pallas_geo=meta.get("pallas_geo", True), ray_layout=(render_w, S))
     with stage("field"):
         noise = None
         if noise_std != 0:

@@ -191,7 +191,7 @@ def synthetic_smpl_model(seed: int = 0, num_verts: int = 384, num_faces: int = 5
 
 def get_geo_features(points, skeletons, vertices, tpose_vertices, fk_matrices, lbs_weights,
                      legacy_mode: bool = False, use_pallas_knn: bool = True,
-                     use_pallas_geo: bool = True) -> torch.Tensor:
+                     use_pallas_geo: bool = True, ray_layout=None) -> torch.Tensor:
     """Per-point 31-d geometric conditioning (JAX smpl.py:331-405): 24 joint
     distances, inverse-LBS canonicalised coords and T-pose coords of the
     nearest posed vertex, and that vertex's distance.
@@ -205,11 +205,14 @@ def get_geo_features(points, skeletons, vertices, tpose_vertices, fk_matrices, l
     runs) runs the whole stage through ``ops.geo.geo_features`` (K1).
     Otherwise the stage runs in torch as the JAX XLA branch, with the 1-NN
     from ``ops.knn.nn_points`` (K6) under ``use_pallas_knn`` or from the
-    plain ``ops.knn.knn_points`` without it."""
+    plain ``ops.knn.knn_points`` without it.  ``ray_layout`` = (rays a row,
+    points a ray) when the points are rays x steps lets K1 and K6 tile points
+    that lie close together; the result does not depend on it."""
     c = lambda t: t.float().contiguous()
     if use_pallas_geo:
         vfeat = build_vertex_features(tpose_vertices, fk_matrices, lbs_weights)
-        return geo_features(c(points), c(vertices), vfeat, c(skeletons), legacy_mode=legacy_mode)
+        return geo_features(c(points), c(vertices), vfeat, c(skeletons), legacy_mode=legacy_mode,
+                            ray_layout=ray_layout)
     B, P, _ = points.shape
     V = vertices.shape[1]
     points = c(points)
@@ -218,7 +221,7 @@ def get_geo_features(points, skeletons, vertices, tpose_vertices, fk_matrices, l
     ik = torch.linalg.inv_ex(fk_matrices.float()).inverse  # no error check: no host sync
     vertex_ik = torch.einsum("bvj,bjkl->bvkl", lbs_weights.float(), ik)
     if use_pallas_knn:
-        d2, idx = nn_points(points, c(vertices))
+        d2, idx = nn_points(points, c(vertices), ray_layout)
     else:
         d2, idx = knn_points(points, vertices, k=1)
     point_ik = knn_gather(vertex_ik.reshape(B, V, 16), idx)[:, :, 0].reshape(B, P, 4, 4)

@@ -9,7 +9,9 @@ the XLA formulation it runs with both off.
 ``nn_points_plain`` on a CPU tensor.  Both form the squared distance
 elementwise, in the op order of ``ops.geo.nearest_vertex`` (which the plain
 version is), so the kernel's argmin — lowest index on exact ties — is
-bit-identical to the plain version's.  The TPU kernel expands
+bit-identical to the plain version's.  The kernel is K1's pruned search on
+``ops.geo.vertex_clusters`` without the features, and takes K1's
+``ray_layout``.  The TPU kernel expands
 ``|p|^2 - 2 p.v + |v|^2`` for its matrix unit; the two forms differ by float32
 rounding only.
 
@@ -25,7 +27,8 @@ from typing import Tuple
 import torch
 
 from threedhumangan_tpu_torch import _build
-from threedhumangan_tpu_torch.ops.geo import nearest_vertex
+from threedhumangan_tpu_torch.ops.geo import (pairs_ptr, nearest_vertex, ray_layout_args,
+                                              vertex_clusters)
 
 launches = 0  # K6 launches (the CUDA path only)
 
@@ -67,19 +70,24 @@ def nn_points_plain(points: torch.Tensor, verts: torch.Tensor,
     return d[..., None], i.to(torch.int32)[..., None]
 
 
-def nn_points(points: torch.Tensor, verts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def nn_points(points: torch.Tensor, verts: torch.Tensor,
+              ray_layout=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """1-NN of (B, P, 3) points among (B, V, 3) vertices: (squared distance
     (B, P, 1) float32, index (B, P, 1) int32).  CUDA tensors launch K6; CPU
-    tensors take ``nn_points_plain``."""
+    tensors take ``nn_points_plain``.  ``ray_layout`` as in
+    ``ops.geo.geo_features``: the result does not depend on it."""
     if points.device.type == "cpu":
+        ray_layout_args(points.shape[1], ray_layout)
         return nn_points_plain(points, verts)
     if points.device.type != "cuda":
         raise ValueError(f"nn_points: unsupported device {points.device}")
-    return nn_points_cuda(points, verts)
+    return nn_points_cuda(points, verts, ray_layout)
 
 
-def nn_points_cuda(points: torch.Tensor, verts: torch.Tensor):
-    """Launch K6; same contract as ``nn_points_plain``."""
+def nn_points_cuda(points: torch.Tensor, verts: torch.Tensor, ray_layout=None,
+                   pairs: torch.Tensor | None = None):
+    """Launch the cluster build and K6; same contract as
+    ``nn_points_plain``.  ``pairs`` as in ``ops.geo._geo_cuda``."""
     global launches
     B, P, _ = points.shape
     V = verts.shape[1]
@@ -92,13 +100,16 @@ def nn_points_cuda(points: torch.Tensor, verts: torch.Tensor):
             raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
     if V == 0:
         raise ValueError("verts: no vertices")
+    row_len, steps = ray_layout_args(P, ray_layout)
+    table, boxes = vertex_clusters(verts)
     dist = torch.empty(B, P, 1, dtype=torch.float32, device=dev)
     idx = torch.empty(B, P, 1, dtype=torch.int32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.thgt_nn(points.data_ptr(), verts.data_ptr(), dist.data_ptr(), idx.data_ptr(),
-                          B, P, V, stream)
+        err = lib.thgt_nn(points.data_ptr(), table.data_ptr(), boxes.data_ptr(), dist.data_ptr(),
+                          idx.data_ptr(), pairs_ptr(pairs, dev), B, P, V, boxes.shape[1],
+                          row_len, steps, stream)
     _build.check(err, "thgt_nn")
     launches += 1
     return dist, idx
