@@ -37,12 +37,14 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
                 the plain f32 X^T Y at K9's ragged widths; K9's call split
                 into host glue, bodies, each weight-gradient product (beside
                 its bound and torch.matmul) and host sums, K8's into glue
-                and body, with their ptxas line.
+                and body, with their ptxas line; the synchronizing calls of
+                one preprocess call (torch.cuda.set_sync_debug_mode).
   6. train    — the MAP3DBN D+G+R1 step at batch 8 in bf16, phase slot 3
                 (R1 on), nerf noise 0.5, lr_d 4e-4 / lr_g 1e-4, per-op
                 synthesis (``pallas_synthesis_train=False``): 2 warm-up + 5
                 timed pair steps through ``train_step_pair``, per-stage
-                ms/pair, imgs/s, peak memory; losses finite, parameters
+                ms/pair (the preprocess stage split into camera, binning, K7
+                and post), imgs/s, peak memory; losses finite, parameters
                 moved, K1, K2, K7, K8 and K9 launched; and a TINY D+G step on
                 the card against the same step on the CPU.
   7. check    — K10/K11 against their plain versions (and K11 against
@@ -728,6 +730,114 @@ class PairTimer(StageTimer):
 
         torch.cuda.synchronize()
         return {k: sum(s.elapsed_time(e) for s, e in v) / pairs for k, v in self.events.items()}
+
+
+class PreprocessSplit:
+    """The trainer's preprocess stage in four parts, by CUDA events, summed
+    over a pair's D and G calls: camera (the camera math and the projection),
+    binning (``bin_candidates``), K7 and post (untiling, argmax, gathers,
+    labels).  Stands in for the preprocessor; while ``patched``, the
+    rasterizer's binning and K7 entry record their own events."""
+
+    PARTS = ("camera", "binning", "K7", "post")
+
+    def __init__(self, pre):
+        self.pre = pre
+        self.on = False
+        self.calls = []
+
+    def __getattr__(self, name):
+        return getattr(self.pre, name)
+
+    def _event(self, key):
+        import torch
+
+        if self.on:
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            self.calls[-1][key] = e
+
+    def _timed(self, fn, *args):
+        if self.on:
+            self.calls.append({})
+        self._event("start")
+        out = fn(*args)
+        self._event("end")
+        return out
+
+    def __call__(self, data, rotate, generator):
+        return self._timed(self.pre, data, rotate, generator)
+
+    def forward_with_rotation(self, data, h, v, r):
+        return self._timed(self.pre.forward_with_rotation, data, h, v, r)
+
+    @contextlib.contextmanager
+    def patched(self):
+        from threedhumangan_tpu_torch.ops import rasterize as ras
+
+        def wrap(fn, before, after):
+            def run(*args, **kw):
+                self._event(before)
+                out = fn(*args, **kw)
+                self._event(after)
+                return out
+            return run
+
+        saved = ras.bin_candidates, ras.rasterize_tiles_cuda
+        ras.bin_candidates = wrap(saved[0], "bin0", "bin1")
+        ras.rasterize_tiles_cuda = wrap(saved[1], "k0", "k1")
+        try:
+            yield self
+        finally:
+            ras.bin_candidates, ras.rasterize_tiles_cuda = saved
+
+    def per_pair_ms(self, pairs):
+        import torch
+
+        torch.cuda.synchronize()
+        ms = dict.fromkeys(self.PARTS, 0.0)
+        for c in self.calls:
+            bin0, bin1 = c.get("bin0", c["k0"]), c.get("bin1", c["k0"])
+            for part, (a, b) in zip(self.PARTS, ((c["start"], bin0), (bin0, bin1),
+                                                 (c["k0"], c["k1"]), (c["k1"], c["end"]))):
+                ms[part] += a.elapsed_time(b) / pairs
+        return ms
+
+
+def count_syncs(fn):
+    """Synchronizing CUDA calls that ``torch.cuda.set_sync_debug_mode``
+    reports during fn()."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def check_preprocess_syncs(tpre, tbatch, tmeta, gen):
+    """Synchronizing calls of one preprocess call: the camera half (the same
+    preprocessor without faces) and ``_forward_rasterize``."""
+    import torch
+
+    from threedhumangan_tpu_torch.data.preprocessor import get_preprocessor
+
+    cam = get_preprocessor(tmeta)
+    cond = cam(tbatch, rotate=True, generator=gen)
+    tpre._forward_rasterize(cond)  # the first call per device may copy the faces
+    torch.cuda.synchronize()
+    n_cam = count_syncs(lambda: cam(tbatch, rotate=True, generator=gen))
+    n_ras = count_syncs(lambda: tpre._forward_rasterize(cond))
+    log(f"preprocess: synchronizing calls in one call (torch.cuda.set_sync_debug_mode): camera "
+        f"half {n_cam}, _forward_rasterize {n_ras}")
+    return dict(camera=n_cam, rasterize=n_ras)
 
 
 def train_meta():
@@ -1818,17 +1928,20 @@ def run_train_slice(ts, batch, pre, meta, gcuda):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     walls = []
-    for it in range(WARMUP + TIMED):
-        timer.on = it >= WARMUP
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ts, stats = train_step_pair(ts, batch, gcuda, meta, pre, phase, 1e-4, 4e-4, 0.5,
-                                    stage=timer.stage)
-        torch.cuda.synchronize()
-        if timer.on:
-            walls.append(time.perf_counter() - t0)
+    split = PreprocessSplit(pre)
+    with split.patched():
+        for it in range(WARMUP + TIMED):
+            timer.on = split.on = it >= WARMUP
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ts, stats = train_step_pair(ts, batch, gcuda, meta, split, phase, 1e-4, 4e-4, 0.5,
+                                        stage=timer.stage)
+            torch.cuda.synchronize()
+            if timer.on:
+                walls.append(time.perf_counter() - t0)
     counts = read_counts()
     stage_ms = timer.per_pair_ms(TIMED)
+    split_ms = split.per_pair_ms(TIMED)
     log(f"train ({'fused K10/K11' if fused else 'per-op'} synthesis): MAP3DBN D+G+R1 batch "
         f"{BATCH} bf16, phase slot 3, {TIMED} timed pair steps after {WARMUP} warm-up")
     labels = {"preprocess": "preprocess (camera + K7), D and G", "d_fakes": "D-step fakes",
@@ -1837,6 +1950,9 @@ def run_train_slice(ts, batch, pre, meta, gcuda):
               "g_optimizer": "G optimizer + EMA"}
     for k, lab in labels.items():
         log(f"  stage {lab:<36} {stage_ms.get(k, float('nan')):9.3f} ms/pair")
+        if k == "preprocess":
+            log("    split, ms/pair: " + ", ".join(f"{p} {v:.3f}" for p, v in split_ms.items())
+                + f" (sum {sum(split_ms.values()):.3f})")
     total = sum(walls) / len(walls)
     top = sum(v for k, v in stage_ms.items() if k != "d_r1")
     log(f"  total {total * 1e3:.3f} ms/pair (host clock)  {BATCH / total:.3f} imgs/s  "
@@ -1865,7 +1981,8 @@ def run_train_slice(ts, batch, pre, meta, gcuda):
     if not fused and counts["K10"] + counts["K11"]:
         raise AssertionError(f"the per-op path launched K10/K11: {counts}")
     return dict(counts=counts, ms_per_pair=total * 1e3, imgs_per_s=BATCH / total,
-                peak_gib=torch.cuda.max_memory_allocated() / 2**30, stage_ms=stage_ms)
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30, stage_ms=stage_ms,
+                preprocess_ms=split_ms)
 
 
 def run_trainer(smpl):
@@ -2025,6 +2142,8 @@ def main():
     ts = init_train_state(tmeta, torch.Generator().manual_seed(SEED), dev)
     tcond = tpre(tbatch, rotate=True, generator=gcuda)
     k7 = check_raster(tpre, tcond, tmeta)
+    syncs = check_preprocess_syncs(tpre, tbatch, tmeta,
+                                   torch.Generator(device=dev).manual_seed(SEED + 9))
     k1_train = check_geo_train(tmeta, tcond, torch.Generator(device=dev).manual_seed(SEED + 8))
     k2_train, k8, k9 = check_field_bwd(ts.G, tmeta, tcond, gcuda)
     k4_train, k5_train = check_train_unfolded(ts.G, tmeta, tcond,
@@ -2071,7 +2190,8 @@ def main():
              replaces="threedhumangan_tpu/ops/synthesis_kernel.py:91", launches=counts["K3"],
              **k3),
         dict(name="K7 rasterizer tile z-test", route="cuda", source=src + "rasterize.cu",
-             replaces="threedhumangan_tpu/ops/rasterize.py:335", launches=tc["K7"], **k7),
+             replaces="threedhumangan_tpu/ops/rasterize.py:335", launches=tc["K7"],
+             preprocess_ms_per_pair_fused=fused["preprocess_ms"], preprocess_syncs=syncs, **k7),
         dict(name="K8 field backward stats", route="cuda", source=src + "field_core.cuh",
              entry_source=src + "raymarch_bwd.cu",
              replaces="threedhumangan_tpu/ops/raymarch_bwd.py:132", launches=tc["K8"], **k8),
