@@ -871,39 +871,177 @@ def rel_l2(got, ref):
     return float((got - ref).norm() / (ref.norm() + 1e-30))
 
 
-def check_raster(pre, cond, meta):
+def raster_adversarial(size, tile, B=2):
+    """A mesh for K7's corner cases, per image: 2,000 slivers (rounded denom
+    in (1e-9, 1e-6]) along pixel rows and columns, 1,000 triangles with
+    their corners on pixel centres (edges through further centres), and one
+    triangle 2,100 times with equal z (the lowest index wins, across the
+    kernel's 1,024-row chunks, and the cap binds); nothing reaches the
+    last tile column, so its tiles are empty.  (verts (B, 3 F, 3), faces
+    (F, 3)) on the card."""
+    import numpy as np
     import torch
 
     from threedhumangan_tpu_torch.ops import rasterize as ras
 
-    H, W, tile = meta["gen_height"], meta["gen_width"], pre.raster_tile
-    F = pre.faces.shape[0]
-    K = -(-min(pre.raster_faces_per_tile, F) // 128) * 128
-    _, tiles_x, xs, ys, span = ras._grid((H, W), tile)
-    tri = ras.bin_candidates(pre.screen_vertices(cond), pre.faces.cuda(), (H, W), tile, K)
-    run_k = lambda: ras.rasterize_tiles_cuda(tri, tiles_x, tile, xs, ys, span)
-    run_p = lambda: ras.rasterize_tiles_plain(tri, tiles_x, tile, xs, ys, span)
-    (fk, bk, zk), (fp, bp, zp) = run_k(), run_p()
-    torch.cuda.synchronize()
-    agree = float((fk == fp).float().mean())
-    cover = fp >= 0
-    bmx = float((bk - bp).abs().max())
-    zmx = float(torch.where(cover, (zk - zp).abs(), torch.zeros_like(zk)).max())
-    log(f"check K7 rasterizer {tuple(tri.shape)} candidates, {F} faces: face-id agreement "
-        f"{agree * 100:.6f}% (coverage {float(cover.float().mean()) * 100:.2f}%), bary max|d| "
-        f"{bmx:.3e}, z max|d| {zmx:.3e}")
+    H, W = size
+    tiles_y, tiles_x, x_step, y_step, span = ras._grid(size, tile)
+    f32 = np.float32
+    cols, rows = np.arange(W), np.arange(H)
+    px = (f32(-span) + f32((cols // tile) * tile) * x_step) + f32(cols % tile) * x_step
+    py = (f32(-1.0) + f32((rows // tile) * tile) * y_step) + f32(rows % tile) * y_step
+    last = (tiles_x - 1) * tile - 2  # the columns left of the last tile column
+    images = []
+    for b in range(B):
+        rs = np.random.RandomState(SEED + 20 + b)
+        tris = []
+        while len(tris) < 2000:
+            a = np.asarray([px[rs.randint(last // 2)], py[rs.randint(H)]], f32)
+            L = f32(rs.uniform(0.05, 0.4))
+            h = f32(10 ** rs.uniform(-8.7, -5.7) / L * rs.choice([-1, 1]))
+            t = f32(rs.uniform())
+            b_, c_ = ((a + [L, 0], a + [t * L, h]) if rs.rand() < 0.5
+                      else (a + [0, L], a + [h, t * L]))
+            tri = np.stack([a, b_, c_]).astype(f32)
+            v0, v1 = tri[1] - tri[0], tri[2] - tri[0]
+            denom = f32(v0[0] * v1[1]) - f32(v0[1] * v1[0])
+            if 1e-9 < abs(denom) <= 1e-6 and tri[:, 0].max() < px[last]:
+                tris.append(np.concatenate([tri, rs.uniform(1, 2, (3, 1))], 1))
+        for _ in range(1000):
+            i, j = rs.randint(0, last - 16), rs.randint(0, H - 16)
+            di, dj = rs.randint(1, 16, 2)
+            corners = [(i, j), (i + di, j), (i, j + dj), (i + di, j + dj)]
+            tris.append([[px[x], py[y], 1.0 + rs.rand()]
+                         for x, y in (corners[k] for k in rs.permutation(4)[:3])])
+        dup = [[px[2], py[2], 1.5], [px[last], py[H // 2], 1.5], [px[2], py[H - 3], 1.5]]
+        tris += [dup] * 2100
+        images.append(np.asarray(tris, f32).reshape(-1, 3))
+    F = len(images[0]) // 3
+    return (torch.as_tensor(np.stack(images), device="cuda"),
+            torch.arange(3 * F, device="cuda").reshape(F, 3))
+
+
+def raster_needed_pairs(verts, faces, size, tile, K):
+    """The (pixel, candidate) pairs these inputs need of K7: for each tile's
+    valid candidates within the cap, the tile's pixels whose centre lies
+    inside the candidate's bounding box; and all (pixel, valid candidate)
+    pairs."""
+    import torch
+
+    from threedhumangan_tpu_torch.ops import rasterize as ras
+
+    tri = ras.bin_candidates(verts, faces, size, tile, K)
+    T = tri.shape[1]
+    _, tiles_x, x_step, y_step, span = ras._grid(size, tile)
+    f32, dev = torch.float32, verts.device
+    t, i = torch.arange(T, device=dev)[:, None], torch.arange(tile, device=dev)[None]
+    x0 = -span + ((t % tiles_x) * tile).to(f32) * float(x_step)
+    y0 = -1.0 + ((t // tiles_x) * tile).to(f32) * float(y_step)
+    px, py = x0 + i.to(f32) * float(x_step), y0 + i.to(f32) * float(y_step)  # (T, tile)
+    xs, ys = tri[..., 0:9:3], tri[..., 1:9:3]
+    inside = lambda c, lo, hi: ((c[None, :, None] >= lo[..., None])
+                                & (c[None, :, None] <= hi[..., None])).sum(-1)
+    nx = inside(px, xs.amin(-1), xs.amax(-1))
+    ny = inside(py, ys.amin(-1), ys.amax(-1))
+    valid = tri[..., 9] > 0
+    return int((nx * ny * valid).sum()), int(valid.sum()) * tile * tile
+
+
+def raster_paths(tile):
+    """K7's CUDA path and its plain version, both (face, bary, z) in image
+    layout: (verts, faces, size, K[, pairs])."""
+    from threedhumangan_tpu_torch.ops import rasterize as ras
+
+    def kernel(verts, faces, size, K, pairs=None):
+        _, tiles_x, xs, ys, span = ras._grid(size, tile)
+        tri = ras.bin_candidates(verts, faces, size, tile, K)
+        return [ras._untile(x, size, tile) for x in
+                ras.rasterize_tiles_cuda(tri, tiles_x, tile, xs, ys, span, pairs)]
+
+    def plain(verts, faces, size, K):
+        _, tiles_x, xs, ys, span = ras._grid(size, tile)
+        tri = ras.bin_candidates(verts, faces, size, tile, K)
+        return [ras._untile(x, size, tile) for x in
+                ras.rasterize_tiles_plain(tri, tiles_x, tile, xs, ys, span)]
+
+    return kernel, plain
+
+
+def check_raster(pre, cond, meta):
+    """K7 against its plain version, bit for bit: on the training slice's
+    inputs, with the cap at 256 faces a tile, and on ``raster_adversarial``;
+    two calls bit for bit; its ptxas line (a spill fails); its time, its
+    binning's, the plain version's, the recounted bound and the share of
+    (pixel, valid candidate) pairs it tested."""
+    import torch
+
+    from threedhumangan_tpu_torch.ops import rasterize as ras
+
+    size, tile = (meta["gen_height"], meta["gen_width"]), pre.raster_tile
+    verts, faces = pre.screen_vertices(cond), pre.faces.cuda()
+    F = faces.shape[0]
+    kcap = lambda kmax, F: -(-min(kmax, F) // 128) * 128
+    kernel, plain = raster_paths(tile)
+    adv_v, adv_f = raster_adversarial(size, tile)
+    cases = [("training slice", verts, faces, kcap(pre.raster_faces_per_tile, F)),
+             ("cap 256", verts, faces, kcap(256, F)),
+             ("adversarial", adv_v, adv_f, kcap(pre.raster_faces_per_tile, adv_f.shape[0]))]
     log("  tolerance: 100% face-id agreement and bary/z max|d| == 0 (the kernel rounds every "
-        "step in the plain version's op order, and the lowest candidate row wins z ties)")
-    if agree != 1.0 or bmx > 0 or zmx > 0:
-        raise AssertionError("K7 disagrees with its plain version")
-    ms = cuda_ms(run_k, 5)
-    plain_ms = cuda_ms(run_p, 1)
-    # ~20 float32 operations a (pixel, valid candidate) pair (csrc/rasterize.cu)
-    n_valid = int((tri[..., 9] > 0).sum())
-    bd = bound(20 * n_valid * tile * tile, tri.numel() * 4 + fk.numel() * 4 * 5, PEAK_F32)
-    log(f"  time: kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound {bd['bound_ms']:.3f} ms "
-        f"({bd['bound_by']}, {n_valid} valid candidates)")
-    return dict(max_abs_err=bmx, ms=ms, plain_ms=plain_ms, **bd)
+        "step in the plain version's op order, skips only candidates that a bound under that "
+        "rounding rules out, and the lowest candidate row wins z ties)")
+    bad, worst = [], 0.0
+    for name, v, f, K in cases:
+        (fk, bk, zk), (fp, bp, zp) = kernel(v, f, size, K), plain(v, f, size, K)
+        torch.cuda.synchronize()
+        agree = float((fk == fp).float().mean())
+        bmx, zmx = float((bk - bp).abs().max()), float((zk - zp).abs().max())
+        log(f"check K7 rasterizer, {name}: {tuple(v.shape)} vertices, {f.shape[0]} faces, K "
+            f"{K}: face-id agreement {agree * 100:.6f}% (coverage "
+            f"{float((fp >= 0).float().mean()) * 100:.2f}%), bary max|d| {bmx:.3e}, z max|d| "
+            f"{zmx:.3e}")
+        if name == "adversarial":
+            T = ras._grid(size, tile)[0] * ras._grid(size, tile)[1]
+            tri = ras.bin_candidates(v, f, size, tile, K)
+            empty = int(((tri[..., 9] > 0).sum(-1) == 0).sum())
+            log(f"  adversarial: {empty} of {v.shape[0] * T} tiles empty, the cap binds on "
+                f"{int(((tri[..., 9] > 0).sum(-1) == K).sum())}")
+            if not empty:
+                raise AssertionError("the adversarial mesh has no empty tile")
+        worst = max(worst, bmx, zmx)
+        if agree != 1.0 or bmx > 0 or zmx > 0:
+            bad.append(name)
+    K = cases[0][3]
+    a, b = kernel(verts, faces, size, K), kernel(verts, faces, size, K)
+    same = all(torch.equal(x, y) for x, y in zip(a, b))
+    log(f"  two K7 calls bit-equal: {same}")
+    if bad or not same:
+        raise AssertionError(f"K7 disagrees with its plain version: {bad}, two calls equal {same}")
+    ptx = ptxas_of("rasterize.cu")
+    log(f"  rasterize.cu ptxas: {ptx['registers']} registers, {ptx['spill_stores']} bytes spill "
+        f"stores, {ptx['spill_loads']} bytes spill loads")
+    if ptx["spill_stores"] is None or ptx["spill_stores"] or ptx["spill_loads"]:
+        raise AssertionError(f"rasterize.cu spills, or no build log: {ptx}")
+    pairs = torch.zeros(1, dtype=torch.int64, device="cuda")
+    kernel(verts, faces, size, K, pairs)
+    needed, valid_pairs = raster_needed_pairs(verts, faces, size, tile, K)
+    tested = int(pairs.item())
+    _, tiles_x, xs, ys, span = ras._grid(size, tile)
+    tri = ras.bin_candidates(verts, faces, size, tile, K)
+    bin_ms = cuda_ms(lambda: ras.bin_candidates(verts, faces, size, tile, K), 5)
+    ms = cuda_ms(lambda: ras.rasterize_tiles_cuda(tri, tiles_x, tile, xs, ys, span), 5)
+    plain_ms = cuda_ms(lambda: plain(verts, faces, size, K), 1)
+    B, V = verts.shape[:2]
+    # ~20 float32 operations a needed (pixel, candidate) pair; the bytes are
+    # the vertices, the faces and 20 bytes a pixel out
+    bd = bound(20 * needed, B * V * 12 + F * 3 * 8 + B * size[0] * size[1] * 20, PEAK_F32)
+    log(f"  time: kernel {ms:.3f} ms (binning in torch {bin_ms:.3f} ms)  plain {plain_ms:.3f} "
+        f"ms  bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    log(f"  (pixel, candidate) pairs: needed {needed} ({needed / valid_pairs * 100:.2f}% of the "
+        f"{valid_pairs} (pixel, valid candidate) pairs), tested {tested} "
+        f"({tested / valid_pairs * 100:.2f}%)")
+    return dict(max_abs_err=worst, ms=ms, binning_ms=bin_ms, plain_ms=plain_ms, needed_pairs=needed,
+                valid_pairs=valid_pairs, tested_pairs=tested,
+                tested_share=tested / valid_pairs, **bd)
 
 
 def _random_field_case(H, NB, noise, gcuda, B=2, R=256, S=32, F=24):

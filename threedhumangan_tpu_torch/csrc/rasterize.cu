@@ -1,113 +1,224 @@
 // K7: per-tile z-test of binned candidate faces.
 //
 // Replaces threedhumangan_tpu/ops/rasterize.py::_rasterize_tile_kernel
-// (Pallas, TPU).  One CTA takes one (image, 32 x 32 tile) and one thread
-// one pixel; the tile's K candidate faces ([9 vertex coords, valid, face
-// id] rows, lowest face index first) stream through shared memory 128 at a
-// time.  For each chunk the first threads turn every candidate into its
-// edge-function coefficients once (w1 = c1x px + c1y py + c1c, w2 alike,
-// z = az + w1 (bz - az) + w2 (cz - az)), then every pixel tests all of
-// them and keeps a running (z, face, bary) minimum.  A candidate replaces
-// the best only when its z is strictly smaller, so the lowest candidate
-// row wins ties: duplicate faces with equal z are common on tiled meshes.
-// Every step is rounded in the JAX kernel's operation order
-// (__fmul_rn / __fadd_rn, no FMA contraction), so pixels on an edge of the
-// inside test fall the same way as in the plain version.
+// (Pallas, TPU).  One CTA takes one (image, tile of at most 32 x 32 pixels);
+// each warp owns a sub-tile of 8 x 4 pixels (lane l: column l % 8, row
+// l / 8 of it), one pixel a lane.  The tile's candidates ([9 vertex coords,
+// valid, face id] rows, lowest face index first, the valid rows a prefix)
+// stream through shared memory one row a thread: every thread turns its row
+// into edge-function coefficients (w1 = c1x px + c1y py + c1c, w2 alike,
+// z = az + w1 (bz - az) + w2 (cz - az)), and the first chunk without a full
+// set of valid rows is the last.  Each warp then takes the chunk 32
+// candidates at a time: a lane tests one candidate against the warp's
+// sub-tile (``may_cover``), a ballot collects the candidates that may be
+// inside at one of its pixels, and the whole warp tests only those, in
+// ascending row order, keeping a running (z, face, bary) minimum.  A
+// candidate replaces the best only when its z is strictly smaller, so the
+// lowest candidate row wins ties, as in the plain version (duplicate faces
+// are common on tiled meshes).  Every step of a pixel's test is rounded in
+// the JAX kernel's operation order (__fmul_rn / __fadd_rn, no FMA
+// contraction), so the outputs are the plain version's bit for bit.
 //
-// What bounds it on an H100: ~20 float32 operations per (pixel, candidate)
-// pair — 8 x 32 tiles x 2,048 candidates x 1,024 pixels = 5.4e8 pairs for
-// the training slice, ~11 GFLOP of FP32 issue; the inputs (90 KB per tile)
-// and outputs are small.  The coefficients are computed once per candidate
-// and read by all 1,024 threads as shared-memory broadcasts.
+// The cull is conservative under that rounding.  w1, w2 and w0 are affine
+// in (px, py) with the rounded coefficients, so their largest exact value
+// over the sub-tile lies at a corner of the box of its pixel centres; that
+// box is spanned by the corner pixels' own rounded centres, since
+// x0 + col * x_step is monotone in col under rounding.  The corner values
+// are formed in FP64, where a product of two floats is exact.  A pixel's
+// rounded w1 differs from the exact value by at most
+// gamma_3 (|c1x px| + |c1y py| + |c1c|) <= 3.0000002 u A1 (u = 2^-24, A1 the
+// box's largest |c1x| |px| + |c1y| |py| + |c1c|); w0 = (1 - w1) - w2 adds two
+// roundings, at most 6 u (A1 + A2 + 1) in all.  A candidate is skipped only
+// when, for one of the three, the corner maximum plus 8 u A (16 u (A1 + A2 +
+// 1) for w0) plus 1e-30 (the subnormal range) is below 0: then that weight is
+// negative at every pixel of the sub-tile.  Coefficients above 1e30 in size,
+// or not finite, are never skipped; slivers with denom just above 1e-9 get
+// huge coefficients whose bound never skips them.  A candidate that is not
+// ``ok`` (|denom| <= 1e-9, or not valid) is never inside, so it is always
+// skipped.
+//
+// What bounds it on an H100: ~20 float32 operations a (pixel, candidate)
+// pair for the pairs the inputs need, those whose pixel centre lies inside
+// the candidate's bounding box (chip_smoke.py counts them), and its inputs
+// and outputs.  The old loop tested all K rows against all pixels of the
+// tile; this one reads only the valid prefix and tests a sub-tile only
+// against the candidates the bound keeps.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kChunk = 128;
 constexpr int kCols = 11;
+constexpr int kChunk = 1024;  // candidates a chunk: one a thread
+constexpr int kSubW = 8;      // a warp's sub-tile: kSubW columns x kSubH rows
+constexpr int kSubH = 4;
 constexpr float kBig = 1e10f;
+constexpr double kRel = 0x1p-21;   // 8 u: w1, w2
+constexpr double kRel0 = 0x1p-20;  // 16 u: w0
+constexpr double kAbs = 1e-30;
+constexpr double kHuge = 1e30;
 
-__global__ void __launch_bounds__(1024) rasterize_kernel(const float* tri, int* face, float* bary,
-                                                         float* zbuf, int T, int K, int tiles_x,
-                                                         int tile, float x_step, float y_step,
-                                                         float span) {
-  __shared__ float coef[12][kChunk];  // c1x c1y c1c c2x c2y c2c az dbz dcz ok fid
-  const int t = blockIdx.x, b = blockIdx.y, p = threadIdx.x;
-  const int P = tile * tile;
-  const int tx = t % tiles_x, ty = t / tiles_x;
-  const int row = p / tile, col = p % tile;
-  const float x0 = __fadd_rn(-span, __fmul_rn((float)(tx * tile), x_step));
-  const float y0 = __fadd_rn(-1.f, __fmul_rn((float)(ty * tile), y_step));
-  const float px = __fadd_rn(x0, __fmul_rn((float)col, x_step));
-  const float py = __fadd_rn(y0, __fmul_rn((float)row, y_step));
-  float best_z = kBig, best_f = -1.f, bw0 = 0.f, bw1 = 0.f, bw2 = 0.f;
-  const float* tb = tri + ((size_t)b * T + t) * K * kCols;
+struct Chunk {
+  float c1x[kChunk], c1y[kChunk], c1c[kChunk], c2x[kChunk], c2y[kChunk], c2c[kChunk];
+  float az[kChunk], dbz[kChunk], dcz[kChunk];
+  int fid[kChunk];  // -1 where the candidate is not ok
+};
 
-  for (int k0 = 0; k0 < K; k0 += kChunk) {
-    const int nk = min(kChunk, K - k0);
-    __syncthreads();  // the previous chunk's coefficients are no longer read
-    for (int k = threadIdx.x; k < nk; k += blockDim.x) {
-      const float* r = tb + (size_t)(k0 + k) * kCols;
-      const float ax = r[0], ay = r[1], az = r[2], bx = r[3], by = r[4], bz = r[5];
-      const float cx = r[6], cy = r[7], cz = r[8], valid = r[9];
-      const float v0x = __fsub_rn(bx, ax), v0y = __fsub_rn(by, ay);
-      const float v1x = __fsub_rn(cx, ax), v1y = __fsub_rn(cy, ay);
-      const float denom = __fsub_rn(__fmul_rn(v0x, v1y), __fmul_rn(v0y, v1x));
-      const bool ok = fabsf(denom) > 1e-9f && valid > 0.f;
-      const float inv = ok ? __fdiv_rn(1.f, denom) : 0.f;
-      coef[0][k] = __fmul_rn(inv, v1y);
-      coef[1][k] = __fmul_rn(-inv, v1x);
-      coef[2][k] = __fmul_rn(inv, __fsub_rn(__fmul_rn(ay, v1x), __fmul_rn(ax, v1y)));
-      coef[3][k] = __fmul_rn(-inv, v0y);
-      coef[4][k] = __fmul_rn(inv, v0x);
-      coef[5][k] = __fmul_rn(inv, __fsub_rn(__fmul_rn(v0y, ax), __fmul_rn(v0x, ay)));
-      coef[6][k] = az;
-      coef[7][k] = __fsub_rn(bz, az);
-      coef[8][k] = __fsub_rn(cz, az);
-      coef[9][k] = ok ? 1.f : 0.f;
-      coef[10][k] = r[10];
-    }
-    __syncthreads();
-    if (p < P) {
-      for (int k = 0; k < nk; ++k) {
-        const float w1 = __fadd_rn(__fadd_rn(__fmul_rn(coef[0][k], px), __fmul_rn(coef[1][k], py)),
-                                   coef[2][k]);
-        const float w2 = __fadd_rn(__fadd_rn(__fmul_rn(coef[3][k], px), __fmul_rn(coef[4][k], py)),
-                                   coef[5][k]);
-        const float w0 = __fsub_rn(__fsub_rn(1.f, w1), w2);
-        const bool inside = w0 >= 0.f && w1 >= 0.f && w2 >= 0.f && coef[9][k] > 0.f;
-        const float z = __fadd_rn(__fadd_rn(coef[6][k], __fmul_rn(w1, coef[7][k])),
-                                  __fmul_rn(w2, coef[8][k]));
-        if (inside && z < best_z) {
-          best_z = z;
-          best_f = coef[10][k];
-          bw0 = w0;
-          bw1 = w1;
-          bw2 = w2;
-        }
+// The box of a warp's pixel centres: the rounded centres of its corner
+// pixels, and the largest |px|, |py| in it.
+struct Box {
+  double xlo, xhi, ylo, yhi, mx, my;
+};
+
+__device__ __forceinline__ double corner_max(double cx, double cy, double cc, const Box& b) {
+  return __dadd_rn(__dadd_rn(cc, fmax(__dmul_rn(cx, b.xlo), __dmul_rn(cx, b.xhi))),
+                   fmax(__dmul_rn(cy, b.ylo), __dmul_rn(cy, b.yhi)));
+}
+
+__device__ __forceinline__ double abs_sum(double cx, double cy, double cc, const Box& b) {
+  return __dadd_rn(__dadd_rn(__dmul_rn(fabs(cx), b.mx), __dmul_rn(fabs(cy), b.my)), fabs(cc));
+}
+
+// False only if the candidate is inside at no pixel of the box (see the
+// header for why the test is conservative).
+__device__ __forceinline__ bool may_cover(const Chunk& s, int k, const Box& b) {
+  if (s.fid[k] < 0) return false;
+  const double c1x = s.c1x[k], c1y = s.c1y[k], c1c = s.c1c[k];
+  const double c2x = s.c2x[k], c2y = s.c2y[k], c2c = s.c2c[k];
+  const double big = fmax(fmax(fmax(fabs(c1x), fabs(c1y)), fmax(fabs(c1c), fabs(c2x))),
+                          fmax(fabs(c2y), fabs(c2c)));
+  if (!(big <= kHuge)) return true;
+  const double a1 = abs_sum(c1x, c1y, c1c, b), a2 = abs_sum(c2x, c2y, c2c, b);
+  if (__dadd_rn(__dadd_rn(corner_max(c1x, c1y, c1c, b), __dmul_rn(kRel, a1)), kAbs) < 0.0)
+    return false;
+  if (__dadd_rn(__dadd_rn(corner_max(c2x, c2y, c2c, b), __dmul_rn(kRel, a2)), kAbs) < 0.0)
+    return false;
+  const double m0 = corner_max(-__dadd_rn(c1x, c2x), -__dadd_rn(c1y, c2y),
+                               __dsub_rn(__dsub_rn(1.0, c1c), c2c), b);
+  const double e0 = __dmul_rn(kRel0, __dadd_rn(__dadd_rn(a1, a2), 1.0));
+  return __dadd_rn(__dadd_rn(m0, e0), kAbs) >= 0.0;
+}
+
+// One candidate row of the table into the chunk's coefficients; returns
+// whether the row is valid.
+__device__ __forceinline__ bool fill(Chunk& s, int k, const float* r) {
+  const float ax = r[0], ay = r[1], az = r[2], bx = r[3], by = r[4], bz = r[5];
+  const float cx = r[6], cy = r[7], cz = r[8];
+  const bool valid = r[9] > 0.f;
+  const float v0x = __fsub_rn(bx, ax), v0y = __fsub_rn(by, ay);
+  const float v1x = __fsub_rn(cx, ax), v1y = __fsub_rn(cy, ay);
+  const float denom = __fsub_rn(__fmul_rn(v0x, v1y), __fmul_rn(v0y, v1x));
+  const bool ok = fabsf(denom) > 1e-9f && valid;
+  const float inv = ok ? __fdiv_rn(1.f, denom) : 0.f;
+  s.c1x[k] = __fmul_rn(inv, v1y);
+  s.c1y[k] = __fmul_rn(-inv, v1x);
+  s.c1c[k] = __fmul_rn(inv, __fsub_rn(__fmul_rn(ay, v1x), __fmul_rn(ax, v1y)));
+  s.c2x[k] = __fmul_rn(-inv, v0y);
+  s.c2y[k] = __fmul_rn(inv, v0x);
+  s.c2c[k] = __fmul_rn(inv, __fsub_rn(__fmul_rn(v0y, ax), __fmul_rn(v0x, ay)));
+  s.az[k] = az;
+  s.dbz[k] = __fsub_rn(bz, az);
+  s.dcz[k] = __fsub_rn(cz, az);
+  s.fid[k] = ok ? (int)r[10] : -1;
+  return valid;
+}
+
+struct Best {
+  float z = kBig, w0 = 0.f, w1 = 0.f, w2 = 0.f;
+  int f = -1;
+};
+
+// The warp's pass over a filled chunk of n candidates: cull 32 at a time,
+// then test the kept ones at every lane's pixel in ascending order.
+__device__ __forceinline__ void test_chunk(const Chunk& s, int n, float px, float py, const Box& box,
+                                           Best& best, unsigned& evaluated) {
+  const int lane = threadIdx.x & 31;
+  for (int g = 0; g < n; g += 32) {
+    unsigned keep = __ballot_sync(0xffffffffu, g + lane < n && may_cover(s, g + lane, box));
+    evaluated += __popc(keep);
+    while (keep) {
+      const int k = g + __ffs(keep) - 1;
+      keep &= keep - 1;
+      const float w1 = __fadd_rn(__fadd_rn(__fmul_rn(s.c1x[k], px), __fmul_rn(s.c1y[k], py)),
+                                 s.c1c[k]);
+      const float w2 = __fadd_rn(__fadd_rn(__fmul_rn(s.c2x[k], px), __fmul_rn(s.c2y[k], py)),
+                                 s.c2c[k]);
+      const float w0 = __fsub_rn(__fsub_rn(1.f, w1), w2);
+      const float z = __fadd_rn(__fadd_rn(s.az[k], __fmul_rn(w1, s.dbz[k])),
+                                __fmul_rn(w2, s.dcz[k]));
+      if (w0 >= 0.f && w1 >= 0.f && w2 >= 0.f && z < best.z) {
+        best.z = z;
+        best.f = s.fid[k];
+        best.w0 = w0;
+        best.w1 = w1;
+        best.w2 = w2;
       }
     }
   }
-  if (p < P) {
-    const size_t o = ((size_t)b * T + t) * P + p;
-    face[o] = best_z < kBig ? (int)best_f : -1;
-    bary[o * 3] = bw0;
-    bary[o * 3 + 1] = bw1;
-    bary[o * 3 + 2] = bw2;
-    zbuf[o] = best_z;
+}
+
+__device__ __forceinline__ float centre(float start, int i, float step) {
+  return __fadd_rn(start, __fmul_rn((float)i, step));
+}
+
+__global__ void __launch_bounds__(1024) rasterize_kernel(const float* tri, int* face, float* bary,
+                                                         float* zbuf,
+                                                         unsigned long long* pairs, int T,
+                                                         int K, int tiles_x, int tile,
+                                                         float x_step, float y_step, float span) {
+  __shared__ Chunk s;
+  const int t = blockIdx.x, b = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int sub_x = (tile + kSubW - 1) / kSubW;
+  const int col0 = (warp % sub_x) * kSubW, row0 = (warp / sub_x) * kSubH;
+  const int col = col0 + lane % kSubW, row = row0 + lane / kSubW;
+  const int tx = t % tiles_x, ty = t / tiles_x;
+  const float x0 = centre(-span, tx * tile, x_step);
+  const float y0 = centre(-1.f, ty * tile, y_step);
+  const float px = centre(x0, col, x_step), py = centre(y0, row, y_step);
+  Box box;
+  box.xlo = centre(x0, col0, x_step);
+  box.xhi = centre(x0, min(col0 + kSubW, tile) - 1, x_step);
+  box.ylo = centre(y0, row0, y_step);
+  box.yhi = centre(y0, min(row0 + kSubH, tile) - 1, y_step);
+  box.mx = fmax(fabs(box.xlo), fabs(box.xhi));
+  box.my = fmax(fabs(box.ylo), fabs(box.yhi));
+  Best best;
+  unsigned evaluated = 0;
+  const float* tb = tri + ((size_t)b * T + t) * K * kCols;
+
+  for (int k0 = 0; k0 < K; k0 += blockDim.x) {
+    const int k = k0 + (int)threadIdx.x;
+    if (k0) __syncthreads();  // the previous chunk is no longer read
+    const bool valid = k < K && fill(s, threadIdx.x, tb + (size_t)k * kCols);
+    const int n = __syncthreads_count(valid);  // the valid rows are a prefix
+    test_chunk(s, n, px, py, box, best, evaluated);
+    if (n < (int)blockDim.x) break;
+  }
+  const int P = tile * tile;
+  if (col < tile && row < tile) {
+    const size_t o = ((size_t)b * T + t) * P + row * tile + col;
+    face[o] = best.f;
+    bary[o * 3] = best.w0;
+    bary[o * 3 + 1] = best.w1;
+    bary[o * 3 + 2] = best.w2;
+    zbuf[o] = best.z;
+  }
+  if (pairs && lane == 0 && evaluated) {
+    const int w = min(col0 + kSubW, tile) - col0, h = min(row0 + kSubH, tile) - row0;
+    atomicAdd(pairs, (unsigned long long)evaluated * (unsigned long long)(w * h));
   }
 }
 
 }  // namespace
 
-extern "C" int thgt_rasterize(const float* tri, int* face, float* bary, float* zbuf, int B, int T, int K,
-                              int tiles_x, int tile, float x_step, float y_step, float span,
+extern "C" int thgt_rasterize(const float* tri, int* face, float* bary, float* zbuf,
+                              unsigned long long* pairs, int B, int T, int K, int tiles_x,
+                              int tile, float x_step, float y_step, float span,
                               cudaStream_t stream) {
-  const int P = tile * tile;
-  if (P <= 0 || P > 1024 || K <= 0) return (int)cudaErrorInvalidValue;
-  const int threads = ((P + 31) / 32) * 32;
+  if (tile <= 0 || tile > 32 || K <= 0) return (int)cudaErrorInvalidValue;
+  const int threads = ((tile + kSubW - 1) / kSubW) * ((tile + kSubH - 1) / kSubH) * 32;
   dim3 grid(T, B);
-  rasterize_kernel<<<grid, threads, 0, stream>>>(tri, face, bary, zbuf, T, K, tiles_x, tile, x_step,
-                                                 y_step, span);
+  rasterize_kernel<<<grid, threads, 0, stream>>>(tri, face, bary, zbuf, pairs, T, K, tiles_x, tile,
+                                                 x_step, y_step, span);
   return (int)cudaGetLastError();
 }

@@ -158,9 +158,10 @@ def rasterize_mesh_tiled(verts_screen, faces, image_size: Tuple[int, int], tile:
             _untile(zbuf, image_size, tile))
 
 
-def rasterize_tiles_cuda(tri_k, tiles_x: int, tile: int, x_step, y_step, span):
+def rasterize_tiles_cuda(tri_k, tiles_x: int, tile: int, x_step, y_step, span, pairs=None):
     """Launch K7 on (B, T, K, 11) float32 candidates; same outputs as
-    ``rasterize_tiles_plain``."""
+    ``rasterize_tiles_plain``.  ``pairs``, a CUDA int64 tensor of one
+    element, gains the (pixel, candidate) pairs the kernel tested."""
     global launches
     B, T, K, n = tri_k.shape
     if n != 11 or tile * tile > 1024 or not tri_k.is_cuda:
@@ -176,7 +177,8 @@ def rasterize_tiles_cuda(tri_k, tiles_x: int, tile: int, x_step, y_step, span):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.thgt_rasterize(tri_k.data_ptr(), face.data_ptr(), bary.data_ptr(),
-                                 zbuf.data_ptr(), B, T, K, tiles_x, tile, float(x_step),
+                                 zbuf.data_ptr(), None if pairs is None else pairs.data_ptr(),
+                                 B, T, K, tiles_x, tile, float(x_step),
                                  float(y_step), float(span), stream)
     _build.check(err, "thgt_rasterize")
     launches += 1
