@@ -806,7 +806,7 @@ class PreprocessSplit:
 
 def count_syncs(fn):
     """Synchronizing CUDA calls that ``torch.cuda.set_sync_debug_mode``
-    reports during fn()."""
+    reports during fn(), and the lines that made them."""
     import warnings
 
     import torch
@@ -819,7 +819,9 @@ def count_syncs(fn):
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
+    where = sorted({f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+                    if "synchroniz" in str(w.message)})
+    return sum("synchroniz" in str(w.message) for w in caught), where
 
 
 def check_preprocess_syncs(tpre, tbatch, tmeta, gen):
@@ -833,10 +835,10 @@ def check_preprocess_syncs(tpre, tbatch, tmeta, gen):
     cond = cam(tbatch, rotate=True, generator=gen)
     tpre._forward_rasterize(cond)  # the first call per device may copy the faces
     torch.cuda.synchronize()
-    n_cam = count_syncs(lambda: cam(tbatch, rotate=True, generator=gen))
-    n_ras = count_syncs(lambda: tpre._forward_rasterize(cond))
+    n_cam, at_cam = count_syncs(lambda: cam(tbatch, rotate=True, generator=gen))
+    n_ras, at_ras = count_syncs(lambda: tpre._forward_rasterize(cond))
     log(f"preprocess: synchronizing calls in one call (torch.cuda.set_sync_debug_mode): camera "
-        f"half {n_cam}, _forward_rasterize {n_ras}")
+        f"half {n_cam} {at_cam}, _forward_rasterize {n_ras} {at_ras}")
     return dict(camera=n_cam, rasterize=n_ras)
 
 

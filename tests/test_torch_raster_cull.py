@@ -4,7 +4,8 @@ prefix; the warps' sub-tiles (their size read from rasterize.cu) cover every
 pixel of a tile once; and the sub-tile cull, mirrored here in torch with the
 kernel's formula and constants, never drops a (sub-tile, candidate) pair for
 which ``rasterize_tiles_plain``'s arithmetic finds a pixel inside, on random
-meshes, slivers, edges through pixel centres and tiled duplicate quads.  An
+meshes, slivers, edges through pixel centres and tiled duplicate quads, at
+tiles of 16 and 20 pixels (a ragged last sub-tile).  An
 emulation of the culled z-test is held to the plain version bit for bit.
 The kernel itself is checked against the plain version by chip_smoke.py on
 the card.  Inputs are made from seeds with numpy; no JAX function is
@@ -170,41 +171,37 @@ def _inside(coef, ok, px, py):
     return (w0 >= 0) & (w1 >= 0) & (w2 >= 0) & ok[..., None], w0, w1, w2
 
 
-def subtile_boxes(px, py, tile):
-    """(T, warps, 6) float64 [xlo xhi ylo yhi max|px| max|py|]: the rounded
-    centres of each sub-tile's corner pixels."""
-    sub_x, sub_y = -(-tile // SUB_W), -(-tile // SUB_H)
-    w = torch.arange(sub_x * sub_y)
-    c0, r0 = (w % sub_x) * SUB_W, (w // sub_x) * SUB_H
-    c1, r1 = (c0 + SUB_W).clamp(max=tile) - 1, (r0 + SUB_H).clamp(max=tile) - 1
-    xlo, xhi = px[:, c0], px[:, c1]  # row 0 of the tile holds every column
-    ylo, yhi = py[:, r0 * tile], py[:, r1 * tile]
-    box = torch.stack([xlo, xhi, ylo, yhi, torch.maximum(xlo.abs(), xhi.abs()),
-                       torch.maximum(ylo.abs(), yhi.abs())], -1)
-    return box.double()
-
-
-def may_cover(coef, ok, box):
-    """The kernel's ``may_cover`` in float64 torch: coef (..., 6), ok (...),
-    box (..., 6) broadcasting against them.  False only where the candidate
-    is inside at no pixel of the sub-tile."""
+def cover_masks(coef, ok, px, py, tile):
+    """The kernel's ``cover_mask`` in float64 torch: (B, T, K, warps) bool,
+    False only where the candidate is inside at no pixel of the warp's
+    sub-tile.  coef (B, T, K, 6) float32, ok (B, T, K); px, py (T, P) the
+    plain version's pixel centres."""
     c = coef.double()
     c1x, c1y, c1c, c2x, c2y, c2c = c.unbind(-1)
-    xlo, xhi, ylo, yhi, mx, my = box.unbind(-1)
-
-    def corner_max(cx, cy, cc):
-        return (cc + torch.maximum(cx * xlo, cx * xhi)) + torch.maximum(cy * ylo, cy * yhi)
-
-    def abs_sum(cx, cy, cc):
-        return (cx.abs() * mx + cy.abs() * my) + cc.abs()
-
+    sub_x, sub_y = -(-tile // SUB_W), -(-tile // SUB_H)
+    xs, ys = px[:, :tile].double(), py[:, ::tile].double()  # (T, tile): columns, rows
+    t = lambda v: v[None, :, None]  # a (T,) per-tile value against (B, T, K)
+    mx = t(torch.maximum(xs[:, 0].abs(), xs[:, -1].abs()))
+    my = t(torch.maximum(ys[:, 0].abs(), ys[:, -1].abs()))
+    a1 = (c1x.abs() * mx + c1y.abs() * my) + c1c.abs()
+    a2 = (c2x.abs() * mx + c2y.abs() * my) + c2c.abs()
+    c0x, c0y, c0c = -(c1x + c2x), -(c1y + c2y), (1.0 - c1c) - c2c
+    k1, k2 = c1c + (REL * a1 + ABS), c2c + (REL * a2 + ABS)
+    k0 = c0c + (REL0 * ((a1 + a2) + 1.0) + ABS)
+    corner = lambda cv, lo, hi: torch.maximum(cv * t(lo), cv * t(hi))
+    cols = []
+    for j in range(sub_x):
+        lo, hi = xs[:, j * SUB_W], xs[:, min(j * SUB_W + SUB_W, tile) - 1]
+        cols.append((k1 + corner(c1x, lo, hi), k2 + corner(c2x, lo, hi),
+                     k0 + corner(c0x, lo, hi)))
+    keep = []
+    for r in range(sub_y):
+        lo, hi = ys[:, r * SUB_H], ys[:, min(r * SUB_H + SUB_H, tile) - 1]
+        y1, y2, y0 = corner(c1y, lo, hi), corner(c2y, lo, hi), corner(c0y, lo, hi)
+        for x1, x2, x0 in cols:
+            keep.append(~(x1 + y1 < 0) & ~(x2 + y2 < 0) & ~(x0 + y0 < 0))
     huge = ~(c.abs().amax(-1) <= HUGE)
-    a1, a2 = abs_sum(c1x, c1y, c1c), abs_sum(c2x, c2y, c2c)
-    out1 = (corner_max(c1x, c1y, c1c) + REL * a1) + ABS < 0
-    out2 = (corner_max(c2x, c2y, c2c) + REL * a2) + ABS < 0
-    m0 = corner_max(-(c1x + c2x), -(c1y + c2y), (1.0 - c1c) - c2c)
-    keep0 = (m0 + REL0 * ((a1 + a2) + 1.0)) + ABS >= 0
-    return ok & (huge | (~out1 & ~out2 & keep0))
+    return ok[..., None] & (huge[..., None] | torch.stack(keep, -1))
 
 
 def _cull(tri_k, tile):
@@ -214,9 +211,7 @@ def _cull(tri_k, tile):
     px, py = _centres(T, tiles_x, tile, x_step, y_step, span)
     coef, ok = _coefficients(tri_k)
     inside, w0, w1, w2 = _inside(coef, ok, px, py)
-    box = subtile_boxes(px, py, tile)  # (T, warps, 6)
-    keep = may_cover(coef[..., None, :], ok[..., None], box[None, :, None])
-    return keep, inside, (w0, w1, w2), subtile_map(tile)
+    return cover_masks(coef, ok, px, py, tile), inside, (w0, w1, w2), subtile_map(tile)
 
 
 @pytest.mark.parametrize("num_faces,kmax", [(320, 64), (320, 512), (40, 128)])
@@ -241,10 +236,11 @@ def test_subtiles_cover_each_pixel_once(tile):
     assert m.shape[0] * 32 <= 1024
 
 
+@pytest.mark.parametrize("tile", [16, 20])
 @pytest.mark.parametrize("case", list(CASES))
-def test_cull_never_drops_a_covered_pair(case):
-    tri = _table(case)
-    keep, inside, _, pix = _cull(tri, 16)
+def test_cull_never_drops_a_covered_pair(case, tile):
+    tri = _table(case, tile)
+    keep, inside, _, pix = _cull(tri, tile)
     covered = torch.stack([inside[..., p[p >= 0]].any(-1) for p in pix], -1)
     assert covered.any()
     assert not (covered & ~keep).any()
@@ -276,9 +272,9 @@ def _emulate(tri, tile):
     return face, bary, zmin
 
 
+@pytest.mark.parametrize("tile", [16, 20])
 @pytest.mark.parametrize("case", list(CASES))
-def test_culled_z_test_matches_plain(case):
-    tile = 16
+def test_culled_z_test_matches_plain(case, tile):
     tri = _table(case, tile)
     tiles_y, tiles_x, x_step, y_step, span = ras._grid(SIZE, tile)
     f, b, z = ras.rasterize_tiles_plain(tri, tiles_x, tile, x_step, y_step, span, k_chunk=64)

@@ -7,11 +7,11 @@
 // valid, face id] rows, lowest face index first, the valid rows a prefix)
 // stream through shared memory one row a thread: every thread turns its row
 // into edge-function coefficients (w1 = c1x px + c1y py + c1c, w2 alike,
-// z = az + w1 (bz - az) + w2 (cz - az)), and the first chunk without a full
-// set of valid rows is the last.  Each warp then takes the chunk 32
-// candidates at a time: a lane tests one candidate against the warp's
-// sub-tile (``may_cover``), a ballot collects the candidates that may be
-// inside at one of its pixels, and the whole warp tests only those, in
+// z = az + w1 (bz - az) + w2 (cz - az)) and a cover mask, one bit a warp,
+// set where the candidate may be inside at a pixel of that warp's sub-tile
+// (``cover_mask``); the first chunk without a full set of valid rows is the
+// last.  Each warp then takes the chunk 32 candidates at a time: a ballot
+// of its cover bits, and the whole warp tests only the candidates kept, in
 // ascending row order, keeping a running (z, face, bary) minimum.  A
 // candidate replaces the best only when its z is strictly smaller, so the
 // lowest candidate row wins ties, as in the plain version (duplicate faces
@@ -21,28 +21,30 @@
 //
 // The cull is conservative under that rounding.  w1, w2 and w0 are affine
 // in (px, py) with the rounded coefficients, so their largest exact value
-// over the sub-tile lies at a corner of the box of its pixel centres; that
+// over a sub-tile lies at a corner of the box of its pixel centres; that
 // box is spanned by the corner pixels' own rounded centres, since
 // x0 + col * x_step is monotone in col under rounding.  The corner values
-// are formed in FP64, where a product of two floats is exact.  A pixel's
-// rounded w1 differs from the exact value by at most
-// gamma_3 (|c1x px| + |c1y py| + |c1c|) <= 3.0000002 u A1 (u = 2^-24, A1 the
-// box's largest |c1x| |px| + |c1y| |py| + |c1c|); w0 = (1 - w1) - w2 adds two
-// roundings, at most 6 u (A1 + A2 + 1) in all.  A candidate is skipped only
-// when, for one of the three, the corner maximum plus 8 u A (16 u (A1 + A2 +
-// 1) for w0) plus 1e-30 (the subnormal range) is below 0: then that weight is
-// negative at every pixel of the sub-tile.  Coefficients above 1e30 in size,
-// or not finite, are never skipped; slivers with denom just above 1e-9 get
-// huge coefficients whose bound never skips them.  A candidate that is not
-// ``ok`` (|denom| <= 1e-9, or not valid) is never inside, so it is always
-// skipped.
+// are formed in FP64, where a product of two floats is exact and a sum's
+// rounding is far below the margins here.  A pixel's rounded w1 differs
+// from the exact value by at most gamma_3 (|c1x px| + |c1y py| + |c1c|) <=
+// 3.0000002 u A1 (u = 2^-24, A1 the tile's largest |c1x| |px| + |c1y| |py| +
+// |c1c|); w0 = (1 - w1) - w2 adds two roundings, at most 6 u (A1 + A2 + 1)
+// in all.  A warp skips a candidate only when, for one of the three, the
+// sub-tile's corner maximum plus 8 u A (16 u (A1 + A2 + 1) for w0) plus
+// 1e-30 (the subnormal range) is below 0: then that weight is negative at
+// every pixel of the sub-tile.  Coefficients above 1e30 in size, or not
+// finite, are never skipped; slivers with denom just above 1e-9 get huge
+// coefficients whose margin skips them only far from any pixel they could
+// cover.  A candidate that is not ``ok`` (|denom| <= 1e-9, or not valid) is
+// never inside, so every warp skips it.
 //
 // What bounds it on an H100: ~20 float32 operations a (pixel, candidate)
 // pair for the pairs the inputs need, those whose pixel centre lies inside
 // the candidate's bounding box (chip_smoke.py counts them), and its inputs
 // and outputs.  The old loop tested all K rows against all pixels of the
-// tile; this one reads only the valid prefix and tests a sub-tile only
-// against the candidates the bound keeps.
+// tile; this one reads only the valid prefix, forms each candidate's mask
+// once (~300 FP64 operations), and tests a sub-tile only against the
+// candidates its bit keeps.
 #include <cuda_runtime.h>
 
 namespace {
@@ -51,56 +53,83 @@ constexpr int kCols = 11;
 constexpr int kChunk = 1024;  // candidates a chunk: one a thread
 constexpr int kSubW = 8;      // a warp's sub-tile: kSubW columns x kSubH rows
 constexpr int kSubH = 4;
+constexpr int kMaxSubX = 32 / kSubW;  // sub-tile columns of the widest tile
 constexpr float kBig = 1e10f;
 constexpr double kRel = 0x1p-21;   // 8 u: w1, w2
 constexpr double kRel0 = 0x1p-20;  // 16 u: w0
 constexpr double kAbs = 1e-30;
 constexpr double kHuge = 1e30;
 
+__device__ __forceinline__ float centre(float start, int i, float step) {
+  return __fadd_rn(start, __fmul_rn((float)i, step));
+}
+
 struct Chunk {
   float c1x[kChunk], c1y[kChunk], c1c[kChunk], c2x[kChunk], c2y[kChunk], c2c[kChunk];
   float az[kChunk], dbz[kChunk], dcz[kChunk];
-  int fid[kChunk];  // -1 where the candidate is not ok
+  int fid[kChunk];
+  unsigned cover[kChunk];  // cover_mask: bit w, warp w tests the candidate
 };
 
-// The box of a warp's pixel centres: the rounded centres of its corner
-// pixels, and the largest |px|, |py| in it.
-struct Box {
-  double xlo, xhi, ylo, yhi, mx, my;
+// A tile's first pixel centre, its steps and its size.
+struct Tile {
+  float x0, y0, x_step, y_step;
+  int size;
 };
 
-__device__ __forceinline__ double corner_max(double cx, double cy, double cc, const Box& b) {
-  return __dadd_rn(__dadd_rn(cc, fmax(__dmul_rn(cx, b.xlo), __dmul_rn(cx, b.xhi))),
-                   fmax(__dmul_rn(cy, b.ylo), __dmul_rn(cy, b.yhi)));
-}
-
-__device__ __forceinline__ double abs_sum(double cx, double cy, double cc, const Box& b) {
-  return __dadd_rn(__dadd_rn(__dmul_rn(fabs(cx), b.mx), __dmul_rn(fabs(cy), b.my)), fabs(cc));
-}
-
-// False only if the candidate is inside at no pixel of the box (see the
-// header for why the test is conservative).
-__device__ __forceinline__ bool may_cover(const Chunk& s, int k, const Box& b) {
-  if (s.fid[k] < 0) return false;
-  const double c1x = s.c1x[k], c1y = s.c1y[k], c1c = s.c1c[k];
-  const double c2x = s.c2x[k], c2y = s.c2y[k], c2c = s.c2c[k];
+// Bit w of the result: the candidate may be inside at a pixel of warp w's
+// sub-tile (see the header for why the test is conservative).  The corner
+// terms of each sub-tile column and row are formed once; A1 and A2 bound
+// |c px| + |c py| + |c| over the whole tile (mx, my its largest |px|, |py|).
+__device__ __forceinline__ unsigned cover_mask(float f1x, float f1y, float f1c, float f2x,
+                                               float f2y, float f2c, float x0, float y0,
+                                               float x_step, float y_step, int tile) {
+  const double c1x = f1x, c1y = f1y, c1c = f1c, c2x = f2x, c2y = f2y, c2c = f2c;
   const double big = fmax(fmax(fmax(fabs(c1x), fabs(c1y)), fmax(fabs(c1c), fabs(c2x))),
                           fmax(fabs(c2y), fabs(c2c)));
-  if (!(big <= kHuge)) return true;
-  const double a1 = abs_sum(c1x, c1y, c1c, b), a2 = abs_sum(c2x, c2y, c2c, b);
-  if (__dadd_rn(__dadd_rn(corner_max(c1x, c1y, c1c, b), __dmul_rn(kRel, a1)), kAbs) < 0.0)
-    return false;
-  if (__dadd_rn(__dadd_rn(corner_max(c2x, c2y, c2c, b), __dmul_rn(kRel, a2)), kAbs) < 0.0)
-    return false;
-  const double m0 = corner_max(-__dadd_rn(c1x, c2x), -__dadd_rn(c1y, c2y),
-                               __dsub_rn(__dsub_rn(1.0, c1c), c2c), b);
-  const double e0 = __dmul_rn(kRel0, __dadd_rn(__dadd_rn(a1, a2), 1.0));
-  return __dadd_rn(__dadd_rn(m0, e0), kAbs) >= 0.0;
+  if (!(big <= kHuge)) return 0xffffffffu;
+  const int sub_x = (tile + kSubW - 1) / kSubW, sub_y = (tile + kSubH - 1) / kSubH;
+  const double mx = fmax(fabs((double)x0), fabs((double)centre(x0, tile - 1, x_step)));
+  const double my = fmax(fabs((double)y0), fabs((double)centre(y0, tile - 1, y_step)));
+  const double a1 = __dadd_rn(__dadd_rn(__dmul_rn(fabs(c1x), mx), __dmul_rn(fabs(c1y), my)),
+                              fabs(c1c));
+  const double a2 = __dadd_rn(__dadd_rn(__dmul_rn(fabs(c2x), mx), __dmul_rn(fabs(c2y), my)),
+                              fabs(c2c));
+  const double c0x = -__dadd_rn(c1x, c2x), c0y = -__dadd_rn(c1y, c2y);
+  const double c0c = __dsub_rn(__dsub_rn(1.0, c1c), c2c);
+  const double k1 = __dadd_rn(c1c, __dadd_rn(__dmul_rn(kRel, a1), kAbs));
+  const double k2 = __dadd_rn(c2c, __dadd_rn(__dmul_rn(kRel, a2), kAbs));
+  const double k0 =
+      __dadd_rn(c0c, __dadd_rn(__dmul_rn(kRel0, __dadd_rn(__dadd_rn(a1, a2), 1.0)), kAbs));
+  double x1[kMaxSubX], x2[kMaxSubX], x0m[kMaxSubX];  // k + the column's corner maximum
+#pragma unroll
+  for (int j = 0; j < kMaxSubX; ++j) {
+    const double lo = centre(x0, min(j * kSubW, tile - 1), x_step);
+    const double hi = centre(x0, min(j * kSubW + kSubW, tile) - 1, x_step);
+    x1[j] = __dadd_rn(k1, fmax(__dmul_rn(c1x, lo), __dmul_rn(c1x, hi)));
+    x2[j] = __dadd_rn(k2, fmax(__dmul_rn(c2x, lo), __dmul_rn(c2x, hi)));
+    x0m[j] = __dadd_rn(k0, fmax(__dmul_rn(c0x, lo), __dmul_rn(c0x, hi)));
+  }
+  unsigned mask = 0u;
+  for (int r = 0; r < sub_y; ++r) {
+    const double lo = centre(y0, r * kSubH, y_step);
+    const double hi = centre(y0, min(r * kSubH + kSubH, tile) - 1, y_step);
+    const double y1 = fmax(__dmul_rn(c1y, lo), __dmul_rn(c1y, hi));
+    const double y2 = fmax(__dmul_rn(c2y, lo), __dmul_rn(c2y, hi));
+    const double y0m = fmax(__dmul_rn(c0y, lo), __dmul_rn(c0y, hi));
+#pragma unroll
+    for (int j = 0; j < kMaxSubX; ++j) {
+      const bool in = !(__dadd_rn(x1[j], y1) < 0.0) && !(__dadd_rn(x2[j], y2) < 0.0) &&
+                      !(__dadd_rn(x0m[j], y0m) < 0.0);
+      if (j < sub_x && in) mask |= 1u << (r * sub_x + j);
+    }
+  }
+  return mask;
 }
 
-// One candidate row of the table into the chunk's coefficients; returns
-// whether the row is valid.
-__device__ __forceinline__ bool fill(Chunk& s, int k, const float* r) {
+// One candidate row of the table into the chunk's coefficients and cover
+// mask; returns whether the row is valid.
+__device__ __forceinline__ bool fill(Chunk& s, int k, const float* r, const Tile& t) {
   const float ax = r[0], ay = r[1], az = r[2], bx = r[3], by = r[4], bz = r[5];
   const float cx = r[6], cy = r[7], cz = r[8];
   const bool valid = r[9] > 0.f;
@@ -109,16 +138,23 @@ __device__ __forceinline__ bool fill(Chunk& s, int k, const float* r) {
   const float denom = __fsub_rn(__fmul_rn(v0x, v1y), __fmul_rn(v0y, v1x));
   const bool ok = fabsf(denom) > 1e-9f && valid;
   const float inv = ok ? __fdiv_rn(1.f, denom) : 0.f;
-  s.c1x[k] = __fmul_rn(inv, v1y);
-  s.c1y[k] = __fmul_rn(-inv, v1x);
-  s.c1c[k] = __fmul_rn(inv, __fsub_rn(__fmul_rn(ay, v1x), __fmul_rn(ax, v1y)));
-  s.c2x[k] = __fmul_rn(-inv, v0y);
-  s.c2y[k] = __fmul_rn(inv, v0x);
-  s.c2c[k] = __fmul_rn(inv, __fsub_rn(__fmul_rn(v0y, ax), __fmul_rn(v0x, ay)));
+  const float c1x = __fmul_rn(inv, v1y), c1y = __fmul_rn(-inv, v1x);
+  const float c1c = __fmul_rn(inv, __fsub_rn(__fmul_rn(ay, v1x), __fmul_rn(ax, v1y)));
+  const float c2x = __fmul_rn(-inv, v0y), c2y = __fmul_rn(inv, v0x);
+  const float c2c = __fmul_rn(inv, __fsub_rn(__fmul_rn(v0y, ax), __fmul_rn(v0x, ay)));
+  s.c1x[k] = c1x;
+  s.c1y[k] = c1y;
+  s.c1c[k] = c1c;
+  s.c2x[k] = c2x;
+  s.c2y[k] = c2y;
+  s.c2c[k] = c2c;
   s.az[k] = az;
   s.dbz[k] = __fsub_rn(bz, az);
   s.dcz[k] = __fsub_rn(cz, az);
-  s.fid[k] = ok ? (int)r[10] : -1;
+  s.fid[k] = (int)r[10];
+  s.cover[k] = ok ? cover_mask(c1x, c1y, c1c, c2x, c2y, c2c, t.x0, t.y0, t.x_step, t.y_step,
+                               t.size)
+                  : 0u;
   return valid;
 }
 
@@ -127,14 +163,15 @@ struct Best {
   int f = -1;
 };
 
-// The warp's pass over a filled chunk of n candidates: cull 32 at a time,
-// then test the kept ones at every lane's pixel in ascending order.
-__device__ __forceinline__ void test_chunk(const Chunk& s, int n, float px, float py, const Box& box,
-                                           Best& best, unsigned& evaluated) {
-  const int lane = threadIdx.x & 31;
+// The warp's pass over a filled chunk of n candidates: a ballot of their
+// cover bits 32 at a time, then the kept ones at every lane's pixel in
+// ascending order.
+__device__ __forceinline__ void test_chunk(const Chunk& s, int n, float px, float py, Best& best,
+                                           unsigned& tested) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int g = 0; g < n; g += 32) {
-    unsigned keep = __ballot_sync(0xffffffffu, g + lane < n && may_cover(s, g + lane, box));
-    evaluated += __popc(keep);
+    unsigned keep = __ballot_sync(0xffffffffu, g + lane < n && (s.cover[g + lane] >> warp & 1u));
+    tested += __popc(keep);
     while (keep) {
       const int k = g + __ffs(keep) - 1;
       keep &= keep - 1;
@@ -156,10 +193,6 @@ __device__ __forceinline__ void test_chunk(const Chunk& s, int n, float px, floa
   }
 }
 
-__device__ __forceinline__ float centre(float start, int i, float step) {
-  return __fadd_rn(start, __fmul_rn((float)i, step));
-}
-
 __global__ void __launch_bounds__(1024) rasterize_kernel(const float* tri, int* face, float* bary,
                                                          float* zbuf,
                                                          unsigned long long* pairs, int T,
@@ -171,27 +204,19 @@ __global__ void __launch_bounds__(1024) rasterize_kernel(const float* tri, int* 
   const int sub_x = (tile + kSubW - 1) / kSubW;
   const int col0 = (warp % sub_x) * kSubW, row0 = (warp / sub_x) * kSubH;
   const int col = col0 + lane % kSubW, row = row0 + lane / kSubW;
-  const int tx = t % tiles_x, ty = t / tiles_x;
-  const float x0 = centre(-span, tx * tile, x_step);
-  const float y0 = centre(-1.f, ty * tile, y_step);
-  const float px = centre(x0, col, x_step), py = centre(y0, row, y_step);
-  Box box;
-  box.xlo = centre(x0, col0, x_step);
-  box.xhi = centre(x0, min(col0 + kSubW, tile) - 1, x_step);
-  box.ylo = centre(y0, row0, y_step);
-  box.yhi = centre(y0, min(row0 + kSubH, tile) - 1, y_step);
-  box.mx = fmax(fabs(box.xlo), fabs(box.xhi));
-  box.my = fmax(fabs(box.ylo), fabs(box.yhi));
+  const Tile tl{centre(-span, (t % tiles_x) * tile, x_step),
+                centre(-1.f, (t / tiles_x) * tile, y_step), x_step, y_step, tile};
+  const float px = centre(tl.x0, col, x_step), py = centre(tl.y0, row, y_step);
   Best best;
-  unsigned evaluated = 0;
+  unsigned tested = 0;
   const float* tb = tri + ((size_t)b * T + t) * K * kCols;
 
   for (int k0 = 0; k0 < K; k0 += blockDim.x) {
     const int k = k0 + (int)threadIdx.x;
     if (k0) __syncthreads();  // the previous chunk is no longer read
-    const bool valid = k < K && fill(s, threadIdx.x, tb + (size_t)k * kCols);
+    const bool valid = k < K && fill(s, threadIdx.x, tb + (size_t)k * kCols, tl);
     const int n = __syncthreads_count(valid);  // the valid rows are a prefix
-    test_chunk(s, n, px, py, box, best, evaluated);
+    test_chunk(s, n, px, py, best, tested);
     if (n < (int)blockDim.x) break;
   }
   const int P = tile * tile;
@@ -203,9 +228,9 @@ __global__ void __launch_bounds__(1024) rasterize_kernel(const float* tri, int* 
     bary[o * 3 + 2] = best.w2;
     zbuf[o] = best.z;
   }
-  if (pairs && lane == 0 && evaluated) {
+  if (pairs && lane == 0 && tested) {
     const int w = min(col0 + kSubW, tile) - col0, h = min(row0 + kSubH, tile) - row0;
-    atomicAdd(pairs, (unsigned long long)evaluated * (unsigned long long)(w * h));
+    atomicAdd(pairs, (unsigned long long)tested * (unsigned long long)(w * h));
   }
 }
 
