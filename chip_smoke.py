@@ -735,7 +735,8 @@ class PairTimer(StageTimer):
 class PreprocessSplit:
     """The trainer's preprocess stage in four parts, by CUDA events, summed
     over a pair's D and G calls: camera (the camera math and the projection),
-    binning (``bin_candidates``), K7 and post (untiling, argmax, gathers,
+    binning (``bin_candidates``, which the CUDA path no longer runs: K7 bins
+    on the card), K7 (its pre-pass included) and post (argmax, gathers,
     labels).  Stands in for the preprocessor; while ``patched``, the
     rasterizer's binning and K7 entry record their own events."""
 
@@ -783,13 +784,13 @@ class PreprocessSplit:
                 return out
             return run
 
-        saved = ras.bin_candidates, ras.rasterize_tiles_cuda
+        saved = ras.bin_candidates, ras.rasterize_mesh_cuda
         ras.bin_candidates = wrap(saved[0], "bin0", "bin1")
-        ras.rasterize_tiles_cuda = wrap(saved[1], "k0", "k1")
+        ras.rasterize_mesh_cuda = wrap(saved[1], "k0", "k1")
         try:
             yield self
         finally:
-            ras.bin_candidates, ras.rasterize_tiles_cuda = saved
+            ras.bin_candidates, ras.rasterize_mesh_cuda = saved
 
     def per_pair_ms(self, pairs):
         import torch
@@ -826,7 +827,8 @@ def count_syncs(fn):
 
 def check_preprocess_syncs(tpre, tbatch, tmeta, gen):
     """Synchronizing calls of one preprocess call: the camera half (the same
-    preprocessor without faces) and ``_forward_rasterize``."""
+    preprocessor without faces) and ``_forward_rasterize``, which must make
+    none: it runs once more under ``set_sync_debug_mode('error')``."""
     import torch
 
     from threedhumangan_tpu_torch.data.preprocessor import get_preprocessor
@@ -839,6 +841,14 @@ def check_preprocess_syncs(tpre, tbatch, tmeta, gen):
     n_ras, at_ras = count_syncs(lambda: tpre._forward_rasterize(cond))
     log(f"preprocess: synchronizing calls in one call (torch.cuda.set_sync_debug_mode): camera "
         f"half {n_cam} {at_cam}, _forward_rasterize {n_ras} {at_ras}")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tpre._forward_rasterize(cond)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log("  _forward_rasterize ran under set_sync_debug_mode('error')")
+    if n_ras:
+        raise AssertionError(f"_forward_rasterize synchronizes: {at_ras}")
     return dict(camera=n_cam, rasterize=n_ras)
 
 
@@ -955,26 +965,22 @@ def raster_paths(tile):
     from threedhumangan_tpu_torch.ops import rasterize as ras
 
     def kernel(verts, faces, size, K, pairs=None):
-        _, tiles_x, xs, ys, span = ras._grid(size, tile)
-        tri = ras.bin_candidates(verts, faces, size, tile, K)
-        return [ras._untile(x, size, tile) for x in
-                ras.rasterize_tiles_cuda(tri, tiles_x, tile, xs, ys, span, pairs)]
+        return ras.rasterize_mesh_cuda(verts, faces, size, tile, K, pairs)
 
     def plain(verts, faces, size, K):
-        _, tiles_x, xs, ys, span = ras._grid(size, tile)
-        tri = ras.bin_candidates(verts, faces, size, tile, K)
-        return [ras._untile(x, size, tile) for x in
-                ras.rasterize_tiles_plain(tri, tiles_x, tile, xs, ys, span)]
+        return ras.rasterize_mesh_plain(verts, faces, size, tile, K)
 
     return kernel, plain
 
 
 def check_raster(pre, cond, meta):
-    """K7 against its plain version, bit for bit: on the training slice's
-    inputs, with the cap at 256 faces a tile, and on ``raster_adversarial``;
-    two calls bit for bit; its ptxas line (a spill fails); its time, its
-    binning's, the plain version's, the recounted bound and the share of
-    (pixel, valid candidate) pairs it tested."""
+    """K7 (its bin pre-pass and z-test) against its plain version
+    (``bin_candidates`` + ``rasterize_tiles_plain``), bit for bit: on the
+    training slice's inputs, with the cap at 256 faces a tile, and on
+    ``raster_adversarial``; two calls bit for bit; its ptxas line (a spill
+    fails); its time, its pre-pass's, the plain version's (and its binning's
+    alone), the recounted bound and the share of (pixel, valid candidate)
+    pairs it tested."""
     import torch
 
     from threedhumangan_tpu_torch.ops import rasterize as ras
@@ -1027,21 +1033,22 @@ def check_raster(pre, cond, meta):
     kernel(verts, faces, size, K, pairs)
     needed, valid_pairs = raster_needed_pairs(verts, faces, size, tile, K)
     tested = int(pairs.item())
-    _, tiles_x, xs, ys, span = ras._grid(size, tile)
-    tri = ras.bin_candidates(verts, faces, size, tile, K)
     bin_ms = cuda_ms(lambda: ras.bin_candidates(verts, faces, size, tile, K), 5)
-    ms = cuda_ms(lambda: ras.rasterize_tiles_cuda(tri, tiles_x, tile, xs, ys, span), 5)
+    ms = cuda_ms(lambda: kernel(verts, faces, size, K), 5)
+    prepass_ms = cuda_ms(lambda: ras.raster_bins(verts, faces, size, tile), 5)
     plain_ms = cuda_ms(lambda: plain(verts, faces, size, K), 1)
     B, V = verts.shape[:2]
     # ~20 float32 operations a needed (pixel, candidate) pair; the bytes are
     # the vertices, the faces and 20 bytes a pixel out
     bd = bound(20 * needed, B * V * 12 + F * 3 * 8 + B * size[0] * size[1] * 20, PEAK_F32)
-    log(f"  time: kernel {ms:.3f} ms (binning in torch {bin_ms:.3f} ms)  plain {plain_ms:.3f} "
-        f"ms  bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    log(f"  time: kernel {ms:.4f} ms (its bin pre-pass alone {prepass_ms:.4f} ms)  plain "
+        f"{plain_ms:.3f} ms (its binning, bin_candidates, alone {bin_ms:.3f} ms)  bound "
+        f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
     log(f"  (pixel, candidate) pairs: needed {needed} ({needed / valid_pairs * 100:.2f}% of the "
         f"{valid_pairs} (pixel, valid candidate) pairs), tested {tested} "
         f"({tested / valid_pairs * 100:.2f}%)")
-    return dict(max_abs_err=worst, ms=ms, binning_ms=bin_ms, plain_ms=plain_ms, needed_pairs=needed,
+    return dict(max_abs_err=worst, ms=ms, prepass_ms=prepass_ms, plain_ms=plain_ms,
+                plain_binning_ms=bin_ms, needed_pairs=needed,
                 valid_pairs=valid_pairs, tested_pairs=tested,
                 tested_share=tested / valid_pairs, **bd)
 
@@ -2033,6 +2040,7 @@ def reset_counts():
 
     for mod in (geo, knn, raymarch, rasterize, synthesis_kernel):
         mod.launches = 0
+    rasterize.launches_bins = 0
     geo.launches_clusters = 0
     raymarch.launches_unfolded = raymarch.launches_geo = 0
     raymarch_bwd.launches_stats = raymarch_bwd.launches_bwd = raymarch_bwd.launches_wgrad = 0
@@ -2047,7 +2055,8 @@ def read_counts():
     return {"K1": geo.launches, "K2": raymarch.launches, "K3": synthesis_kernel.launches,
             "K4": raymarch.launches_unfolded, "K5": raymarch.launches_geo, "K6": knn.launches,
             "K1/K6 vertex clusters": geo.launches_clusters,
-            "K7": rasterize.launches, "K8": raymarch_bwd.launches_stats,
+            "K7": rasterize.launches, "K7 bins": rasterize.launches_bins,
+            "K8": raymarch_bwd.launches_stats,
             "K9": raymarch_bwd.launches_bwd,
             "K9 weight-gradient reduction": raymarch_bwd.launches_wgrad,
             "K10": synthesis_train.launches_fwd, "K11": synthesis_train.launches_bwd,
@@ -2115,6 +2124,8 @@ def run_train_slice(ts, batch, pre, meta, gcuda):
     path = ("K1", "K2", "K7", "K8", "K9") + (("K10", "K11") if fused else ())
     if min(counts[k] for k in path) <= 0:
         raise AssertionError(f"a kernel did not launch during the training slice: {counts}")
+    if counts["K7 bins"] != counts["K7"]:
+        raise AssertionError(f"K7 ran without its pre-pass, or the other way: {counts}")
     pairs = WARMUP + TIMED
     if fused and (counts["K10"] != 36 * pairs or counts["K11"] != 18 * pairs):
         raise AssertionError(f"expected 36 K10 and 18 K11 launches a pair: {counts}")
@@ -2331,7 +2342,8 @@ def main():
              **k3),
         dict(name="K7 rasterizer tile z-test", route="cuda", source=src + "rasterize.cu",
              replaces="threedhumangan_tpu/ops/rasterize.py:335", launches=tc["K7"],
-             preprocess_ms_per_pair_fused=fused["preprocess_ms"], preprocess_syncs=syncs, **k7),
+             prepass_launches=tc["K7 bins"], preprocess_ms_per_pair_fused=fused["preprocess_ms"],
+             preprocess_syncs=syncs, **k7),
         dict(name="K8 field backward stats", route="cuda", source=src + "field_core.cuh",
              entry_source=src + "raymarch_bwd.cu",
              replaces="threedhumangan_tpu/ops/raymarch_bwd.py:132", launches=tc["K8"], **k8),

@@ -283,3 +283,92 @@ def test_culled_z_test_matches_plain(case, tile):
     assert torch.equal(f, fe)
     assert torch.equal(z, ze)
     assert torch.equal(b, be)
+
+
+def _overlap(vs, faces, tile):
+    """The pre-pass's test: (B, T, F) bool, face f's box overlaps tile t; a
+    NaN corner overlaps nothing, as NaN boxes do in ``bin_candidates``."""
+    tri = torch.as_tensor(vs)[:, torch.as_tensor(faces).reshape(-1)].reshape(
+        vs.shape[0], -1, 3, 3)
+    x0, x1, y0, y1 = ras.tile_edges(SIZE, tile, "cpu")[:, None, :, None]
+    xs, ys = tri[..., 0], tri[..., 1]
+    nan = (xs.isnan() | ys.isnan()).any(-1)[:, None]
+    return ((xs.amin(-1)[:, None] <= x1) & (xs.amax(-1)[:, None] >= x0)
+            & (ys.amin(-1)[:, None] <= y1) & (ys.amax(-1)[:, None] >= y0) & ~nan)
+
+
+def bin_words(overlap):
+    """The pre-pass's table: (B, T, ceil(F / 32)) words, bit f % 32 of word
+    f // 32 set where face f overlaps the tile."""
+    B, T, F = overlap.shape
+    pad = torch.zeros(B, T, -(-F // 32) * 32 - F, dtype=torch.bool)
+    bits = torch.cat([overlap, pad], -1).reshape(B, T, -1, 32).long()
+    return (bits << torch.arange(32)).sum(-1)
+
+
+def expand(words, K):
+    """The kernel's list: each tile's first K set bits in index order, by a
+    popcount prefix over its words; (B, T, K) face ids, -1 past the end."""
+    B, T, W = words.shape
+    bits = ((words[..., None] >> torch.arange(32)) & 1).bool()  # (B, T, W, 32)
+    counts = bits.sum(-1)
+    offset = counts.cumsum(-1) - counts  # exclusive prefix over the words
+    rank = offset[..., None] + bits.long().cumsum(-1) - 1
+    keep = bits & (rank < K)
+    out = torch.full((B, T, K + 1), -1, dtype=torch.long)
+    face = torch.arange(W * 32).reshape(W, 32).expand_as(bits)
+    out.scatter_(-1, torch.where(keep, rank, K).reshape(B, T, -1), face.reshape(B, T, -1))
+    return out[..., :K]
+
+
+def compact(overlap, K):
+    """Index-order compaction: the faces whose running count stays within K."""
+    pos = overlap.long().cumsum(-1) - 1
+    keep = overlap & (pos < K)
+    out = torch.full(overlap.shape[:2] + (K + 1,), -1, dtype=torch.long)
+    face = torch.arange(overlap.shape[-1]).expand_as(overlap)
+    out.scatter_(-1, torch.where(keep, pos, K), face)
+    return out[..., :K]
+
+
+def _with_nan(vs, faces):
+    vs = vs.copy()
+    vs[0, faces[5, 1], 0] = np.nan
+    vs[-1, faces[9, 2], 1] = np.nan
+    return vs, faces
+
+
+@pytest.mark.parametrize("case,kmax", [("body", 512), ("body", 64), ("quads", 128),
+                                       ("slivers", 256), ("nan", 256)])
+def test_bins_select_exactly_topk_rows(case, kmax):
+    """The pre-pass's bit table, expanded by popcount prefixes, and a plain
+    cumsum compaction both list ``bin_candidates``' valid rows, also where
+    the cap binds and where a corner is NaN."""
+    vs, faces = _with_nan(*_body()) if case == "nan" else CASES[case]()
+    tile = 16
+    K = -(-min(kmax, faces.shape[0]) // 64) * 64
+    tri = ras.bin_candidates(torch.as_tensor(vs), torch.as_tensor(faces), SIZE, tile, K)
+    valid = tri[..., 9] > 0
+    want = torch.where(valid, tri[..., 10].long(), -1)
+    over = _overlap(vs, faces, tile)
+    assert torch.equal(compact(over, K), want)
+    assert torch.equal(expand(bin_words(over), K), want)
+    if kmax == 64:
+        assert (valid.sum(-1) == K).any()  # the cap binds
+    if case == "nan":
+        assert not (want[0] == 5).any() and not (want[-1] == 9).any()
+
+
+def test_cuda_entries_refuse_cpu_tensors():
+    """No fallback: the kernel's wrappers raise on CPU tensors, which only
+    ``rasterize_mesh_tiled`` hands to the plain version."""
+    vs, faces = _body(B=1)
+    v, f = torch.as_tensor(vs), torch.as_tensor(faces)
+    with pytest.raises(ValueError):
+        ras.rasterize_mesh_cuda(v, f, SIZE, 16, 64)
+    with pytest.raises(ValueError):
+        ras.raster_bins(v, f, SIZE, 16)
+    got = ras.rasterize_mesh_tiled(v, f, SIZE, tile=16, max_faces_per_tile=64, k_chunk=64)
+    want = ras.rasterize_mesh_plain(v, f, SIZE, 16, 64, k_chunk=64)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert ras.launches == 0 and ras.launches_bins == 0

@@ -1,23 +1,37 @@
-// K7: per-tile z-test of binned candidate faces.
+// K7: tile-binned triangle rasterizer, binning included.
 //
 // Replaces threedhumangan_tpu/ops/rasterize.py::_rasterize_tile_kernel
-// (Pallas, TPU).  One CTA takes one (image, tile of at most 32 x 32 pixels);
-// each warp owns a sub-tile of 8 x 4 pixels (lane l: column l % 8, row
-// l / 8 of it), one pixel a lane.  The tile's candidates ([9 vertex coords,
-// valid, face id] rows, lowest face index first, the valid rows a prefix)
-// stream through shared memory one row a thread: every thread turns its row
-// into edge-function coefficients (w1 = c1x px + c1y py + c1c, w2 alike,
-// z = az + w1 (bz - az) + w2 (cz - az)) and a cover mask, one bit a warp,
-// set where the candidate may be inside at a pixel of that warp's sub-tile
-// (``cover_mask``); the first chunk without a full set of valid rows is the
-// last.  Each warp then takes the chunk 32 candidates at a time: a ballot
-// of its cover bits, and the whole warp tests only the candidates kept, in
-// ascending row order, keeping a running (z, face, bary) minimum.  A
-// candidate replaces the best only when its z is strictly smaller, so the
-// lowest candidate row wins ties, as in the plain version (duplicate faces
-// are common on tiled meshes).  Every step of a pixel's test is rounded in
-// the JAX kernel's operation order (__fmul_rn / __fadd_rn, no FMA
-// contraction), so the outputs are the plain version's bit for bit.
+// (Pallas, TPU) and the XLA binning before it (``_bin_candidates``: each
+// 32 x 32 pixel tile keeps the K lowest-indexed faces whose bounding box
+// overlaps it).  Two kernels:
+//
+// bins_kernel, the pre-pass: a warp takes 32 consecutive faces of one image,
+// forms each face's bounding box (exact min / max of its corners) and, for
+// every tile, ballots the overlap test against the tile's first and last
+// pixel centres (the f32 edges ``ops/rasterize.py::tile_edges`` forms, as
+// ``bin_candidates`` does) into one word of a (B, T, ceil(F / 32)) bit table.
+// Each word has one writer, so the table needs no zeroing and no atomics,
+// and it is the same whatever order the warps run in.
+//
+// rasterize_kernel: one CTA takes one (image, tile of at most 32 x 32
+// pixels).  It expands the tile's first K set bits in index order (a
+// popcount prefix over the words) into a list of face ids, which is
+// ``bin_candidates``' valid rows exactly.  Each warp owns a sub-tile of 8 x 4
+// pixels (lane l: column l % 8, row l / 8 of it), one pixel a lane.  The
+// candidates stream through shared memory one a thread: every thread
+// gathers its face's corners and turns them into edge-function coefficients
+// (w1 = c1x px + c1y py + c1c, w2 alike, z = az + w1 (bz - az) + w2 (cz -
+// az)) and a cover mask, one bit a warp, set where the candidate may be
+// inside at a pixel of that warp's sub-tile (``cover_mask``).  Each warp then
+// takes the chunk 32 candidates at a time: a ballot of its cover bits, and
+// the whole warp tests only the candidates kept, in ascending order,
+// keeping a running (z, face, bary) minimum.  A candidate replaces the best
+// only when its z is strictly smaller, so the lowest candidate wins ties, as
+// in the plain version (duplicate faces are common on tiled meshes).  Every
+// step of a pixel's test is rounded in the JAX kernel's operation order
+// (__fmul_rn / __fadd_rn, no FMA contraction), so the outputs are the plain
+// version's bit for bit; they are written in (B, H, W) layout, masked at the
+// ragged edge of the image.
 //
 // The cull is conservative under that rounding.  w1, w2 and w0 are affine
 // in (px, py) with the rounded coefficients, so their largest exact value
@@ -41,15 +55,15 @@
 // What bounds it on an H100: ~20 float32 operations a (pixel, candidate)
 // pair for the pairs the inputs need, those whose pixel centre lies inside
 // the candidate's bounding box (chip_smoke.py counts them), and its inputs
-// and outputs.  The old loop tested all K rows against all pixels of the
-// tile; this one reads only the valid prefix, forms each candidate's mask
-// once (~300 FP64 operations), and tests a sub-tile only against the
-// candidates its bit keeps.
+// (the vertices and faces) and outputs.  The TPU kernel's port tested all K
+// rows of a table built in torch against every pixel of the tile; this one
+// bins on the card, forms each candidate's mask once (~300 FP64
+// operations), and tests a sub-tile only against the candidates its bit
+// keeps.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kCols = 11;
 constexpr int kChunk = 1024;  // candidates a chunk: one a thread
 constexpr int kSubW = 8;      // a warp's sub-tile: kSubW columns x kSubH rows
 constexpr int kSubH = 4;
@@ -127,16 +141,19 @@ __device__ __forceinline__ unsigned cover_mask(float f1x, float f1y, float f1c, 
   return mask;
 }
 
-// One candidate row of the table into the chunk's coefficients and cover
-// mask; returns whether the row is valid.
-__device__ __forceinline__ bool fill(Chunk& s, int k, const float* r, const Tile& t) {
-  const float ax = r[0], ay = r[1], az = r[2], bx = r[3], by = r[4], bz = r[5];
-  const float cx = r[6], cy = r[7], cz = r[8];
-  const bool valid = r[9] > 0.f;
+// Face f of one image's vertices into the chunk's coefficients and cover
+// mask at row k; every listed face is valid.
+__device__ __forceinline__ void fill(Chunk& s, int k, const float* vb, const long long* faces,
+                                     int f, const Tile& t) {
+  const float* a = vb + 3 * faces[3 * (size_t)f];
+  const float* b = vb + 3 * faces[3 * (size_t)f + 1];
+  const float* c = vb + 3 * faces[3 * (size_t)f + 2];
+  const float ax = a[0], ay = a[1], az = a[2], bx = b[0], by = b[1], bz = b[2];
+  const float cx = c[0], cy = c[1], cz = c[2];
   const float v0x = __fsub_rn(bx, ax), v0y = __fsub_rn(by, ay);
   const float v1x = __fsub_rn(cx, ax), v1y = __fsub_rn(cy, ay);
   const float denom = __fsub_rn(__fmul_rn(v0x, v1y), __fmul_rn(v0y, v1x));
-  const bool ok = fabsf(denom) > 1e-9f && valid;
+  const bool ok = fabsf(denom) > 1e-9f;
   const float inv = ok ? __fdiv_rn(1.f, denom) : 0.f;
   const float c1x = __fmul_rn(inv, v1y), c1y = __fmul_rn(-inv, v1x);
   const float c1c = __fmul_rn(inv, __fsub_rn(__fmul_rn(ay, v1x), __fmul_rn(ax, v1y)));
@@ -151,11 +168,10 @@ __device__ __forceinline__ bool fill(Chunk& s, int k, const float* r, const Tile
   s.az[k] = az;
   s.dbz[k] = __fsub_rn(bz, az);
   s.dcz[k] = __fsub_rn(cz, az);
-  s.fid[k] = (int)r[10];
+  s.fid[k] = f;
   s.cover[k] = ok ? cover_mask(c1x, c1y, c1c, c2x, c2y, c2c, t.x0, t.y0, t.x_step, t.y_step,
                                t.size)
                   : 0u;
-  return valid;
 }
 
 struct Best {
@@ -193,35 +209,113 @@ __device__ __forceinline__ void test_chunk(const Chunk& s, int n, float px, floa
   }
 }
 
-__global__ void __launch_bounds__(1024) rasterize_kernel(const float* tri, int* face, float* bary,
-                                                         float* zbuf,
-                                                         unsigned long long* pairs, int T,
-                                                         int K, int tiles_x, int tile,
-                                                         float x_step, float y_step, float span) {
-  __shared__ Chunk s;
+// Exclusive prefix of c over the CTA; ws holds 33 ints of shared memory,
+// ws[32] the total on return.
+__device__ __forceinline__ int block_prefix(int c, int* ws) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  int incl = c;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += v;
+  }
+  if (lane == 31) ws[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int own = lane < warps ? ws[lane] : 0;
+    int v = own;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, v, d);
+      if (lane >= d) v += u;
+    }
+    ws[lane] = v - own;
+    if (lane == 31) ws[32] = v;
+  }
+  __syncthreads();
+  return ws[warp] + incl - c;
+}
+
+__global__ void __launch_bounds__(256) bins_kernel(const float* verts, const long long* faces,
+                                                   const float* edges, unsigned* bins, int B,
+                                                   int V, int F, int T, int words) {
+  const int gw = (int)((blockIdx.x * (size_t)blockDim.x + threadIdx.x) >> 5);
+  const int lane = threadIdx.x & 31;
+  if (gw >= B * words) return;  // uniform over the warp
+  const int b = gw / words, w = gw % words, f = w * 32 + lane;
+  float x0 = 0.f, x1 = 0.f, y0 = 0.f, y1 = 0.f;
+  bool any = f < F;
+  if (any) {
+    const float* vb = verts + (size_t)b * V * 3;
+    const float* p = vb + 3 * faces[3 * (size_t)f];
+    const float* q = vb + 3 * faces[3 * (size_t)f + 1];
+    const float* r = vb + 3 * faces[3 * (size_t)f + 2];
+    x0 = fminf(fminf(p[0], q[0]), r[0]);
+    x1 = fmaxf(fmaxf(p[0], q[0]), r[0]);
+    y0 = fminf(fminf(p[1], q[1]), r[1]);
+    y1 = fmaxf(fmaxf(p[1], q[1]), r[1]);
+    // a NaN corner makes the plain version's box NaN, which overlaps nothing
+    any = !(isnan(p[0]) || isnan(q[0]) || isnan(r[0]) || isnan(p[1]) || isnan(q[1]) ||
+            isnan(r[1]));
+  }
+  unsigned* out = bins + (size_t)b * T * words + w;
+  for (int t0 = 0; t0 < T; t0 += 32) {
+    unsigned mine = 0u;
+    for (int i = 0; i < 32 && t0 + i < T; ++i) {
+      const int t = t0 + i;
+      const bool hit = any && x0 <= edges[T + t] && x1 >= edges[t] && y0 <= edges[3 * T + t] &&
+                       y1 >= edges[2 * T + t];
+      const unsigned m = __ballot_sync(0xffffffffu, hit);
+      if (lane == i) mine = m;
+    }
+    if (t0 + lane < T) out[(size_t)(t0 + lane) * words] = mine;
+  }
+}
+
+__global__ void __launch_bounds__(1024) rasterize_kernel(
+    const float* verts, const long long* faces, const unsigned* bins, int* face, float* bary,
+    float* zbuf, unsigned long long* pairs, int V, int T, int words, int K, int tiles_x, int tile,
+    int H, int W, float x_step, float y_step, float span) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Chunk& s = *reinterpret_cast<Chunk*>(smem);
+  int* list = reinterpret_cast<int*>(smem + sizeof(Chunk));
+  __shared__ int ws[33];
   const int t = blockIdx.x, b = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int sub_x = (tile + kSubW - 1) / kSubW;
   const int col0 = (warp % sub_x) * kSubW, row0 = (warp / sub_x) * kSubH;
   const int col = col0 + lane % kSubW, row = row0 + lane / kSubW;
-  const Tile tl{centre(-span, (t % tiles_x) * tile, x_step),
-                centre(-1.f, (t / tiles_x) * tile, y_step), x_step, y_step, tile};
+  const int tx = t % tiles_x, ty = t / tiles_x;
+  const Tile tl{centre(-span, tx * tile, x_step), centre(-1.f, ty * tile, y_step), x_step,
+                y_step, tile};
   const float px = centre(tl.x0, col, x_step), py = centre(tl.y0, row, y_step);
+
+  // the tile's first K faces in index order
+  const unsigned* row_bits = bins + ((size_t)b * T + t) * words;
+  int n = 0;
+  for (int w0 = 0; w0 < words && n < K; w0 += blockDim.x) {
+    const int w = w0 + (int)threadIdx.x;
+    unsigned word = w < words ? row_bits[w] : 0u;
+    int at = n + block_prefix(__popc(word), ws);
+    for (; word && at < K; word &= word - 1) list[at++] = w * 32 + __ffs(word) - 1;
+    n += ws[32];
+    __syncthreads();  // ws is read before the next round writes it
+  }
+  n = min(n, K);
+
   Best best;
   unsigned tested = 0;
-  const float* tb = tri + ((size_t)b * T + t) * K * kCols;
-
-  for (int k0 = 0; k0 < K; k0 += blockDim.x) {
-    const int k = k0 + (int)threadIdx.x;
+  const float* vb = verts + (size_t)b * V * 3;
+  for (int k0 = 0; k0 < n; k0 += blockDim.x) {
     if (k0) __syncthreads();  // the previous chunk is no longer read
-    const bool valid = k < K && fill(s, threadIdx.x, tb + (size_t)k * kCols, tl);
-    const int n = __syncthreads_count(valid);  // the valid rows are a prefix
-    test_chunk(s, n, px, py, best, tested);
-    if (n < (int)blockDim.x) break;
+    const int k = k0 + (int)threadIdx.x;
+    if (k < n) fill(s, threadIdx.x, vb, faces, list[k], tl);
+    __syncthreads();
+    test_chunk(s, min((int)blockDim.x, n - k0), px, py, best, tested);
   }
-  const int P = tile * tile;
-  if (col < tile && row < tile) {
-    const size_t o = ((size_t)b * T + t) * P + row * tile + col;
+  const int gy = ty * tile + row, gx = tx * tile + col;
+  if (col < tile && row < tile && gy < H && gx < W) {
+    const size_t o = ((size_t)b * H + gy) * W + gx;
     face[o] = best.f;
     bary[o * 3] = best.w0;
     bary[o * 3 + 1] = best.w1;
@@ -236,14 +330,32 @@ __global__ void __launch_bounds__(1024) rasterize_kernel(const float* tri, int* 
 
 }  // namespace
 
-extern "C" int thgt_rasterize(const float* tri, int* face, float* bary, float* zbuf,
-                              unsigned long long* pairs, int B, int T, int K, int tiles_x,
-                              int tile, float x_step, float y_step, float span,
+extern "C" int thgt_raster_bins(const float* verts, const long long* faces, const float* edges,
+                                unsigned* bins, int B, int V, int F, int T, cudaStream_t stream) {
+  if (B <= 0 || F <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
+  const int words = (F + 31) / 32;
+  const size_t threads = (size_t)B * words * 32;
+  bins_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(verts, faces, edges, bins, B,
+                                                                     V, F, T, words);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int thgt_rasterize(const float* verts, const long long* faces, const unsigned* bins,
+                              int* face, float* bary, float* zbuf, unsigned long long* pairs,
+                              int B, int V, int F, int T, int K, int tiles_x, int tile, int H,
+                              int W, float x_step, float y_step, float span,
                               cudaStream_t stream) {
-  if (tile <= 0 || tile > 32 || K <= 0) return (int)cudaErrorInvalidValue;
+  // the chunk and the list of K face ids; 1 KB stays for the static scan space
+  const long long smem = (long long)sizeof(Chunk) + 4LL * K;
+  if (tile <= 0 || tile > 32 || K <= 0 || B <= 0 || T <= 0 || smem > 232448 - 1024)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(rasterize_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
   const int threads = ((tile + kSubW - 1) / kSubW) * ((tile + kSubH - 1) / kSubH) * 32;
   dim3 grid(T, B);
-  rasterize_kernel<<<grid, threads, 0, stream>>>(tri, face, bary, zbuf, pairs, T, K, tiles_x, tile,
-                                                 x_step, y_step, span);
+  rasterize_kernel<<<grid, threads, (size_t)smem, stream>>>(verts, faces, bins, face, bary, zbuf,
+                                                            pairs, V, T, (F + 31) / 32, K, tiles_x,
+                                                            tile, H, W, x_step, y_step, span);
   return (int)cudaGetLastError();
 }

@@ -55,6 +55,7 @@ class Preprocessor:
             np.asarray(smpl_faces, np.int64))
         self.faces_to_labels = None if faces_to_labels is None else torch.as_tensor(
             np.asarray(faces_to_labels, np.int64))
+        self._mesh_by_device = {}
 
     def __call__(self, data: Dict, rotate: bool, generator: torch.Generator) -> Dict:
         """Random camera rotation (when ``rotate``) around the mean view."""
@@ -113,10 +114,16 @@ class Preprocessor:
         return torch.stack([focal[:, None] * v_cam[..., 0] / v_cam[..., 2],
                             focal[:, None] * v_cam[..., 1] / v_cam[..., 2], v_cam[..., 2]], -1)
 
+    def _mesh_on(self, dev):
+        """(faces, faces_to_labels) on ``dev``, copied there once: a copy from
+        pageable host memory makes the host wait for the card."""
+        if dev not in self._mesh_by_device:
+            self._mesh_by_device[dev] = (self.faces.to(dev), self.faces_to_labels.to(dev))
+        return self._mesh_by_device[dev]
+
     def _forward_rasterize(self, data):
         """Project the posed mesh through the render camera and rasterize it."""
-        dev = data["vertices"].device
-        faces = self.faces.to(dev)
+        faces, faces_to_labels = self._mesh_on(data["vertices"].device)
         pix_to_face, bary, _ = rasterize_mesh_tiled(
             self.screen_vertices(data), faces, (self.height, self.width), tile=self.raster_tile,
             max_faces_per_tile=self.raster_faces_per_tile)
@@ -128,7 +135,7 @@ class Preprocessor:
         semantics = data["tpose_vertices"][0][pix_to_vert]
         out = dict(data)
         out["rasterized_semantics"] = torch.where(bg[..., None], 0.0, semantics)
-        segments = self.faces_to_labels.to(dev)[face_safe] + 2
+        segments = faces_to_labels[face_safe] + 2
         out["rasterized_segments"] = torch.where(bg, 1, segments).to(torch.int32)
         return out
 

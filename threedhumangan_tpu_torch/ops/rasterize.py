@@ -1,17 +1,18 @@
 """K7: tile-binned triangle rasterizer (threedhumangan_tpu/ops/rasterize.py).
 
-Replaces ``_rasterize_tile_kernel`` (Pallas): the screen is cut into 32x32
-pixel tiles, every tile keeps its K lowest-indexed candidate faces whose
-bounding boxes overlap it (``bin_candidates``, plain torch: a (B, T, F)
-overlap test and ``torch.topk`` of ``F - face``), and the kernel z-tests
-each tile's candidates against its pixels with a running (z, face, bary)
+Replaces ``_rasterize_tile_kernel`` (Pallas) and the XLA binning before it:
+the screen is cut into 32x32 pixel tiles, every tile keeps its K
+lowest-indexed faces whose bounding boxes overlap it, and each tile's
+candidates are z-tested against its pixels with a running (z, face, bary)
 minimum.  Barycentrics come from the edge functions of each candidate at
 the pixel centres, in the JAX kernel's operation order; the lowest
-candidate row wins a tie in z (duplicate faces are common on tiled
-meshes).
+candidate wins a tie in z (duplicate faces are common on tiled meshes).
 
-``rasterize_mesh_tiled`` launches csrc/rasterize.cu on CUDA tensors and
-runs ``rasterize_tiles_plain`` on CPU tensors.  ``rasterize_mesh`` is the
+``rasterize_mesh_tiled`` launches csrc/rasterize.cu on CUDA tensors
+(``rasterize_mesh_cuda``: a bin pre-pass, then the z-test, both on the card)
+and runs the plain version, ``rasterize_mesh_plain`` (``bin_candidates``, a
+(B, T, F) overlap test and ``torch.topk`` of ``F - face``, then
+``rasterize_tiles_plain``), on CPU tensors.  ``rasterize_mesh`` is the
 dense z-buffer (every face against every pixel): the tests' reference.
 
 Camera convention: vertices already projected onto the renderer's ray
@@ -30,6 +31,8 @@ from threedhumangan_tpu_torch import _build
 
 BIG = 1e10
 launches = 0  # K7 launches (the CUDA path only)
+launches_bins = 0  # its bin pre-pass launches
+_EDGES: dict = {}  # tile_edges by (image size, tile, device)
 
 
 def _grid(image_size, tile: int):
@@ -46,34 +49,45 @@ def _triangles(verts_screen, faces):
     return verts_screen.float()[:, faces.reshape(-1)].reshape(B, F, 3, 3)
 
 
+def tile_edges(image_size, tile: int, device) -> torch.Tensor:
+    """(4, T) float32 [x0, x1, y0, y1]: each tile's first and last pixel
+    centres, as ``_bin_candidates`` forms them; made once per shape and
+    device."""
+    key = (tuple(image_size), tile, torch.device(device))
+    if key not in _EDGES:
+        H, W = image_size
+        tiles_y, tiles_x, x_step, y_step, span = _grid(image_size, tile)
+        tx0 = -float(span) + torch.arange(tiles_x, device=device) * tile * float(x_step)
+        ty0 = -1.0 + torch.arange(tiles_y, device=device) * tile * float(y_step)
+        tile_x0 = tx0.float().repeat(tiles_y)
+        tile_y0 = ty0.float().repeat_interleave(tiles_x)
+        # the tile's last pixel centre: the offset is formed in double, as the
+        # JAX package forms it in Python
+        tile_x1 = tile_x0 + float(np.float32((tile - 1) * 2 * W / H / max(W - 1, 1)))
+        tile_y1 = tile_y0 + float(np.float32((tile - 1) * 2.0 / max(H - 1, 1)))
+        _EDGES[key] = torch.stack([tile_x0, tile_x1, tile_y0, tile_y1])
+    return _EDGES[key]
+
+
 def bin_candidates(verts_screen, faces, image_size, tile: int, K: int):
-    """Per-tile candidate table (B, T, K, 11) = [9 vertex coords, valid,
-    face id] with the K lowest-indexed faces whose bounding box overlaps the
-    tile (``_bin_candidates``)."""
-    H, W = image_size
-    tiles_y, tiles_x, x_step, y_step, span = _grid(image_size, tile)
+    """Per-tile candidate table (B, T, K, 11) = [9 vertex coords, valid, face
+    id] with the K lowest-indexed faces whose bounding box overlaps the tile
+    (``_bin_candidates``); the valid rows lead every tile."""
     dev = verts_screen.device
     tri = _triangles(verts_screen, faces)
     B, F = tri.shape[:2]
-    tx0 = -float(span) + torch.arange(tiles_x, device=dev) * tile * float(x_step)
-    ty0 = -1.0 + torch.arange(tiles_y, device=dev) * tile * float(y_step)
-    tile_x0 = tx0.float().repeat(tiles_y)
-    tile_y0 = ty0.float().repeat_interleave(tiles_x)
-    # the tile's last pixel centre: the offset is formed in double, as the
-    # JAX package forms it in Python
-    tile_x1 = tile_x0 + float(np.float32((tile - 1) * 2 * W / H / max(W - 1, 1)))
-    tile_y1 = tile_y0 + float(np.float32((tile - 1) * 2.0 / max(H - 1, 1)))
+    tile_x0, tile_x1, tile_y0, tile_y1 = tile_edges(image_size, tile, dev)
     fx0, fx1 = tri[..., 0].amin(2), tri[..., 0].amax(2)
     fy0, fy1 = tri[..., 1].amin(2), tri[..., 1].amax(2)
     overlap = ((fx0[:, None] <= tile_x1[None, :, None]) & (fx1[:, None] >= tile_x0[None, :, None])
                & (fy0[:, None] <= tile_y1[None, :, None]) & (fy1[:, None] >= tile_y0[None, :, None]))
     scores = torch.where(overlap, float(F) - torch.arange(F, device=dev, dtype=torch.float32),
-                         torch.tensor(-1.0, device=dev))
+                         -1.0)
     if K > F:  # whole chunks: pad with never-valid columns
         scores = torch.cat([scores, scores.new_full(scores.shape[:2] + (K - F,), -1.0)], -1)
     top, cand = torch.topk(scores, K, dim=-1)
     cand = cand.clamp(max=F - 1)
-    T = tiles_y * tiles_x
+    T = tile_x0.shape[0]
     tri9 = torch.gather(tri.reshape(B, 1, F, 9).expand(B, T, F, 9), 2,
                         cand[..., None].expand(B, T, K, 9))
     return torch.cat([tri9, (top > 0).float()[..., None], cand.float()[..., None]], -1)
@@ -137,49 +151,92 @@ def _untile(x, image_size, tile):
     return x.reshape(B, tiles_y * tile, tiles_x * tile, *ch)[:, :H, :W]
 
 
+def _cap(max_faces_per_tile: int, F: int, k_chunk: int) -> int:
+    """K: the faces a tile keeps, in whole chunks of the plain version."""
+    return -(-min(max_faces_per_tile, F) // k_chunk) * k_chunk
+
+
+def rasterize_mesh_plain(verts_screen, faces, image_size, tile: int, K: int, k_chunk: int = 128):
+    """Plain K7 with its binning: ``bin_candidates`` then
+    ``rasterize_tiles_plain``, in (B, H, W) layout."""
+    _, tiles_x, x_step, y_step, span = _grid(image_size, tile)
+    tri_k = bin_candidates(verts_screen, faces, image_size, tile, K)
+    return tuple(_untile(x, image_size, tile) for x in
+                 rasterize_tiles_plain(tri_k, tiles_x, tile, x_step, y_step, span, k_chunk))
+
+
 def rasterize_mesh_tiled(verts_screen, faces, image_size: Tuple[int, int], tile: int = 32,
                          max_faces_per_tile: int = 640, k_chunk: int = 128):
     """Tile-binned rasterization (``rasterize_mesh_pallas``).  verts_screen
     (B, V, 3), faces (F, 3) long.  Returns pix_to_face (B, H, W) int32 (-1
     background), bary (B, H, W, 3), zbuf (B, H, W).  CUDA tensors launch K7;
-    CPU tensors take ``rasterize_tiles_plain``."""
+    CPU tensors take ``rasterize_mesh_plain``."""
+    K = _cap(max_faces_per_tile, faces.shape[0], k_chunk)
+    if verts_screen.device.type == "cuda":
+        return rasterize_mesh_cuda(verts_screen, faces, image_size, tile, K)
+    if verts_screen.device.type == "cpu":
+        return rasterize_mesh_plain(verts_screen, faces, image_size, tile, K, k_chunk)
+    raise ValueError(f"rasterize_mesh_tiled: unsupported device {verts_screen.device}")
+
+
+def _check_mesh(verts_screen, faces, tile):
+    B, V, three = verts_screen.shape
+    dev = verts_screen.device
+    if (three != 3 or faces.dim() != 2 or faces.shape[1] != 3 or not verts_screen.is_cuda
+            or faces.device != dev or not 0 < tile <= 32):
+        raise ValueError(f"the rasterizer kernel needs CUDA vertices (B, V, 3), faces (F, 3) on "
+                         f"the same card and tiles of at most 32 x 32 pixels (got "
+                         f"{tuple(verts_screen.shape)} on {dev}, {tuple(faces.shape)} on "
+                         f"{faces.device}, tile {tile})")
+    return verts_screen.float().contiguous(), faces.long().contiguous()
+
+
+def raster_bins(verts_screen, faces, image_size, tile: int):
+    """K7's pre-pass: (B, T, ceil(F / 32)) int32, bit f % 32 of word f // 32
+    set where face f's bounding box overlaps the tile (``bin_candidates``'
+    overlap test).  faces must index the vertices."""
+    global launches_bins
+    verts, faces = _check_mesh(verts_screen, faces, tile)
+    B, V, _ = verts.shape
     F = faces.shape[0]
-    K = -(-min(max_faces_per_tile, F) // k_chunk) * k_chunk
-    tiles_y, tiles_x, x_step, y_step, span = _grid(image_size, tile)
-    tri_k = bin_candidates(verts_screen, faces, image_size, tile, K)
-    if tri_k.device.type == "cpu":
-        face, bary, zbuf = rasterize_tiles_plain(tri_k, tiles_x, tile, x_step, y_step, span,
-                                                 k_chunk)
-    elif tri_k.device.type == "cuda":
-        face, bary, zbuf = rasterize_tiles_cuda(tri_k, tiles_x, tile, x_step, y_step, span)
-    else:
-        raise ValueError(f"rasterize_mesh_tiled: unsupported device {tri_k.device}")
-    return (_untile(face, image_size, tile), _untile(bary, image_size, tile),
-            _untile(zbuf, image_size, tile))
-
-
-def rasterize_tiles_cuda(tri_k, tiles_x: int, tile: int, x_step, y_step, span, pairs=None):
-    """Launch K7 on (B, T, K, 11) float32 candidates; same outputs as
-    ``rasterize_tiles_plain``.  ``pairs``, a CUDA int64 tensor of one
-    element, gains the (pixel, candidate) pairs the kernel tested."""
-    global launches
-    B, T, K, n = tri_k.shape
-    if n != 11 or tile * tile > 1024 or not tri_k.is_cuda:
-        raise ValueError(f"rasterizer kernel needs (B, T, K, 11) CUDA candidates and tiles of "
-                         f"at most 32 x 32 pixels (got {tuple(tri_k.shape)}, tile {tile})")
-    tri_k = tri_k.float().contiguous()
-    P = tile * tile
-    dev = tri_k.device
-    face = torch.empty(B, T, P, dtype=torch.int32, device=dev)
-    bary = torch.empty(B, T, P, 3, dtype=torch.float32, device=dev)
-    zbuf = torch.empty(B, T, P, dtype=torch.float32, device=dev)
+    dev = verts.device
+    edges = tile_edges(image_size, tile, dev)
+    T = edges.shape[1]
+    bins = torch.empty(B, T, -(-F // 32), dtype=torch.int32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.thgt_rasterize(tri_k.data_ptr(), face.data_ptr(), bary.data_ptr(),
-                                 zbuf.data_ptr(), None if pairs is None else pairs.data_ptr(),
-                                 B, T, K, tiles_x, tile, float(x_step),
-                                 float(y_step), float(span), stream)
+        err = lib.thgt_raster_bins(verts.data_ptr(), faces.data_ptr(), edges.data_ptr(),
+                                   bins.data_ptr(), B, V, F, T, stream)
+    _build.check(err, "thgt_raster_bins")
+    launches_bins += 1
+    return bins
+
+
+def rasterize_mesh_cuda(verts_screen, faces, image_size, tile: int, K: int, pairs=None):
+    """K7 on the card: ``raster_bins``, then the z-test of each tile's first K
+    faces; the same outputs as ``rasterize_mesh_plain``.  ``pairs``, a CUDA
+    int64 tensor of one element, gains the (pixel, candidate) pairs the
+    kernel tested."""
+    global launches
+    bins = raster_bins(verts_screen, faces, image_size, tile)
+    verts, faces = _check_mesh(verts_screen, faces, tile)
+    B, V, _ = verts.shape
+    F, T = faces.shape[0], bins.shape[1]
+    H, W = image_size
+    tiles_x, x_step, y_step, span = _grid(image_size, tile)[1:]
+    dev = verts.device
+    face = torch.empty(B, H, W, dtype=torch.int32, device=dev)
+    bary = torch.empty(B, H, W, 3, dtype=torch.float32, device=dev)
+    zbuf = torch.empty(B, H, W, dtype=torch.float32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.thgt_rasterize(verts.data_ptr(), faces.data_ptr(), bins.data_ptr(),
+                                 face.data_ptr(), bary.data_ptr(), zbuf.data_ptr(),
+                                 None if pairs is None else pairs.data_ptr(), B, V, F, T, K,
+                                 tiles_x, tile, H, W, float(x_step), float(y_step), float(span),
+                                 stream)
     _build.check(err, "thgt_rasterize")
     launches += 1
     return face, bary, zbuf
