@@ -30,7 +30,14 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
                 must be (8, 512, 256, 3), finite and not constant, K1-K3 must
                 launch, and a small config run on the card must agree with
                 the same run on the CPU.
-  5. check    — K7, K1, K2 (with the nerf-noise column), K8 and K9 against their
+  5. check    — K7 (bin pre-pass and z-test) bit for bit against its plain
+                version (bin_candidates + rasterize_tiles_plain) on the
+                training inputs, with the cap at 256 faces a tile and on an
+                adversarial mesh (slivers, edges through pixel centres,
+                equal-z duplicates across chunks, empty tiles), two calls
+                bit-equal, a spill fails, its device time by torch.profiler,
+                the pairs needed (its bound) and tested; K1, K2 (with the
+                nerf-noise column), K8 and K9 against their
                 plain versions at the training slice's shapes (K8/K9 also
                 pointwise at a narrow width, and against autograd through the
                 plain unfolded render); the weight-gradient reduction against
@@ -107,6 +114,29 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, kernels, reps=5):
+    """Device ms a call of each kernel named (a substring of its name), from
+    torch.profiler's CUDA kernel events over ``reps`` calls after a warm-up;
+    None where the trace holds no such time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(kernels, 0.0)
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        us = e.cuda_time_total if us is None else us
+        for k in kernels:
+            if k in e.key:
+                out[k] += us / 1e3 / reps
+    return {k: v or None for k, v in out.items()}
 
 
 def diff_stats(got, ref):
@@ -837,10 +867,12 @@ def check_preprocess_syncs(tpre, tbatch, tmeta, gen):
     cond = cam(tbatch, rotate=True, generator=gen)
     tpre._forward_rasterize(cond)  # the first call per device may copy the faces
     torch.cuda.synchronize()
+    n_none, at_none = count_syncs(lambda: None)  # the instrument's own first use
     n_cam, at_cam = count_syncs(lambda: cam(tbatch, rotate=True, generator=gen))
     n_ras, at_ras = count_syncs(lambda: tpre._forward_rasterize(cond))
     log(f"preprocess: synchronizing calls in one call (torch.cuda.set_sync_debug_mode): camera "
-        f"half {n_cam} {at_cam}, _forward_rasterize {n_ras} {at_ras}")
+        f"half {n_cam} {at_cam}, _forward_rasterize {n_ras} {at_ras}; an empty call first "
+        f"{n_none} {at_none}")
     torch.cuda.set_sync_debug_mode("error")
     try:
         tpre._forward_rasterize(cond)
@@ -849,7 +881,7 @@ def check_preprocess_syncs(tpre, tbatch, tmeta, gen):
     log("  _forward_rasterize ran under set_sync_debug_mode('error')")
     if n_ras:
         raise AssertionError(f"_forward_rasterize synchronizes: {at_ras}")
-    return dict(camera=n_cam, rasterize=n_ras)
+    return dict(camera=n_cam, rasterize=n_ras, empty=n_none)
 
 
 def train_meta():
@@ -1035,19 +1067,23 @@ def check_raster(pre, cond, meta):
     tested = int(pairs.item())
     bin_ms = cuda_ms(lambda: ras.bin_candidates(verts, faces, size, tile, K), 5)
     ms = cuda_ms(lambda: kernel(verts, faces, size, K), 5)
-    prepass_ms = cuda_ms(lambda: ras.raster_bins(verts, faces, size, tile), 5)
+    dev = device_ms(lambda: kernel(verts, faces, size, K), ("bins_kernel", "rasterize_kernel"))
+    prepass_ms, ztest_ms = dev["bins_kernel"], dev["rasterize_kernel"]
     plain_ms = cuda_ms(lambda: plain(verts, faces, size, K), 1)
     B, V = verts.shape[:2]
     # ~20 float32 operations a needed (pixel, candidate) pair; the bytes are
     # the vertices, the faces and 20 bytes a pixel out
     bd = bound(20 * needed, B * V * 12 + F * 3 * 8 + B * size[0] * size[1] * 20, PEAK_F32)
-    log(f"  time: kernel {ms:.4f} ms (its bin pre-pass alone {prepass_ms:.4f} ms)  plain "
-        f"{plain_ms:.3f} ms (its binning, bin_candidates, alone {bin_ms:.3f} ms)  bound "
-        f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    shown = lambda v: "not measured" if v is None else f"{v:.4f} ms"
+    log(f"  time: kernel {ms:.4f} ms a call (CUDA events; device time by torch.profiler: bin "
+        f"pre-pass {shown(prepass_ms)}, z-test {shown(ztest_ms)})  plain {plain_ms:.3f} ms (its "
+        f"binning, bin_candidates, alone {bin_ms:.3f} ms)  bound {bd['bound_ms']:.4f} ms "
+        f"({bd['bound_by']})")
     log(f"  (pixel, candidate) pairs: needed {needed} ({needed / valid_pairs * 100:.2f}% of the "
         f"{valid_pairs} (pixel, valid candidate) pairs), tested {tested} "
         f"({tested / valid_pairs * 100:.2f}%)")
-    return dict(max_abs_err=worst, ms=ms, prepass_ms=prepass_ms, plain_ms=plain_ms,
+    return dict(max_abs_err=worst, ms=ms, prepass_device_ms=prepass_ms,
+                ztest_device_ms=ztest_ms, plain_ms=plain_ms,
                 plain_binning_ms=bin_ms, needed_pairs=needed,
                 valid_pairs=valid_pairs, tested_pairs=tested,
                 tested_share=tested / valid_pairs, **bd)

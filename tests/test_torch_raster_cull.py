@@ -26,7 +26,7 @@ SOURCE = (Path(__file__).resolve().parents[1] / "threedhumangan_tpu_torch" / "cs
 
 
 def _const(name):
-    text = re.search(rf"constexpr \w+ {name} = ([^;]+);", SOURCE).group(1).strip()
+    text = re.search(rf"constexpr \w+ {name} = ([^;]+);", SOURCE).group(1).strip().rstrip("f")
     return float.fromhex(text) if "0x" in text else float(text)
 
 
@@ -171,37 +171,41 @@ def _inside(coef, ok, px, py):
     return (w0 >= 0) & (w1 >= 0) & (w2 >= 0) & ok[..., None], w0, w1, w2
 
 
-def cover_masks(coef, ok, px, py, tile):
-    """The kernel's ``cover_mask`` in float64 torch: (B, T, K, warps) bool,
-    False only where the candidate is inside at no pixel of the warp's
-    sub-tile.  coef (B, T, K, 6) float32, ok (B, T, K); px, py (T, P) the
-    plain version's pixel centres."""
-    c = coef.double()
-    c1x, c1y, c1c, c2x, c2y, c2c = c.unbind(-1)
-    sub_x, sub_y = -(-tile // SUB_W), -(-tile // SUB_H)
-    xs, ys = px[:, :tile].double(), py[:, ::tile].double()  # (T, tile): columns, rows
-    t = lambda v: v[None, :, None]  # a (T,) per-tile value against (B, T, K)
-    mx = t(torch.maximum(xs[:, 0].abs(), xs[:, -1].abs()))
-    my = t(torch.maximum(ys[:, 0].abs(), ys[:, -1].abs()))
+def face_rows(coef, ok, mx, my):
+    """The pre-pass's cull constants, op for op in float32: k1, k2, k0 and
+    c1x + c2x, c1y + c2y; infinite constants where a coefficient is above
+    HUGE in size or not finite."""
+    c1x, c1y, c1c, c2x, c2y, c2c = coef.unbind(-1)
     a1 = (c1x.abs() * mx + c1y.abs() * my) + c1c.abs()
     a2 = (c2x.abs() * mx + c2y.abs() * my) + c2c.abs()
-    c0x, c0y, c0c = -(c1x + c2x), -(c1y + c2y), (1.0 - c1c) - c2c
     k1, k2 = c1c + (REL * a1 + ABS), c2c + (REL * a2 + ABS)
-    k0 = c0c + (REL0 * ((a1 + a2) + 1.0) + ABS)
-    corner = lambda cv, lo, hi: torch.maximum(cv * t(lo), cv * t(hi))
-    cols = []
-    for j in range(sub_x):
-        lo, hi = xs[:, j * SUB_W], xs[:, min(j * SUB_W + SUB_W, tile) - 1]
-        cols.append((k1 + corner(c1x, lo, hi), k2 + corner(c2x, lo, hi),
-                     k0 + corner(c0x, lo, hi)))
+    k0 = ((1.0 - c1c) - c2c) + (REL0 * ((a1 + a2) + 1.0) + ABS)
+    wild = ~(coef.abs() <= HUGE).all(-1)
+    k1, k2, k0 = (torch.where(wild, torch.inf, k) for k in (k1, k2, k0))
+    return k1, k2, k0, c1x + c2x, c1y + c2y
+
+
+def cover_masks(coef, ok, px, py, tile, mx, my):
+    """The kernel's ``covers`` for every warp's sub-tile: (B, T, K, warps)
+    bool, False only where the candidate is inside at no pixel of the
+    sub-tile.  coef (B, T, K, 6) float32, ok (B, T, K); px, py (T, P) the
+    plain version's pixel centres; mx, my the image's largest |px|, |py|."""
+    c1x, c1y, _, c2x, c2y, _ = coef.unbind(-1)
+    k1, k2, k0, sx, sy = face_rows(coef, ok, mx, my)
+    sub_x, sub_y = -(-tile // SUB_W), -(-tile // SUB_H)
+    xs, ys = px[:, :tile], py[:, ::tile]  # (T, tile): columns, rows
+    t = lambda v: v[None, :, None]  # a (T,) per-tile value against (B, T, K)
+    at = lambda c, lo, hi: torch.where(c >= 0, t(hi), t(lo))  # the larger product's corner
     keep = []
     for r in range(sub_y):
-        lo, hi = ys[:, r * SUB_H], ys[:, min(r * SUB_H + SUB_H, tile) - 1]
-        y1, y2, y0 = corner(c1y, lo, hi), corner(c2y, lo, hi), corner(c0y, lo, hi)
-        for x1, x2, x0 in cols:
-            keep.append(~(x1 + y1 < 0) & ~(x2 + y2 < 0) & ~(x0 + y0 < 0))
-    huge = ~(c.abs().amax(-1) <= HUGE)
-    return ok[..., None] & (huge[..., None] | torch.stack(keep, -1))
+        ylo, yhi = ys[:, r * SUB_H], ys[:, min(r * SUB_H + SUB_H, tile) - 1]
+        for j in range(sub_x):
+            xlo, xhi = xs[:, j * SUB_W], xs[:, min(j * SUB_W + SUB_W, tile) - 1]
+            x1, x2 = k1 + c1x * at(c1x, xlo, xhi), k2 + c2x * at(c2x, xlo, xhi)
+            x0 = k0 - sx * at(sx, xhi, xlo)
+            keep.append(~(x1 + c1y * at(c1y, ylo, yhi) < 0) & ~(x2 + c2y * at(c2y, ylo, yhi) < 0)
+                        & ~(x0 - sy * at(sy, yhi, ylo) < 0))
+    return ok[..., None] & torch.stack(keep, -1)
 
 
 def _cull(tri_k, tile):
@@ -211,7 +215,10 @@ def _cull(tri_k, tile):
     px, py = _centres(T, tiles_x, tile, x_step, y_step, span)
     coef, ok = _coefficients(tri_k)
     inside, w0, w1, w2 = _inside(coef, ok, px, py)
-    return cover_masks(coef, ok, px, py, tile), inside, (w0, w1, w2), subtile_map(tile)
+    mx, my = ras.pixel_bounds(SIZE, tile)
+    assert mx >= float(px.abs().max()) and my >= float(py.abs().max())
+    return (cover_masks(coef, ok, px, py, tile, mx, my), inside, (w0, w1, w2),
+            subtile_map(tile))
 
 
 @pytest.mark.parametrize("num_faces,kmax", [(320, 64), (320, 512), (40, 128)])
@@ -360,14 +367,12 @@ def test_bins_select_exactly_topk_rows(case, kmax):
 
 
 def test_cuda_entries_refuse_cpu_tensors():
-    """No fallback: the kernel's wrappers raise on CPU tensors, which only
+    """No fallback: the kernel's wrapper raises on CPU tensors, which only
     ``rasterize_mesh_tiled`` hands to the plain version."""
     vs, faces = _body(B=1)
     v, f = torch.as_tensor(vs), torch.as_tensor(faces)
     with pytest.raises(ValueError):
         ras.rasterize_mesh_cuda(v, f, SIZE, 16, 64)
-    with pytest.raises(ValueError):
-        ras.raster_bins(v, f, SIZE, 16)
     got = ras.rasterize_mesh_tiled(v, f, SIZE, tile=16, max_faces_per_tile=64, k_chunk=64)
     want = ras.rasterize_mesh_plain(v, f, SIZE, 16, 64, k_chunk=64)
     assert all(torch.equal(a, b) for a, b in zip(got, want))

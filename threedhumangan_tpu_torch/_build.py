@@ -77,11 +77,9 @@ SIGNATURES = {
     "thgt_field_bwd_smem": [_I] * 5 + [_P],
     # X, Y, part, K, N, rows, chunk_rows, n_chunks, stream
     "thgt_wgrad": [_P] * 3 + [_I] * 5 + [_P],
-    # verts, faces (int64), tile edges, bins, B, V, F, T, stream
-    "thgt_raster_bins": [_P] * 4 + [_I] * 4 + [_P],
-    # verts, faces (int64), bins, face, bary, zbuf, pairs (or null), B, V, F, T,
-    # K, tiles_x, tile, H, W, x_step, y_step, span, stream
-    "thgt_rasterize": [_P] * 7 + [_I] * 9 + [_F] * 3 + [_P],
+    # verts, faces (int64), tile edges, bins, face, bary, zbuf, pairs (or null),
+    # B, V, F, T, K, tiles_x, tile, H, W, x_step, y_step, span, mx, my, stream
+    "thgt_rasterize": [_P] * 8 + [_I] * 9 + [_F] * 5 + [_P],
     # h, style, fixed, gam, bet, m, r, a, b, sh_b, g_b, bt_b, c, weight
     # stream, out, B, HW, ci, cs, co, cip, csp, cop, hidp, spatial,
     # add_fixed, stream bytes, stream

@@ -22,6 +22,7 @@ the camera (smaller is closer).
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -31,10 +32,11 @@ from threedhumangan_tpu_torch import _build
 
 BIG = 1e10
 launches = 0  # K7 launches (the CUDA path only)
-launches_bins = 0  # its bin pre-pass launches
+launches_bins = 0  # its bin pre-pass launches (one a K7 call)
 _EDGES: dict = {}  # tile_edges by (image size, tile, device)
 
 
+@functools.lru_cache(maxsize=None)
 def _grid(image_size, tile: int):
     """Tile counts and the pixel-centre steps as float32 (the JAX constants)."""
     H, W = image_size
@@ -56,7 +58,7 @@ def tile_edges(image_size, tile: int, device) -> torch.Tensor:
     key = (tuple(image_size), tile, torch.device(device))
     if key not in _EDGES:
         H, W = image_size
-        tiles_y, tiles_x, x_step, y_step, span = _grid(image_size, tile)
+        tiles_y, tiles_x, x_step, y_step, span = _grid(key[0], tile)
         tx0 = -float(span) + torch.arange(tiles_x, device=device) * tile * float(x_step)
         ty0 = -1.0 + torch.arange(tiles_y, device=device) * tile * float(y_step)
         tile_x0 = tx0.float().repeat(tiles_y)
@@ -159,6 +161,7 @@ def _cap(max_faces_per_tile: int, F: int, k_chunk: int) -> int:
 def rasterize_mesh_plain(verts_screen, faces, image_size, tile: int, K: int, k_chunk: int = 128):
     """Plain K7 with its binning: ``bin_candidates`` then
     ``rasterize_tiles_plain``, in (B, H, W) layout."""
+    image_size = tuple(image_size)
     _, tiles_x, x_step, y_step, span = _grid(image_size, tile)
     tri_k = bin_candidates(verts_screen, faces, image_size, tile, K)
     return tuple(_untile(x, image_size, tile) for x in
@@ -172,6 +175,7 @@ def rasterize_mesh_tiled(verts_screen, faces, image_size: Tuple[int, int], tile:
     background), bary (B, H, W, 3), zbuf (B, H, W).  CUDA tensors launch K7;
     CPU tensors take ``rasterize_mesh_plain``."""
     K = _cap(max_faces_per_tile, faces.shape[0], k_chunk)
+    image_size = tuple(image_size)
     if verts_screen.device.type == "cuda":
         return rasterize_mesh_cuda(verts_screen, faces, image_size, tile, K)
     if verts_screen.device.type == "cpu":
@@ -179,7 +183,29 @@ def rasterize_mesh_tiled(verts_screen, faces, image_size: Tuple[int, int], tile:
     raise ValueError(f"rasterize_mesh_tiled: unsupported device {verts_screen.device}")
 
 
-def _check_mesh(verts_screen, faces, tile):
+@functools.lru_cache(maxsize=None)
+def pixel_bounds(image_size, tile: int) -> Tuple[float, float]:
+    """The largest |px| and |py| of any pixel centre of the tile grid, each
+    rounded as csrc/rasterize.cu forms it (start + i * step in float32)."""
+    tiles_y, tiles_x, x_step, y_step, span = _grid(image_size, tile)
+    f32 = np.float32
+
+    def largest(start, step, tiles):
+        first = f32(start) + f32(f32(np.arange(tiles) * tile) * step)
+        last = first + f32(f32(tile - 1) * step)
+        return float(np.abs(np.concatenate([first, last])).max())
+
+    return largest(-span, x_step, tiles_x), largest(-1.0, y_step, tiles_y)
+
+
+def rasterize_mesh_cuda(verts_screen, faces, image_size, tile: int, K: int, pairs=None):
+    """K7 on the card, two launches: the bin pre-pass (a (B, T, ceil(F / 32))
+    bit table, bit f % 32 of word f // 32 set where face f's bounding box
+    overlaps the tile, ``bin_candidates``' test), then the z-test of each
+    tile's first K faces; the same outputs as ``rasterize_mesh_plain``.
+    faces must index the vertices.  ``pairs``, a CUDA int64 tensor of one
+    element, gains the (pixel, candidate) pairs the z-test tested."""
+    global launches, launches_bins
     B, V, three = verts_screen.shape
     dev = verts_screen.device
     if (three != 3 or faces.dim() != 2 or faces.shape[1] != 3 or not verts_screen.is_cuda
@@ -188,57 +214,27 @@ def _check_mesh(verts_screen, faces, tile):
                          f"the same card and tiles of at most 32 x 32 pixels (got "
                          f"{tuple(verts_screen.shape)} on {dev}, {tuple(faces.shape)} on "
                          f"{faces.device}, tile {tile})")
-    return verts_screen.float().contiguous(), faces.long().contiguous()
-
-
-def raster_bins(verts_screen, faces, image_size, tile: int):
-    """K7's pre-pass: (B, T, ceil(F / 32)) int32, bit f % 32 of word f // 32
-    set where face f's bounding box overlaps the tile (``bin_candidates``'
-    overlap test).  faces must index the vertices."""
-    global launches_bins
-    verts, faces = _check_mesh(verts_screen, faces, tile)
-    B, V, _ = verts.shape
+    verts, faces = verts_screen.float().contiguous(), faces.long().contiguous()
     F = faces.shape[0]
-    dev = verts.device
+    H, W = image_size = tuple(image_size)
+    tiles_x, x_step, y_step, span = _grid(image_size, tile)[1:]
     edges = tile_edges(image_size, tile, dev)
     T = edges.shape[1]
     bins = torch.empty(B, T, -(-F // 32), dtype=torch.int32, device=dev)
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.thgt_raster_bins(verts.data_ptr(), faces.data_ptr(), edges.data_ptr(),
-                                   bins.data_ptr(), B, V, F, T, stream)
-    _build.check(err, "thgt_raster_bins")
-    launches_bins += 1
-    return bins
-
-
-def rasterize_mesh_cuda(verts_screen, faces, image_size, tile: int, K: int, pairs=None):
-    """K7 on the card: ``raster_bins``, then the z-test of each tile's first K
-    faces; the same outputs as ``rasterize_mesh_plain``.  ``pairs``, a CUDA
-    int64 tensor of one element, gains the (pixel, candidate) pairs the
-    kernel tested."""
-    global launches
-    bins = raster_bins(verts_screen, faces, image_size, tile)
-    verts, faces = _check_mesh(verts_screen, faces, tile)
-    B, V, _ = verts.shape
-    F, T = faces.shape[0], bins.shape[1]
-    H, W = image_size
-    tiles_x, x_step, y_step, span = _grid(image_size, tile)[1:]
-    dev = verts.device
+    mx, my = pixel_bounds(image_size, tile)
     face = torch.empty(B, H, W, dtype=torch.int32, device=dev)
     bary = torch.empty(B, H, W, 3, dtype=torch.float32, device=dev)
     zbuf = torch.empty(B, H, W, dtype=torch.float32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.thgt_rasterize(verts.data_ptr(), faces.data_ptr(), bins.data_ptr(),
-                                 face.data_ptr(), bary.data_ptr(), zbuf.data_ptr(),
-                                 None if pairs is None else pairs.data_ptr(), B, V, F, T, K,
-                                 tiles_x, tile, H, W, float(x_step), float(y_step), float(span),
-                                 stream)
+        err = lib.thgt_rasterize(verts.data_ptr(), faces.data_ptr(), edges.data_ptr(),
+                                 bins.data_ptr(), face.data_ptr(), bary.data_ptr(),
+                                 zbuf.data_ptr(), None if pairs is None else pairs.data_ptr(),
+                                 B, V, F, T, K, tiles_x, tile, H, W, float(x_step), float(y_step),
+                                 float(span), mx, my, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "thgt_rasterize")
     launches += 1
+    launches_bins += 1
     return face, bary, zbuf
 
 
