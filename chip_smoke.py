@@ -991,20 +991,6 @@ def raster_needed_pairs(verts, faces, size, tile, K):
     return int((nx * ny * valid).sum()), int(valid.sum()) * tile * tile
 
 
-def raster_paths(tile):
-    """K7's CUDA path and its plain version, both (face, bary, z) in image
-    layout: (verts, faces, size, K[, pairs])."""
-    from threedhumangan_tpu_torch.ops import rasterize as ras
-
-    def kernel(verts, faces, size, K, pairs=None):
-        return ras.rasterize_mesh_cuda(verts, faces, size, tile, K, pairs)
-
-    def plain(verts, faces, size, K):
-        return ras.rasterize_mesh_plain(verts, faces, size, tile, K)
-
-    return kernel, plain
-
-
 def check_raster(pre, cond, meta):
     """K7 (its bin pre-pass and z-test) against its plain version
     (``bin_candidates`` + ``rasterize_tiles_plain``), bit for bit: on the
@@ -1021,7 +1007,8 @@ def check_raster(pre, cond, meta):
     verts, faces = pre.screen_vertices(cond), pre.faces.cuda()
     F = faces.shape[0]
     kcap = lambda kmax, F: -(-min(kmax, F) // 128) * 128
-    kernel, plain = raster_paths(tile)
+    kernel = lambda v, f, size, K, pairs=None: ras.rasterize_mesh_cuda(v, f, size, tile, K, pairs)
+    plain = lambda v, f, size, K: ras.rasterize_mesh_plain(v, f, size, tile, K)
     adv_v, adv_f = raster_adversarial(size, tile)
     cases = [("training slice", verts, faces, kcap(pre.raster_faces_per_tile, F)),
              ("cap 256", verts, faces, kcap(256, F)),

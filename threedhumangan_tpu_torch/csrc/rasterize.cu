@@ -24,8 +24,8 @@
 // version's operation order and tests them against the CTA's 8 sub-tiles
 // (``covers``), one cover bit each.  Each warp takes every other group of 32
 // candidates: a ballot of its sub-tile's bits, then the whole warp tests
-// the candidates kept, two at a time where two are left, in ascending order,
-// keeping a running (z, face, bary) minimum.  A candidate replaces the best
+// the candidates kept, in ascending order, keeping a running (z, face,
+// bary) minimum.  A candidate replaces the best
 // only when its z is strictly smaller, so the first candidate with the
 // smallest z wins; the two warps' bests then merge by (z, face id), and the
 // face ids ascend with the list, so the lowest candidate wins ties, as in
@@ -160,34 +160,6 @@ struct Best {
   int f = -1;
 };
 
-struct Hit {
-  float z, w0, w1, w2;
-  bool inside;
-};
-
-// Candidate k of the chunk at the lane's pixel, in the plain version's op order.
-__device__ __forceinline__ Hit test(const Chunk& ch, int k, float px, float py) {
-  const float4 a = ch.q0[k], c = ch.q1[k];  // c1x c1y c1c c2x, c2y c2c az dbz
-  Hit h;
-  h.w1 = __fadd_rn(__fadd_rn(__fmul_rn(a.x, px), __fmul_rn(a.y, py)), a.z);
-  h.w2 = __fadd_rn(__fadd_rn(__fmul_rn(a.w, px), __fmul_rn(c.x, py)), c.y);
-  h.w0 = __fsub_rn(__fsub_rn(1.f, h.w1), h.w2);
-  h.z = __fadd_rn(__fadd_rn(c.z, __fmul_rn(h.w1, c.w)), __fmul_rn(h.w2, ch.dcz[k]));
-  h.inside = h.w0 >= 0.f && h.w1 >= 0.f && h.w2 >= 0.f;
-  return h;
-}
-
-// A hit replaces the best only when strictly closer: the first of equal z wins.
-__device__ __forceinline__ void take(Best& best, const Hit& h, const Chunk& ch, int k) {
-  if (h.inside && h.z < best.z) {
-    best.z = h.z;
-    best.f = ch.fid[k];
-    best.w0 = h.w0;
-    best.w1 = h.w1;
-    best.w2 = h.w2;
-  }
-}
-
 // Face f of the image into the chunk at k: its row, and its cover bits for
 // the CTA's sub-tiles s0 <= s < s1 (bit s - s0).
 __device__ __forceinline__ void fill(Chunk& ch, int k, const float* vb, const long long* faces,
@@ -210,26 +182,28 @@ __device__ __forceinline__ void fill(Chunk& ch, int k, const float* vb, const lo
 
 // A warp's pass over its groups of a filled chunk of n candidates (group
 // split, split + kSplit, ...; sub-tile sub): a ballot of their cover bits,
-// then the kept ones at every lane's pixel, two at a time where two are left
-// (independent tests) and taken into the running best in ascending order.
+// then the kept ones at every lane's pixel in ascending order, in the plain
+// version's op order.  A candidate replaces the best only when strictly
+// closer: the first of equal z wins.
 __device__ __forceinline__ void test_chunk(const Chunk& ch, int n, int sub, int split, float px,
                                            float py, Best& best, unsigned& tested) {
   const int lane = threadIdx.x & 31;
   for (int g = 32 * split; g < n; g += 32 * kSplit) {
     unsigned keep = __ballot_sync(0xffffffffu, g + lane < n && (ch.cover[g + lane] >> sub & 1u));
     tested += __popc(keep);
-    while (keep) {
-      const int ka = g + __ffs(keep) - 1;
-      keep &= keep - 1;
-      const Hit ha = test(ch, ka, px, py);
-      if (keep) {
-        const int kb = g + __ffs(keep) - 1;
-        keep &= keep - 1;
-        const Hit hb = test(ch, kb, px, py);
-        take(best, ha, ch, ka);
-        take(best, hb, ch, kb);
-      } else {
-        take(best, ha, ch, ka);
+    for (; keep; keep &= keep - 1) {
+      const int k = g + __ffs(keep) - 1;
+      const float4 a = ch.q0[k], c = ch.q1[k];  // c1x c1y c1c c2x, c2y c2c az dbz
+      const float w1 = __fadd_rn(__fadd_rn(__fmul_rn(a.x, px), __fmul_rn(a.y, py)), a.z);
+      const float w2 = __fadd_rn(__fadd_rn(__fmul_rn(a.w, px), __fmul_rn(c.x, py)), c.y);
+      const float w0 = __fsub_rn(__fsub_rn(1.f, w1), w2);
+      const float z = __fadd_rn(__fadd_rn(c.z, __fmul_rn(w1, c.w)), __fmul_rn(w2, ch.dcz[k]));
+      if (w0 >= 0.f && w1 >= 0.f && w2 >= 0.f && z < best.z) {
+        best.z = z;
+        best.f = ch.fid[k];
+        best.w0 = w0;
+        best.w1 = w1;
+        best.w2 = w2;
       }
     }
   }

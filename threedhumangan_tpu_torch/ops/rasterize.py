@@ -153,11 +153,6 @@ def _untile(x, image_size, tile):
     return x.reshape(B, tiles_y * tile, tiles_x * tile, *ch)[:, :H, :W]
 
 
-def _cap(max_faces_per_tile: int, F: int, k_chunk: int) -> int:
-    """K: the faces a tile keeps, in whole chunks of the plain version."""
-    return -(-min(max_faces_per_tile, F) // k_chunk) * k_chunk
-
-
 def rasterize_mesh_plain(verts_screen, faces, image_size, tile: int, K: int, k_chunk: int = 128):
     """Plain K7 with its binning: ``bin_candidates`` then
     ``rasterize_tiles_plain``, in (B, H, W) layout."""
@@ -174,7 +169,7 @@ def rasterize_mesh_tiled(verts_screen, faces, image_size: Tuple[int, int], tile:
     (B, V, 3), faces (F, 3) long.  Returns pix_to_face (B, H, W) int32 (-1
     background), bary (B, H, W, 3), zbuf (B, H, W).  CUDA tensors launch K7;
     CPU tensors take ``rasterize_mesh_plain``."""
-    K = _cap(max_faces_per_tile, faces.shape[0], k_chunk)
+    K = -(-min(max_faces_per_tile, faces.shape[0]) // k_chunk) * k_chunk  # whole chunks
     image_size = tuple(image_size)
     if verts_screen.device.type == "cuda":
         return rasterize_mesh_cuda(verts_screen, faces, image_size, tile, K)
