@@ -286,7 +286,8 @@ def _grad_norms_close(stats, jstats, prefix, skip=()):
 
 
 def test_d_and_g_step_match_jax(jax_state):
-    _d_and_g_step_vs_jax(jax_state, fused=False)
+    _d_and_g_step_vs_jax(jax_state, _nano(pallas_synthesis_train=False, remat_synthesis=False),
+                         _nano())
 
 
 def test_fused_synthesis_d_and_g_step_match_jax(jax_state):
@@ -294,13 +295,22 @@ def test_fused_synthesis_d_and_g_step_match_jax(jax_state):
     the plain K10/K11 on the CPU) against the JAX jitted step on its fused
     half-blocks (Pallas in interpret mode; its D and G steps compile in
     ~10 s each here), at the tolerances of the per-op comparison."""
-    _d_and_g_step_vs_jax(jax_state, fused=True)
+    _d_and_g_step_vs_jax(jax_state, _nano(pallas_synthesis_train=True, remat_synthesis=False),
+                         _nano(pallas_synthesis_train=True, pallas_interpret=True,
+                               remat_synthesis=False))
 
 
-def _d_and_g_step_vs_jax(jax_state, fused):
-    port_meta = _nano(pallas_synthesis_train=fused)
-    meta = (_nano(pallas_synthesis_train=True, pallas_interpret=True, remat_synthesis=False)
-            if fused else _nano())
+@pytest.mark.parametrize("fused", [False, True])
+def test_remat_d_and_g_step_match_jax(jax_state, fused):
+    """The port's step with synthesis remat (per op, or on the fused
+    half-blocks) against the JAX jitted per-op step, which runs with remat
+    (its default; the step ``test_d_and_g_step_match_jax`` compiles), at the
+    tolerances of the comparisons above."""
+    _d_and_g_step_vs_jax(jax_state, _nano(pallas_synthesis_train=fused, remat_synthesis=True),
+                         _nano())
+
+
+def _d_and_g_step_vs_jax(jax_state, port_meta, meta):
     batch, jts, jp, pre = _step_setup(meta, jax_state)
     B = 2
     ts = train_state_from_jax(jts, meta, "cpu")

@@ -136,7 +136,8 @@ MAP3DBN = {
     "dataset_length": 10,
     "dataroot": "./datasets/shhq_example_dataset",
     # no synthesis rematerialization (the JAX package's choice for this
-    # config; the port ignores the flag)
+    # config); the other configs leave it to the trainer's
+    # ``auto_remat_synthesis``
     "remat_synthesis": False,
     **_common(),
 }

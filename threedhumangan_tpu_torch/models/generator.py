@@ -47,8 +47,10 @@ On a CUDA device every kernel launches; on the CPU each wrapper runs its
 plain PyTorch version.  Not ported: hierarchical sampling,
 ``disable_render`` (the condition-image style head), ``disable_synthesis``,
 2D label/latent inputs, and nerf noise at eval; each raises
-``NotImplementedError``.  ``remat_synthesis`` changes memory only and is not
-applied.
+``NotImplementedError``.  ``remat_synthesis`` (default True, as in the JAX
+package) recomputes each synthesis block in the training backward
+(``models.synthesis`` docstring); it changes memory and time, not values.
+``auto_remat_synthesis`` is the trainers' shape-aware default for it.
 """
 
 from __future__ import annotations
@@ -71,6 +73,29 @@ from threedhumangan_tpu_torch.ops.raymarch import (fused_field_render, fused_fie
 from threedhumangan_tpu_torch.ops.raymarch_bwd import field_render_trainable
 from threedhumangan_tpu_torch.ops.synthesis_kernel import fold_synthesis_params, fused_synthesis
 from threedhumangan_tpu_torch.utils.misc import resolve_device
+
+
+# The flip point of ``auto_remat_synthesis``, in bytes of the estimated
+# no-remat synthesis residuals.  Fitted to peaks measured on an NVIDIA H100
+# 80GB HBM3 (700 W) by ``apps/memory_sweep.py``: PLACEHOLDER.
+REMAT_RESIDUAL_BUDGET = 16 * 2**30
+
+
+def synthesis_residual_bytes(meta: Dict, micro_batch: int) -> int:
+    """The JAX package's estimate of the synthesis activations a training
+    backward keeps without remat: two bf16 maps a block (each half-block's
+    input), 2 * blocks * micro-batch * gen_h * gen_w * hidden * 2 bytes."""
+    blocks = meta.get("synthesis_blocks", 9)
+    return (2 * blocks * micro_batch * meta["gen_height"] * meta["gen_width"]
+            * meta["hidden_dim"] * 2)
+
+
+def auto_remat_synthesis(meta: Dict, micro_batch: int) -> bool:
+    """Shape-aware default for ``remat_synthesis`` (JAX
+    ``models/generator.py::auto_remat_synthesis``): remat where the
+    estimated residuals of one device micro-batch (batch // batch_split)
+    exceed ``REMAT_RESIDUAL_BUDGET``."""
+    return synthesis_residual_bytes(meta, micro_batch) > REMAT_RESIDUAL_BUDGET
 
 
 class LatentPool(nn.Module):
@@ -273,7 +298,8 @@ def _train_forward(gen, z, conditions, meta, generator, compute_dtype, nerf_nois
         # K10 forward / K11 backward; the JAX TPU-only keys
         # pallas_synthesis_train_tile_rows and pallas_interpret have no role here
         rgbs = gen.synthesis_network(x, feature_maps, styles, compute_dtype, train=True,
-                                     fused=meta.get("pallas_synthesis_train", False))
+                                     fused=meta.get("pallas_synthesis_train", False),
+                                     remat=meta.get("remat_synthesis", True))
     return ({"rgbs": rgbs, "rgbs_render": rgb_render},
             dict(gen.synthesis_network.named_buffers()))
 

@@ -15,6 +15,15 @@ half-blocks of ``ops/synthesis_train.py`` (K10/K11; the JAX fused path).
 Train mode is ported for batch norm only (the MAP3DBN family); adaptive
 batch norm and instance norm raise.
 
+``remat=True`` (the JAX ``jax.checkpoint`` around each block) runs each
+train-mode block with its ToRGB under ``torch.utils.checkpoint`` (non-
+reentrant): the backward keeps the block's input and recomputes the rest.
+A block's state advances outside the recomputed part, once a step: both
+``u`` are stepped and both convs' normalised weights formed before the
+block runs and passed in, and the running stats take the moments the block
+returns.  The recompute therefore sees the same weights and updates
+nothing.
+
 Keys follow the reference torch modules: ``network.m3d_{i}.conv_0.weight_orig``
 / ``.weight_u`` (spectral norm), ``spade_{s}.first_norm.*`` (SyncBatchNorm),
 ``spade_{s}.mlp_shared.0``, ``to_rgbs.m3d_{i}.linear``; conv weights are
@@ -23,10 +32,12 @@ Keys follow the reference torch modules: ``network.m3d_{i}.conv_0.weight_orig``
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from threedhumangan_tpu_torch.utils.misc import lrelu, mm, normal_, uniform_
 
@@ -105,8 +116,11 @@ class SNConv1x1(nn.Module):
         return spectral_normalize(self.weight_orig[:, :, 0, 0].t().float(), self.weight_u, train)
 
     def forward(self, x, compute_dtype=torch.float32, train: bool = False):
-        y = mm(x, self.normalized_weight(train), compute_dtype) + self.bias.float()
-        return y.to(compute_dtype)
+        return self.apply_weight(x, self.normalized_weight(train), compute_dtype)
+
+    def apply_weight(self, x, w, compute_dtype=torch.float32):
+        """The conv with a given normalised (in, out) weight."""
+        return (mm(x, w, compute_dtype) + self.bias.float()).to(compute_dtype)
 
 
 def norm_affine(norm: nn.BatchNorm2d, normalization: str, eps: float = 1e-5):
@@ -127,15 +141,12 @@ def _update_running_stats(norm: nn.BatchNorm2d, mean, var, n: int, momentum: flo
     norm.num_batches_tracked.add_(1)
 
 
-def sync_bn_moments(norm: nn.BatchNorm2d, x: torch.Tensor, momentum: float = 0.1):
-    """Train-mode batch moments of NHWC ``x`` in float32 (differentiable)
-    and the in-place running-stat update (unbiased variance, no grad).  One
-    process: the JAX pmean over replicas is the identity."""
+def batch_moments(x: torch.Tensor):
+    """Train-mode batch moments of NHWC ``x`` in float32 (differentiable).
+    One process: the JAX pmean over replicas is the identity."""
     x32 = x.float()
     mean = x32.mean((0, 1, 2))
     var = torch.square(x32 - mean).mean((0, 1, 2))
-    _update_running_stats(norm, mean.detach(), var.detach(),
-                          x.shape[0] * x.shape[1] * x.shape[2], momentum)
     return mean, var
 
 
@@ -162,17 +173,16 @@ class SPADE2d(nn.Module):
             out[f"{stem}_w"], out[f"{stem}_b"] = conv.w, conv.bias
         return out
 
-    def forward(self, x, feature_maps, compute_dtype=torch.float32, train: bool = False):
-        """x, feature_maps: NHWC (feature_maps may be (B, 1, 1, C))."""
+    def forward(self, x, feature_maps, compute_dtype=torch.float32):
+        """Eval mode.  x, feature_maps: NHWC (feature_maps may be (B, 1, 1, C))."""
         norm = self.first_norm
-        x32 = x.float()
-        if train:
-            if self.normalization != "batch_norm":
-                raise NotImplementedError(f"train-mode SPADE with {self.normalization!r}")
-            mean, var = sync_bn_moments(norm, x)
-        else:
-            mean, var = norm.running_mean.float(), norm.running_var.float()
-        y = (x32 - mean) * torch.rsqrt(var + 1e-5)
+        return self.modulate(x, feature_maps, norm.running_mean.float(),
+                             norm.running_var.float(), compute_dtype)
+
+    def modulate(self, x, feature_maps, mean, var, compute_dtype=torch.float32):
+        """The normalisation by the given moments, then the SPADE modulation."""
+        norm = self.first_norm
+        y = (x.float() - mean) * torch.rsqrt(var + 1e-5)
         if self.normalization == "batch_norm":
             y = y * norm.weight.float() + norm.bias.float()
         normalized = y.to(x.dtype)
@@ -195,11 +205,13 @@ class SPADEBlock(nn.Module):
             m.reset_parameters(generator)
 
     def forward(self, x, style, skip=False, compute_dtype=torch.float32, train: bool = False):
+        if train:
+            return self.forward_train(x, style, None, skip, compute_dtype)
         if style.ndim == 3:  # (B, 1, C) global style: rank-1 over pixels
             style = style[:, :, None, :]
         x_orig = x
-        x = self.conv_0(lrelu(self.spade_0(x, style, compute_dtype, train)), compute_dtype, train)
-        x = self.conv_1(lrelu(self.spade_1(x, style, compute_dtype, train)), compute_dtype, train)
+        x = self.conv_0(lrelu(self.spade_0(x, style, compute_dtype)), compute_dtype)
+        x = self.conv_1(lrelu(self.spade_1(x, style, compute_dtype)), compute_dtype)
         if skip and x.shape[-1] == x_orig.shape[-1]:
             x = x + x_orig
         return x
@@ -212,21 +224,52 @@ class SPADEBlock(nn.Module):
         ``style``: (B, H, W, Cs) map, or a (B, 1, Cs) row (the SPADE MLP then
         runs pre-broadcast and the half-blocks take per-image gamma/beta);
         ``fixed_row``: optional (B, Cs) row added to a spatial style in-kernel."""
-        from threedhumangan_tpu_torch.ops.synthesis_train import (
-            spade_half_block_rank1,
-            spade_half_block_spatial,
-        )
+        return self.forward_train(x, style, fixed_row, skip, compute_dtype, fused=True)
 
+    def train_weights(self):
+        """Both convs' normalised weights, each ``u`` stepped once (train mode)."""
+        return self.conv_0.normalized_weight(train=True), self.conv_1.normalized_weight(train=True)
+
+    def forward_train(self, x, style, fixed_row=None, skip=False, compute_dtype=torch.float32,
+                      fused=False):
+        """Train-mode block: per op, or on the fused half-blocks (``fused``,
+        the style and ``fixed_row`` as in ``forward_fused``); the state
+        updated in place."""
+        h, moments = self.train_body(x, style, fixed_row, *self.train_weights(), skip=skip,
+                                     compute_dtype=compute_dtype, fused=fused)
+        self.update_running_stats(moments, x)
+        return h
+
+    def update_running_stats(self, moments, x):
+        n = x.shape[0] * x.shape[1] * x.shape[2]
+        for spade, (mean, var) in zip((self.spade_0, self.spade_1), moments):
+            _update_running_stats(spade.first_norm, mean.detach(), var.detach(), n, 0.1)
+
+    def train_body(self, x, style, fixed_row, w0, w1, skip=False, compute_dtype=torch.float32,
+                   fused=False):
+        """The train-mode block without its state updates: returns (output,
+        the two half-blocks' batch moments)."""
+        if fused:
+            from threedhumangan_tpu_torch.ops.synthesis_train import (
+                spade_half_block_rank1,
+                spade_half_block_spatial,
+            )
+        elif style.ndim == 3:  # (B, 1, C) global style: rank-1 over pixels
+            style = style[:, :, None, :]
         cd = compute_dtype
         B = x.shape[0]
-        h = x.to(cd)
-        for spade, conv in ((self.spade_0, self.conv_0), (self.spade_1, self.conv_1)):
+        h = x.to(cd) if fused else x
+        moments = []
+        for spade, conv, w in ((self.spade_0, self.conv_0, w0), (self.spade_1, self.conv_1, w1)):
             if spade.normalization != "batch_norm":
-                raise NotImplementedError(f"fused train-mode SPADE with {spade.normalization!r}")
+                raise NotImplementedError(f"train-mode SPADE with {spade.normalization!r}")
             norm = spade.first_norm
-            mean, var = sync_bn_moments(norm, h)
+            mean, var = batch_moments(h)
+            moments.append((mean, var))
+            if not fused:
+                h = conv.apply_weight(lrelu(spade.modulate(h, style, mean, var, cd)), w, cd)
+                continue
             r = torch.rsqrt(var + 1e-5)
-            w = conv.normalized_weight(train=True)
             if style.ndim == 4:
                 h = spade_half_block_spatial(h, style.to(cd), fixed_row, mean, r, norm.weight,
                                              norm.bias, spade.mlp_weights(), w, conv.bias, cd)
@@ -239,7 +282,7 @@ class SPADEBlock(nn.Module):
                                            norm.weight, norm.bias, w, conv.bias, cd)
         if skip and h.shape[-1] == x.shape[-1]:
             h = h + x
-        return h
+        return h, moments
 
 
 class ToRGB(nn.Module):
@@ -307,25 +350,49 @@ class SynthesisNetwork(nn.Module):
         raise ValueError(f"invalid map3d_mode {self.map3d_mode!r}")
 
     def forward(self, x, style, fixed_style, compute_dtype=torch.float32, train: bool = False,
-                fused: bool = False):
+                fused: bool = False, remat: bool = False):
         """Forward (JAX apply_synthesis_network).  x: NHWC input features;
         style: NHWC spatial style; fixed_style (B, 1, C).  Returns the NHWC
         rgb; in train mode the state is updated in place.  ``fused`` (train
         mode, batch norm) runs each block on the fused half-blocks
-        (``SPADEBlock.forward_fused``), else every op in PyTorch."""
+        (``SPADEBlock.forward_fused``), else every op in PyTorch; ``remat``
+        (train mode, with gradients) recomputes each block and its ToRGB in
+        the backward (module docstring)."""
         fused = fused and train and self.spatial_normalization == "batch_norm"
         rgb = None
         for idx in range(self.num_blocks):
             skip = idx >= self.num_blocks // 2
             block = self.network[f"m3d_{idx}"]
+            to_rgb = self.to_rgbs[f"m3d_{idx}"] if idx >= self.num_blocks // 2 - 1 else None
+            if not train:
+                x = block(x, self.block_style(idx, style, fixed_style), skip, compute_dtype)
+                if to_rgb is not None:
+                    rgb = to_rgb(x, rgb, compute_dtype)
+                continue
             if fused:
                 st, fixed_row = self.fused_block_style(idx, style, fixed_style)
-                x = block.forward_fused(x, st, fixed_row, skip, compute_dtype)
             else:
-                x = block(x, self.block_style(idx, style, fixed_style), skip, compute_dtype, train)
-            if idx >= self.num_blocks // 2 - 1:
-                rgb = self.to_rgbs[f"m3d_{idx}"](x, rgb, compute_dtype)
+                st, fixed_row = self.block_style(idx, style, fixed_style), None
+            step = functools.partial(_train_block_step, block, to_rgb, skip=skip,
+                                     compute_dtype=compute_dtype, fused=fused)
+            args = (x, rgb, st, fixed_row, *block.train_weights())
+            if remat and torch.is_grad_enabled():
+                out, rgb, moments = checkpoint(step, *args, use_reentrant=False)
+            else:
+                out, rgb, moments = step(*args)
+            block.update_running_stats(moments, x)
+            x = out
         return rgb
+
+
+def _train_block_step(block, to_rgb, x, rgb, style, fixed_row, w0, w1, skip, compute_dtype,
+                      fused):
+    """One train-mode block and its ToRGB, without state updates: the unit
+    that remat recomputes.  Returns (x, rgb, the block's batch moments)."""
+    x, moments = block.train_body(x, style, fixed_row, w0, w1, skip, compute_dtype, fused)
+    if to_rgb is not None:
+        rgb = to_rgb(x, rgb, compute_dtype)
+    return x, rgb, moments
 
 
 def get_2d_coords(batch_size, height, width, dtype=torch.float32, device=None):

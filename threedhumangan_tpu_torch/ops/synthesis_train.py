@@ -17,7 +17,7 @@ an optional per-image ``fixed`` row added to the style, mixed/all modes);
 The batch moments (m, r = rsqrt(var + eps)) enter as differentiable
 arguments: ``HalfBlock`` reports dL/dm = -r * sum(dnhat) and dL/dr =
 sum(dnhat * nhat) / r, and autograd carries them through the plain
-``sync_bn_moments`` in models/synthesis.py, so the batch-norm coupling
+``batch_moments`` in models/synthesis.py, so the batch-norm coupling
 through the moments is exact.  The Function saves its inputs, not its
 activations: the backward recomputes the chain per tile, as K11 does.  No
 double backward (R1 differentiates the discriminator only).

@@ -20,11 +20,17 @@
     an uninterrupted one exactly;
   * EMA sample grids (``log_image``, PNG) and weight histograms
     (``log_weights``) every ``sample_interval`` steps;
+  * synthesis remat (``remat_synthesis``) by ``auto_remat_synthesis`` for
+    one device micro-batch, batch // batch_split, unless the config pins
+    it, with the fused synthesis on;
   * out-of-memory recovery on ``torch.cuda.OutOfMemoryError``: double
-    ``batch_split`` and retry the step when no optimizer has stepped in it,
-    else restore the latest checkpoint (``self.step`` set before the stage
-    rebuild).  Buffers a failed forward already advanced (BN running stats,
-    spectral-norm ``u``) stay advanced on a retry.
+    ``batch_split``, rebuild the stage (which decides remat again) and retry
+    the step when no optimizer has stepped in it, else restore the latest
+    checkpoint (``self.step`` set before the stage rebuild).  A stage's
+    first pair keeps a host copy of the discriminator and its optimizer, so
+    running out of memory in that pair's G step undoes its D step and
+    retries too.  Buffers a failed forward already advanced (BN running
+    stats, spectral-norm ``u``) stay advanced on a retry.
 
 ADA (``ada_interval > 0``) and more than one process raise
 ``NotImplementedError``.
@@ -33,6 +39,7 @@ ADA (``ada_interval > 0``) and more than one process raise
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import os
 import threading
@@ -45,6 +52,7 @@ from threedhumangan_tpu_torch import configs
 from threedhumangan_tpu_torch.data.dataset import get_dataset_distributed, to_tensors
 from threedhumangan_tpu_torch.data.prefetch import prefetch
 from threedhumangan_tpu_torch.data.preprocessor import get_preprocessor
+from threedhumangan_tpu_torch.models.generator import auto_remat_synthesis
 from threedhumangan_tpu_torch.parallel.stats import Collector
 from threedhumangan_tpu_torch.trainers.phase_trainer import TrainState, init_train_state
 from threedhumangan_tpu_torch.trainers import phase_trainer
@@ -130,6 +138,7 @@ class Trainer:
     def _build_stage(self, meta: Dict):
         """Rebuild the dataset, preprocessor and micro-batching for a stage."""
         self._stage_token += 1
+        self._stage_fits = False  # no pair of this stage has completed yet
         self.batch_size = meta["batch_size"]
         self.gen_height, self.gen_width = meta["gen_height"], meta["gen_width"]
         reserved = ("smpl_model", "batch_size", "name", "dataset", "world_size", "rank")
@@ -137,6 +146,9 @@ class Trainer:
         self.loader_fn, self.dataset = get_dataset_distributed(
             meta["dataset"], self.world_size, self.rank, self.batch_size,
             smpl_model=self.smpl_model, **kwargs)
+        root = getattr(self.dataset, "root", None)
+        print(f"rank {self.rank}: dataset {type(self.dataset).__name__}, {len(self.dataset)} "
+              f"items" + (f" under {root}" if root else ""), flush=True)
         self._stage_meta = dict(meta)
         for k in ("nerf_noise", "gen_lr", "disc_lr"):
             self._stage_meta.pop(k, None)
@@ -146,6 +158,12 @@ class Trainer:
         # the fused train synthesis (K10/K11) serves the D-step fakes and the
         # G step on the card
         self._stage_meta.setdefault("pallas_synthesis_train", self.device.type == "cuda")
+        # synthesis remat unless the config pins it: decided for one device
+        # micro-batch, so again after an out-of-memory error doubles the split
+        if self._stage_meta["pallas_synthesis_train"]:
+            micro = max(1, self.batch_size // self._stage_meta["batch_split"])
+            self._stage_meta.setdefault("remat_synthesis",
+                                        auto_remat_synthesis(self._stage_meta, micro))
         self.preprocessor = get_preprocessor(self._stage_meta, self.dataset.smpl_model)
 
     def _meta_for_step(self, step: int) -> Optional[Dict]:
@@ -301,12 +319,17 @@ class Trainer:
         the data at the restored step)."""
         while True:
             before = (_opt_steps(self.ts.opt_D), _opt_steps(self.ts.opt_G))
+            undo = None if self._stage_fits else self._d_on_host()
             try:
                 self.ts, stats = phase_trainer.train_step_pair(
                     self.ts, batch, self.generator, meta, self.preprocessor, phase,
                     self._cur_lr[0], self._cur_lr[1], nerf_noise)
+                self._stage_fits = True
                 return stats
             except torch.cuda.OutOfMemoryError:
+                if undo is not None and before[1] == _opt_steps(self.ts.opt_G):
+                    self.ts.D.load_state_dict(undo["D"])
+                    self.ts.opt_D.load_state_dict(undo["opt_D"])
                 untouched = before == (_opt_steps(self.ts.opt_D), _opt_steps(self.ts.opt_G))
                 outcome = self._try_oom_recovery(untouched)
                 if outcome is None:
@@ -314,6 +337,15 @@ class Trainer:
                 if outcome == "restored":
                     return None
                 meta = self._stage_meta  # retry the same batch, micro-batched
+
+    def _d_on_host(self) -> Dict:
+        """A host copy of the discriminator's state and its optimizer's."""
+        host = lambda t: t.detach().to("cpu", copy=True) if torch.is_tensor(t) else copy.copy(t)
+        opt = self.ts.opt_D.state_dict()
+        return {"D": {k: host(v) for k, v in self.ts.D.state_dict().items()},
+                "opt_D": {"state": {i: {k: host(v) for k, v in st.items()}
+                                    for i, st in opt["state"].items()},
+                          "param_groups": copy.deepcopy(opt["param_groups"])}}
 
     def _run(self, max_steps: Optional[int] = None) -> None:
         n_epochs = getattr(self.opt, "n_epochs", 1)
