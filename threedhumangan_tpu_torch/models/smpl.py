@@ -1,6 +1,8 @@
 """SMPL body model: linear blend skinning + per-point geometric features
 (threedhumangan_tpu/models/smpl.py).
 
+``load_smpl_model`` reads the ``SMPL_NEUTRAL.pkl`` asset; ``get_smpl_model``
+takes it from the given path or ``datasets/``, else the synthetic stand-in.
 ``synthetic_smpl_model`` draws the same numpy ``RandomState`` stream as the
 JAX version, so both packages build identical constants from one seed.
 ``get_geo_features`` is the 31-d conditioning; it runs through
@@ -12,7 +14,9 @@ tensor), or, with the fused geo kernel off, in torch around the 1-NN of
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import os
+import pickle
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -187,6 +191,39 @@ def synthetic_smpl_model(seed: int = 0, num_verts: int = 384, num_faces: int = 5
         lbs_weights=f32(lbs_weights),
         faces=faces,
     )
+
+
+def load_smpl_model(path: str) -> SMPLModel:
+    """SMPL constants from the ``SMPL_NEUTRAL.pkl`` layout (a latin-1 pickle:
+    ``v_template``, ``shapedirs`` (V, 3, n), ``posedirs`` (V, 3, P),
+    ``J_regressor`` (J, V), dense or ``scipy.sparse``, ``kintree_table``,
+    ``weights``, ``f``), as JAX ``models/smpl.py::load_smpl_model`` reads it:
+    ``posedirs`` becomes (P, V * 3) and the first 10 shape directions kept."""
+    with open(path, "rb") as f:
+        data = pickle.load(f, encoding="latin1")
+    dense = lambda x: np.asarray(x.toarray() if hasattr(x, "toarray") else x)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))
+    posedirs = np.asarray(data["posedirs"], np.float32)
+    return SMPLModel(
+        v_template=f32(data["v_template"]),
+        shapedirs=f32(np.asarray(data["shapedirs"])[:, :, :10]),
+        posedirs=f32(posedirs.reshape(-1, posedirs.shape[-1]).T),
+        J_regressor=f32(dense(data["J_regressor"])),
+        parents=np.asarray(data["kintree_table"][0], np.int64).clip(0),
+        lbs_weights=f32(data["weights"]),
+        faces=np.asarray(data["f"], np.int64),
+    )
+
+
+def get_smpl_model(path: Optional[str] = None) -> SMPLModel:
+    """The asset at ``path``, else ``datasets/SMPL_NEUTRAL.pkl`` under the
+    working directory or the checkout, else ``synthetic_smpl_model()``."""
+    repo = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    for c in (path, os.path.join("datasets", "SMPL_NEUTRAL.pkl"),
+              os.path.join(repo, "datasets", "SMPL_NEUTRAL.pkl")):
+        if c and os.path.exists(c):
+            return load_smpl_model(c)
+    return synthetic_smpl_model()
 
 
 def get_geo_features(points, skeletons, vertices, tpose_vertices, fk_matrices, lbs_weights,
