@@ -71,10 +71,30 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
                 checkpoints and EMA samples, then a second ``Trainer`` resumes
                 at step 4 and runs to 6; finite metrics; K1-K3 and K7-K11
                 launched.
- 10. result   — K7's device time a launch (torch.profiler, last, as it may
+ 10. 512L     — MAP3DBN512L, the released checkpoint's config, at its own
+                batch 32 through ``Trainer`` on an SHHQ-layout tree written
+                to a temporary directory (64 items at SHHQ's 1024 x 512:
+                smooth images, masks, palette body_seg, inversions, VIBE-
+                style SMPL pickles; PNG rows cycling through the five filter
+                types; SMPL_NEUTRAL.pkl written from the 6,890-vertex
+                synthetic model and loaded back by ``get_smpl_model``): 2
+                warm-up + 3 timed steps with the trainer's own batch_split
+                and remat; ms a pair (host clock), imgs/s, the stage split,
+                peak memory, the chosen split and remat, launches a pair and
+                the loader's ms a batch (the native core must have built).
+                Then K1 (legacy), K2, K7-K11 at its shapes: on the tree's
+                first 32 items, each against its plain version on the last
+                two images, the 32-image launch bit-equal on those two to
+                their own launch (K10/K11 spatial without the fixed row and
+                rank-1, moments passed in), the batch-reduced weight
+                gradients against the plain f32 X^T Y, times at the
+                trainer's micro-batch; and one fused MAP3DBN G step with
+                remat on vs off (gradients, BN stats and u).
+ 11. result   — K7's device time a launch (torch.profiler, last, as it may
                 slow later host-bound launches); a JSON line of the kernels
-                (times, bounds, launches by path),
-                the card line, and the final {"ok": true, "device": ...} line.
+                (times, bounds, launches by path, each kernel of the 512L
+                path at its shapes), the card line, and the final
+                {"ok": true, "device": ...} line.
 """
 
 import contextlib
@@ -690,7 +710,7 @@ def run_generation(gen, pre, batch, z0, meta, gen_rng, label, need, forbid):
         log(f"  stage {k:<10} {stage_ms[k]:9.3f} ms/batch")
     total = sum(walls) / len(walls)
     log(f"  total {total * 1e3:.3f} ms/batch (host clock)  {BATCH / total:.3f} imgs/s  "
-        f"stage sum {sum(stage_ms.values()):.3f} ms")
+        f"stage sum {sum(v for k, v in stage_ms.items() if k != 'd_r1'):.3f} ms")
     log(f"  launches during the slice: {counts}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"  peak memory {peak:.2f} GiB")
@@ -2234,6 +2254,519 @@ def run_trainer(smpl):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# MAP3DBN512L at its own batch 32 on an SHHQ-layout tree
+# ---------------------------------------------------------------------------
+
+TREE_ITEMS = 64
+TREE_SIZE = (1024, 512)  # SHHQ's images, masks and labels
+L_BATCH = 32             # MAP3DBN512L's batch (configs/map3d.py)
+L_WARMUP, L_TIMED = 2, 3
+FILTERS = (0, 1, 2, 3, 4)  # PNG rows cycle through every filter type
+
+
+def _tree_item(root, i, model, palette):
+    """Item i (files i + 1): a smooth body-like image with its mask, palette
+    body-part labels, an inversion latent and a VIBE-style SMPL prediction."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from threedhumangan_tpu_torch.data.utils import write_png
+    from threedhumangan_tpu_torch.models.smpl import batch_rodrigues
+
+    rs = np.random.RandomState(1000 + i)
+    H, W = TREE_SIZE
+    y, x = np.mgrid[0:H, 0:W].astype(np.float32) / H
+    cx, top, bot = 0.25 + 0.02 * rs.randn(), 0.08 + 0.02 * rs.rand(), 0.92 - 0.02 * rs.rand()
+    yr = (y - top) / (bot - top)
+    body = (np.abs(x - cx) < 0.05 + 0.06 * np.sin(np.pi * np.clip(yr, 0, 1))) & (yr > 0.12) & \
+        (yr < 1)
+    head = (x - cx) ** 2 + (y - top - 0.05) ** 2 < 0.05 ** 2
+    sil = body | head
+    img = np.empty((H, W, 3), np.float32)
+    for c in range(3):
+        f = rs.uniform(1, 4, 2)
+        img[..., c] = 128 + 70 * np.sin(2 * np.pi * (f[0] * x + f[1] * y) + rs.uniform(0, 6))
+        img[..., c] += sil * 50 * np.cos(9 * np.pi * yr + c)
+    img += rs.randn(H, W, 3).astype(np.float32) * 1.5
+    name = f"{i + 1:06d}"
+    write_png(os.path.join(root, "images", name + ".png"),
+              np.clip(img, 0, 255).astype(np.uint8), filters=FILTERS)
+    write_png(os.path.join(root, "masks", name + ".png"), sil.astype(np.uint8) * 255,
+              filters=FILTERS)
+    seg = np.where(sil, 1 + np.clip(yr * 24, 0, 23), 0).astype(np.uint8)
+    write_png(os.path.join(root, "body_seg", name + ".png"), seg, palette=palette,
+              filters=FILTERS)
+    np.save(os.path.join(root, "inversions", name + ".npy"),
+            rs.randn(512).astype(np.float32))
+    J = model.num_joints
+    rot = batch_rodrigues(torch.as_tensor(0.2 * rs.randn(1, J, 3).astype(np.float32)))
+    betas = torch.as_tensor(0.5 * rs.randn(1, 10).astype(np.float32))
+    with torch.no_grad():
+        out = model.forward(betas, rot, pose2rot=False)
+    pred = {"orig_cam": np.asarray([[1.8, 1.8, 0.01 * rs.randn(), 0.01 * rs.randn()]],
+                                   np.float32),
+            "joints": out["joints"].numpy(), "full_pose": rot.numpy(),
+            "tpose_vertices": out["tpose_vertices"].numpy(),
+            "fk_matrices": out["fk_matrices"].numpy(), "lbs_weights": model.lbs_weights.numpy(),
+            "betas": betas.numpy()}
+    with open(os.path.join(root, "smpl", name + ".pkl"), "wb") as f:
+        pickle.dump(pred, f)
+
+
+def write_shhq_tree(root):
+    """An SHHQ-layout tree of TREE_ITEMS items at SHHQ's 1024 x 512, and its
+    SMPL_NEUTRAL.pkl written from the 6,890-vertex synthetic SMPL model (its
+    grid keeps 6,844) and loaded back through ``get_smpl_model``.  Returns
+    (the loaded model, MB written, seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from threedhumangan_tpu_torch.models.smpl import (get_smpl_model, save_smpl_model,
+                                                      synthetic_smpl_model)
+
+    t0 = time.perf_counter()
+    for sub in ("images", "masks", "body_seg", "inversions", "smpl"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    src = synthetic_smpl_model(num_verts=6890, num_faces=13776)
+    asset = os.path.join(root, "SMPL_NEUTRAL.pkl")
+    save_smpl_model(src, asset)
+    model = get_smpl_model(asset)
+    if not (model.num_verts == src.num_verts and len(model.faces) == 13776
+            and bool((model.posedirs == src.posedirs).all())):
+        raise AssertionError("SMPL_NEUTRAL.pkl did not load back as the model it was written from")
+    palette = np.random.RandomState(5).randint(0, 256, (25, 3)).astype(np.uint8)
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda i: _tree_item(root, i, model, palette), range(TREE_ITEMS)))
+    size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+    return model, size / 1e6, time.perf_counter() - t0
+
+
+def run_512l_trainer(tree, smpl, out_dir):
+    """``Trainer`` on MAP3DBN512L (only ``dataroot`` and ``dataset_length``
+    pointed at the tree): L_WARMUP + L_TIMED steps at batch L_BATCH with the
+    trainer's own batch_split and remat.  Each pair is timed by the host
+    clock synchronized at both ends and split into stages by CUDA events
+    (``PairTimer``, the timed pairs); peak memory over the timed pairs; the
+    loader's ms a batch (the dataset's numpy batches) beside it."""
+    import contextlib
+    import io
+    import types
+
+    import numpy as np
+    import torch
+
+    from threedhumangan_tpu_torch import configs
+    from threedhumangan_tpu_torch.data import native
+    from threedhumangan_tpu_torch.data.dataset import SHHQDataset
+    from threedhumangan_tpu_torch.trainers import phase_trainer
+    from threedhumangan_tpu_torch.trainers.base_trainer import Trainer
+
+    config = configs.get_config(types.SimpleNamespace(config="MAP3DBN512L", tune="", variant=0))
+    config.update(dataroot=tree, dataset_length=TREE_ITEMS)
+    opt = types.SimpleNamespace(output_dir=out_dir, device="cuda", model_save_interval=10**9,
+                                model_keep_interval=10**9, sample_interval=0, n_epochs=100,
+                                seed=SEED, tensorboard=0)
+    timer, walls, state = PairTimer(), [], {}
+    real = phase_trainer.train_step_pair
+
+    def timed_pair(ts, data, gen, meta, pre, phase, lr_g, lr_d, noise, draws=None, stage=None):
+        timed = trainer.step >= L_WARMUP
+        if timed and "counts" not in state:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            state["counts"] = read_counts()
+        timer.on = timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, stats = real(ts, data, gen, meta, pre, phase, lr_g, lr_d, noise, draws, timer.stage)
+        torch.cuda.synchronize()
+        if timed:
+            walls.append(time.perf_counter() - t0)
+        state["stats"] = stats
+        return ts, stats
+
+    reset_counts()
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    phase_trainer.train_step_pair = timed_pair
+    try:
+        with contextlib.redirect_stdout(printed):
+            trainer = Trainer(0, 1, opt, config, smpl_model=smpl)
+            setup_s = time.perf_counter() - t0
+            before = [p.detach().clone() for p in trainer.ts.G.parameters()]
+            lat0 = trainer.ts.G.latent_pool.latents[0].detach().cpu().numpy()
+            trainer.run(max_steps=L_WARMUP + L_TIMED)
+    finally:
+        phase_trainer.train_step_pair = real
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for line in printed.getvalue().splitlines():
+        log("  trainer: " + line)
+    meta = trainer._stage_meta
+    split, remat = int(meta["batch_split"]), bool(meta.get("remat_synthesis"))
+    if not isinstance(trainer.dataset, SHHQDataset) or trainer.step != L_WARMUP + L_TIMED:
+        raise AssertionError(f"the trainer ran {type(trainer.dataset).__name__} to step "
+                             f"{trainer.step}")
+    if native.get_lib() is None:
+        raise AssertionError("the native loader core did not build: the loader ran its numpy "
+                             "versions")
+    inv = np.load(os.path.join(tree, "inversions", "000001.npy"))[:lat0.shape[0]]
+    if not np.array_equal(lat0, 2 * inv):
+        raise AssertionError("the latent pool did not start at the tree's inversions x 2")
+    losses = {k: float(v[1]) for k, v in state["stats"].items() if k in ("d_loss", "g_loss")}
+    moved = sum(not torch.equal(a, b) for a, b in zip(before, trainer.ts.G.parameters()))
+    if not all(math.isfinite(v) for v in losses.values()) or moved < len(before) // 2:
+        raise AssertionError(f"the 512L run: losses {losses}, {moved} generator tensors moved")
+    per_pair = {k: (counts[k] - state["counts"][k]) / L_TIMED for k in counts}
+    if min(per_pair[k] for k in ("K1", "K2", "K7", "K8", "K9", "K10", "K11")) <= 0:
+        raise AssertionError(f"a kernel did not launch in the 512L pairs: {per_pair}")
+    # per micro-batch: K10 18 in the D-step fakes, 18 in the G forward and,
+    # under remat, again in the G backward up to the last tensor a block saves
+    if per_pair["K11"] != 18 * split or not (
+            (36 * split < per_pair["K10"] <= 54 * split) if remat
+            else per_pair["K10"] == 36 * split):
+        raise AssertionError(f"K10/K11 launches a pair at split {split}, remat {remat}: "
+                             f"{per_pair}")
+    loader = trainer.loader_fn(seed=1, shuffle=True)
+    loads = []
+    for _ in range(2):
+        t1 = time.perf_counter()
+        batch = next(loader)
+        loads.append(time.perf_counter() - t1)
+    img, msk = batch["images"], batch["masks"]
+    if (img.shape != (L_BATCH, meta["gen_height"], meta["gen_width"], 3)
+            or not (img[msk < 0] == 1.0).all()):
+        raise AssertionError(f"the loader's images: {img.shape}, white background "
+                             f"{(img[msk < 0] == 1.0).all()}")
+    stage_ms = timer.per_pair_ms(L_TIMED)
+    ms = 1e3 * sum(walls) / len(walls)
+    res = dict(batch=L_BATCH, batch_split=split, micro_batch=L_BATCH // split, remat=remat,
+               ms_per_pair=ms, ms_per_pair_runs=[1e3 * w for w in walls],
+               imgs_per_s=L_BATCH / (ms / 1e3), stage_ms=stage_ms, peak_gib=peak,
+               loader_ms_per_batch=1e3 * sum(loads) / len(loads), setup_s=setup_s, run_s=run_s,
+               launches_per_pair=per_pair, counts=counts, losses=losses)
+    log(f"train 512L: MAP3DBN512L batch {L_BATCH} on the SHHQ tree through Trainer, "
+        f"{L_TIMED} timed pairs after {L_WARMUP}: batch_split {split} (micro-batch "
+        f"{L_BATCH // split}), remat {remat}")
+    labels = {"preprocess": "preprocess (camera + K7), D and G", "d_fakes": "D-step fakes",
+              "d_step": "D fwd + bwd", "d_optimizer": "D optimizer",
+              "g_forward": "G fwd (G + D)", "g_backward": "G bwd",
+              "g_optimizer": "G optimizer + EMA"}
+    for k, lab in labels.items():
+        log(f"  stage {lab:<36} {stage_ms.get(k, float('nan')):10.3f} ms/pair")
+    log(f"  total {ms:.3f} ms/pair (host clock; runs "
+        + ", ".join(f"{1e3 * w:.3f}" for w in walls) + f")  {L_BATCH / (ms / 1e3):.3f} imgs/s  "
+        f"stage sum {sum(v for k, v in stage_ms.items() if k != 'd_r1'):.3f} ms")
+    log(f"  peak memory {peak:.2f} GiB over the timed pairs; loader {res['loader_ms_per_batch']:.1f}"
+        f" ms a batch of {L_BATCH} (native core; host, one thread) beside {ms:.1f} ms a pair; "
+        f"set-up {setup_s:.1f} s, whole run {run_s:.1f} s")
+    log(f"  launches a pair: {per_pair}")
+    log(f"  last pair: {losses}; generator tensors moved {moved} of {len(before)}")
+    del trainer
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_field_512l(G, meta, cond, gcuda, micro):
+    """K2 (nerf-noise column), K8 and K9 at MAP3DBN512L's width on the
+    tree's conditions: each kernel against its plain version on the last two
+    images; the full batch's launch bit-equal on those two images to their
+    own launch (K2's map and depth, K8's sigma and f.g, K9's per-image
+    freq/phase gradients); K9's batch-reduced weight gradients against the
+    plain f32 X^T Y summed over its launches; times at ``micro`` images."""
+    import torch
+
+    from threedhumangan_tpu_torch.ops import raymarch as rm
+    from threedhumangan_tpu_torch.ops import raymarch_bwd as rb
+
+    bf16 = torch.bfloat16
+    S, W, H = meta["num_steps"], meta["render_width"], meta["render_height"]
+    field, NB = G.neural_field, meta["neural_field_blocks"]
+    fr, ph, pts, zv, geo, dirs, noise = train_field_inputs(G, meta, cond, gcuda)
+    B = pts.shape[0]
+    with torch.no_grad():
+        pk = rm.pack_field_inputs(pts, geo, dirs, 2.0 / meta["side_length"], noise).to(bf16)
+    del pts, geo, dirs, noise
+    go = torch.randn(B, W * H, meta["feature_dim"] + 3, generator=gcuda, device="cuda")
+    gd = torch.randn(B, W * H, 1, generator=gcuda, device="cuda")
+    exact, wb, lb = not meta["fast_math"], meta["white_back"], meta["last_back"]
+    two, sub = slice(B - 2, B), lambda t, s: t[s].contiguous()
+    out = {}
+
+    # K2
+    wt = rm.flat_weights(field)
+    k2 = lambda s: rm.field_render_cuda(wt, rm.film_tables(fr[s], ph[s], NB), sub(pk, s),
+                                        sub(zv, s), S, wb, lb, exact)
+    with torch.no_grad():
+        sh, pi = rm.fold_film_tables(field, fr[two], ph[two], bf16)
+    (o2, d2), (op_, dp_) = k2(two), rm.field_render_plain(sh, pi, sub(pk, two), sub(zv, two), S,
+                                                         wb, lb, bf16, exact)
+    (oB, dB) = k2(slice(0, B))
+    same2 = torch.equal(oB[two], o2) and torch.equal(dB[two], d2)
+    mx, mean, p99 = diff_stats(o2, op_)
+    dmean = diff_stats(d2, dp_)[1]
+    log(f"check K2 at 512L, noise 0.5, {tuple(pk.shape)} packed: last two images vs plain: map "
+        f"max|d| {mx:.3e} mean|d| {mean:.3e} p99|d| {p99:.3e}, depth mean|d| {dmean:.3e}; "
+        f"bit-equal in the {B}-image launch: {same2}")
+    log("  tolerance: map mean|d| <= 2e-3, p99|d| <= 5e-3, depth mean|d| <= 1e-4 (the "
+        "generation check's); the batch's launch bit-equal image by image")
+    if mean > 2e-3 or p99 > 5e-3 or dmean > 1e-4 or not same2:
+        raise AssertionError("K2 at 512L disagrees with its plain version or across batches")
+    m = slice(0, micro)
+    out["K2"] = dict(max_abs_err=mx, ms=cuda_ms(lambda: k2(m), 3),
+                     plain_ms=cuda_ms(lambda: rm.field_render_plain(
+                         sh, pi, sub(pk, two), sub(zv, two), S, wb, lb, bf16, exact), 1),
+                     plain_images=2, images=micro, **field_bound(pk[m], oB[m], meta, backward=0))
+    del oB, dB, o2, d2, op_, dp_, sh, pi
+
+    # K8 and K9
+    w = rb.flat_weights(field)
+    smx, gmx, errs, k9mx, _ = _bwd_compare(w, sub(pk, two), fr[two], ph[two], sub(zv, two),
+                                           sub(go, two), sub(gd, two), S, wb, lb, exact)
+    tabs = lambda s: rb.film_tables(fr[s], ph[s], NB)
+    fk2, pk2_ = tabs(two)
+    s2, g2 = rb.field_stats_cuda(w, sub(pk, two), fk2, pk2_, sub(go, two), S, exact_sin=exact)
+    fkB, pkB_ = tabs(slice(0, B))
+    sB, gB = rb.field_stats_cuda(w, pk, fkB, pkB_, go, S, exact_sin=exact)
+    same8 = torch.equal(sB[two], s2) and torch.equal(gB[two], g2)
+    coef2, dsig2 = rb.backward_tables(s2, g2, sub(zv, two), sub(go, two), sub(gd, two), wb, lb)
+    _, df2, dp2 = rb.field_bwd_step_cuda(w, sub(pk, two), fk2, pk2_, sub(go, two), coef2, dsig2,
+                                         S, exact_sin=exact)
+    coefB, dsigB = rb.backward_tables(sB, gB, zv, go, gd, wb, lb)
+    op = rb.field_bwd_step_operands(w, pk, fkB, pkB_, go, coefB, dsigB, S, exact_sin=exact)
+    gw, ref, parts = {}, {}, []
+    for b0 in range(0, B, rb.IMAGES_PER_LAUNCH):
+        rb.field_bwd_step_body(op, b0)
+        for k, g in rb.field_bwd_step_products(op, b0).items():
+            gw[k] = gw[k] + g if k in gw else g
+        for k, (X, Y) in rb.field_bwd_step_pairs(op, b0).items():
+            r = rb.wgrad_plain(X, Y)
+            ref[k] = ref[k] + r if k in ref else r
+        parts.append(rb.field_bwd_step_partials(op, b0))
+    _, dfB, dpB = rb.field_bwd_step_reduce(op, gw, torch.cat(parts, 0))
+    same9 = torch.equal(dfB[two], df2) and torch.equal(dpB[two], dp2)
+    red = max(float((gw[k] - ref[k]).abs().max() / (ref[k].abs().max() + 1e-30)) for k in gw)
+    log(f"check K8/K9 at 512L (hidden {meta['hidden_dim']}, {NB} blocks, R {W * H}, S {S}, noise "
+        f"0.5): last two images vs plain: K8 sigma max|d| {smx:.3e} f.g max|d| {gmx:.3e}; K9 "
+        f"worst rel L2 {max(errs.values()):.2e} ({max(errs, key=errs.get)}); the {B}-image "
+        f"launches bit-equal on them: K8 {same8}, K9 freq/phase {same9}; K9's weight gradients "
+        f"over the {B} images vs the plain f32 X^T Y: max|d|/max|ref| {red:.3e}")
+    log("  tolerance: K8 max|d| <= 5e-2, K9 rel L2 <= 2e-2 per tensor (the MAP3DBN full-width "
+        "check's); bit-equal image by image; the weight gradients within 1e-3 of max")
+    if smx > 5e-2 or gmx > 5e-2 or max(errs.values()) > 2e-2 or not (same8 and same9) or red > 1e-3:
+        raise AssertionError("K8/K9 at 512L disagree with their references or across batches")
+    del op, gw, ref, parts, sB, gB, coefB, dsigB
+    torch.cuda.empty_cache()
+    fkm, pkm_ = tabs(m)
+    sm, gm_ = rb.field_stats_cuda(w, pk[m], fkm, pkm_, go[m], S, exact_sin=exact)
+    cm, dm = rb.backward_tables(sm, gm_, zv[m], go[m], gd[m], wb, lb)
+    out["K8"] = dict(max_abs_err=smx, images=micro, plain_images=2,
+                     ms=cuda_ms(lambda: rb.field_stats_cuda(w, pk[m], fkm, pkm_, go[m], S,
+                                                            exact_sin=exact), 3),
+                     plain_ms=cuda_ms(lambda: rb.field_stats_plain(
+                         w, sub(pk, two), fk2, pk2_, sub(go, two), S, exact_sin=exact), 1),
+                     **field_bound(pk[m], go[m], meta, backward=1))
+    out["K9"] = dict(max_abs_err=k9mx, images=micro, plain_images=2, weight_gradient_rel=red,
+                     ms=cuda_ms(lambda: rb.field_bwd_step_cuda(w, pk[m], fkm, pkm_, go[m], cm, dm,
+                                                               S, exact_sin=exact), 2),
+                     plain_ms=cuda_ms(lambda: rb.field_bwd_step_plain(
+                         w, sub(pk, two), fk2, pk2_, sub(go, two), coef2, dsig2, S,
+                         exact_sin=exact), 1),
+                     **field_bound(pk[m], go[m], meta, backward=2))
+    for k in ("K2", "K8", "K9"):
+        r = out[k]
+        log(f"  time at {micro} images: {k} kernel {r['ms']:.3f} ms  plain (2 images) "
+            f"{r['plain_ms']:.3f} ms  bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
+    return out
+
+
+def check_half_blocks_512l(gcuda, B, H, W, C, hid, micro):
+    """K10/K11 at MAP3DBN512L's widths on B images of H x W, spatial
+    without the fixed row (the isolated mode's mod blocks) and rank-1: each
+    against its plain version on the last two images; the B-image launch's
+    last two images bit-equal to their own launch with the same moments
+    (K10's output; K11's dh and dstyle, or its per-image dgamma/dbeta); its
+    batch-reduced weight gradients against the plain f32 X^T Y; times at
+    ``micro`` images."""
+    import torch
+
+    from threedhumangan_tpu_torch.ops import synthesis_train as st
+
+    per_image = ("h", "style", "gam", "bet")
+    res = {}
+    for spatial, name in ((True, "spatial"), (False, "rank1")):
+        args, g = _half_block_case(B, H, W, C, C, C, hid, spatial, False, gcuda)
+        cut = lambda s: {k: (v[s].contiguous() if k in per_image and v is not None else v)
+                         for k, v in args.items()}
+        two = slice(B - 2, B)
+        a2, g2 = cut(two), g[two].contiguous()
+        b2 = {k: v for k, v in a2.items() if k != "c"}
+        o2 = st.half_block_forward_cuda(**a2)
+        oB = st.half_block_forward_cuda(**args)
+        same10 = torch.equal(oB[two], o2)
+        del oB
+        _, mean, _ = diff_stats(o2, st.half_block_forward(**a2))
+        d2 = st.half_block_backward_cuda(**b2, g=g2)
+        dp = st.half_block_backward(**b2, g=g2)
+        errs = {k: rel_l2(d2[k], dp[k]) for k in dp if dp[k] is not None}
+        del dp
+        bargs = {k: v for k, v in args.items() if k != "c"}
+        dB = st.half_block_backward_cuda(**bargs, g=g)
+        keys = ("dh", "dsty") if spatial else ("dh", "dgam", "dbet")
+        same11 = all(torch.equal(dB[k][two], d2[k]) for k in keys)
+        del dB
+        torch.cuda.empty_cache()
+        log(f"check K10/K11 at 512L ({B}, {H}, {W}, {C}), hidden {hid}, {name}: last two images "
+            f"vs plain: K10 mean|d| {mean:.3e}, K11 worst rel L2 {max(errs.values()):.2e} "
+            f"({max(errs, key=errs.get)}); the {B}-image launch bit-equal on them: K10 "
+            f"{same10}, K11 {'/'.join(keys)} {same11}")
+        log("  tolerance: K10 mean|d| <= 2e-3, K11 rel L2 <= 1e-2 per tensor (the MAP3DBN "
+            "check's); bit-equal image by image")
+        if mean > 2e-3 or max(errs.values()) > 1e-2 or not (same10 and same11):
+            raise AssertionError(f"K10/K11 ({name}) at 512L disagree with their plain versions "
+                                 "or across batches")
+        op = st.bwd_operands(**bargs, g=g)
+        st.bwd_body(op)
+        wg = check_wgrad(f"K11 512L {name}, {B} images",
+                         [(k, X, Y) for k, (X, Y) in op["prods"].items()])
+        del op
+        torch.cuda.empty_cache()
+        m = slice(0, micro)
+        am = cut(m)
+        bm = {k: v for k, v in am.items() if k != "c"}
+        gm = g[m].contiguous()
+        P = micro * H * W
+        fl, bl = _half_block_flops(P, C, C, C if spatial else 0, hid if spatial else 0, spatial)
+        io = 2 * P * C * (3 if spatial else 2)
+        io_bwd = io + 2 * P * C * (2 if spatial else 1)
+        res[name] = dict(
+            k10=dict(max_abs_err=mean, images=micro, plain_images=2,
+                     ms=cuda_ms(lambda: st.half_block_forward_cuda(**am), 3),
+                     plain_ms=cuda_ms(lambda: st.half_block_forward(**a2), 1), **bound(fl, io)),
+            k11=dict(max_abs_err=max(errs.values()), images=micro, plain_images=2,
+                     ms=cuda_ms(lambda: st.half_block_backward_cuda(**bm, g=gm), 2),
+                     plain_ms=cuda_ms(lambda: st.half_block_backward(**b2, g=g2), 1),
+                     weight_gradient_reduction=wg, **bound(bl, io_bwd)))
+        for k in ("k10", "k11"):
+            r = res[name][k]
+            log(f"  time at {micro} images: {k.upper()} {name} kernel {r['ms']:.3f} ms  plain "
+                f"(2 images) {r['plain_ms']:.3f} ms  bound {r['bound_ms']:.3f} ms "
+                f"({r['bound_by']})")
+        del args, g, a2, g2, b2, am, bm, gm, d2, o2
+        torch.cuda.empty_cache()
+    return res
+
+
+def check_remat_on_card(smpl, gcuda):
+    """One fused G step of MAP3DBN at batch BATCH with remat off, one with
+    it on and one off again, from the same state and draws: the gradients
+    within the fused path's tolerance (the two runs without remat give the
+    spread of the step itself), and the synthesis BN running stats, their
+    counts and the spectral-norm u identical."""
+    import torch
+
+    from threedhumangan_tpu_torch.data.dataset import (SyntheticSHHQDataset, iterate_batches,
+                                                       to_tensors)
+    from threedhumangan_tpu_torch.data.preprocessor import get_preprocessor
+    from threedhumangan_tpu_torch.trainers import phase_trainer as pt
+
+    base = dict(train_meta(), pallas_synthesis_train=True)
+    batch = to_tensors(next(iterate_batches(SyntheticSHHQDataset(smpl_model=smpl, **base), BATCH,
+                                            shuffle=False)))
+    pre = get_preprocessor(base, smpl)
+    z = torch.randn(BATCH, base["latent_dim"], generator=gcuda, device="cuda")
+    draws = {"z": z, "coin": torch.tensor(0.3, device="cuda"),
+             "h_rotation": torch.zeros(BATCH, device="cuda"),
+             "v_rotation": torch.zeros(BATCH, device="cuda")}
+    real, runs = pt.adam_step, []
+    for remat in (False, True, False):
+        meta = dict(base, remat_synthesis=remat)
+        ts = pt.init_train_state(meta, torch.Generator().manual_seed(SEED))
+        seen = []
+
+        def adam_step(opt, grads, lr, clip):
+            if opt is ts.opt_G:
+                seen.append([g.float().clone() for g in grads])
+            return real(opt, grads, lr, clip)
+
+        pt.adam_step = adam_step
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            pt.g_train_step(ts, batch, torch.Generator(device="cuda").manual_seed(SEED), 1e-4,
+                            0.5, pre, meta, meta["phases"][3], draws=draws)
+        finally:
+            pt.adam_step = real
+        bufs = {k: v.clone() for k, v in ts.G.named_buffers()
+                if k.startswith("synthesis_network.network.")}
+        runs.append((seen[0], bufs, torch.cuda.max_memory_allocated() / 2**30))
+        del ts
+        torch.cuda.empty_cache()
+    (g0, b0, p0), (g1, b1, p1), (g2, b2, _) = runs
+    rel = lambda x, y: float(torch.sqrt(sum(torch.sum(torch.square(a - b)) for a, b in zip(x, y))
+                                        / sum(torch.sum(torch.square(a)) for a in x)))
+    on_off, off_off = rel(g0, g1), rel(g0, g2)
+    same = all(torch.equal(b0[k], b1[k]) and torch.equal(b0[k], b2[k]) for k in b0)
+    log(f"check remat on the card: one fused MAP3DBN G step at batch {BATCH}: gradients rel L2 "
+        f"remat on vs off {on_off:.3e}, off vs off {off_off:.3e}; BN running stats, counts and "
+        f"spectral-norm u identical: {same}; G-step peak {p1:.2f} GiB with remat, {p0:.2f} "
+        f"without")
+    log("  tolerance: rel L2 <= 1e-2 (the fused K11 check's; the recompute runs the same "
+        "kernels on the same inputs, and cuDNN's backward through D need not sum in one order)")
+    if on_off > 1e-2 or not same:
+        raise AssertionError("the remat G step differs from the plain one")
+    return dict(grad_rel_l2=on_off, grad_rel_l2_off_vs_off=off_off, state_identical=same,
+                peak_gib_remat=p1, peak_gib_plain=p0)
+
+
+def run_512l(gcuda):
+    """The MAP3DBN512L phase: the tree, the trainer, the kernels at its
+    shapes (the checks on L_BATCH images, the times at the trainer's
+    micro-batch), and remat against no remat on the card."""
+    import tempfile
+
+    import torch
+
+    from threedhumangan_tpu_torch import configs
+    from threedhumangan_tpu_torch.data.dataset import SHHQDataset, iterate_batches, to_tensors
+    from threedhumangan_tpu_torch.data.preprocessor import get_preprocessor
+    from threedhumangan_tpu_torch.trainers.phase_trainer import init_train_state
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tree = os.path.join(tmp, "shhq")
+        smpl, mb, secs = write_shhq_tree(tree)
+        log(f"tree: {TREE_ITEMS} SHHQ-layout items at {TREE_SIZE[0]} x {TREE_SIZE[1]} (PNG rows "
+            f"cycling through the five filter types, palette body_seg), {mb:.1f} MB in "
+            f"{secs:.1f} s; SMPL_NEUTRAL.pkl loaded back: {smpl.num_verts} vertices, "
+            f"{len(smpl.faces)} faces")
+        train = run_512l_trainer(tree, smpl, os.path.join(tmp, "out"))
+        meta = dict(configs.extract_metadata(configs.MAP3DBN512L, 0), dataroot=tree,
+                    dataset_length=TREE_ITEMS)
+        ds = SHHQDataset(smpl_model=smpl, **{k: v for k, v in meta.items()
+                                             if k not in ("dataset", "name", "batch_size")})
+        batch = to_tensors(next(iterate_batches(ds, L_BATCH, shuffle=False)))
+        pre = get_preprocessor(meta, smpl)
+        cond = pre(batch, rotate=True, generator=gcuda)
+        del batch
+        log(f"check the kernels at MAP3DBN512L's shapes on the tree's first {L_BATCH} items "
+            f"(times at the trainer's micro-batch, {train['micro_batch']} images)")
+        k7, k7_device = check_raster(pre, cond, meta)
+        k1 = check_geo_train(meta, cond, gcuda)
+        G = init_train_state(meta, torch.Generator().manual_seed(SEED)).G
+        field = check_field_512l(G, meta, cond, gcuda, train["micro_batch"])
+        del G, cond
+        torch.cuda.empty_cache()
+        hb = check_half_blocks_512l(gcuda, L_BATCH, meta["gen_height"], meta["gen_width"],
+                                    meta["hidden_dim"], 128, train["micro_batch"])
+    remat = check_remat_on_card(smpl, gcuda)
+    return dict(train=train, k1=k1, k7=k7, k7_device=k7_device, hb=hb, remat=remat, **field)
+
+
 def main():
     import torch
 
@@ -2354,11 +2887,17 @@ def main():
     # ---- 9. the training loop: save, resume
     trainer_counts = run_trainer(smpl)
 
-    # ---- 10. result
+    # ---- 10. MAP3DBN512L at its batch 32 on an SHHQ-layout tree, the
+    # kernels at its shapes, remat against no remat
+    l512 = run_512l(torch.Generator(device=dev).manual_seed(SEED + 10))
+
+    # ---- 11. result
     k7.update(k7_device_times())
+    l512["k7"].update(l512.pop("k7_device")())
     src = "threedhumangan_tpu_torch/csrc/"
     paths = {"generation": counts, "training_per_op": per_op["counts"],
-             "training_fused": fused["counts"], "trainer": trainer_counts}
+             "training_fused": fused["counts"], "trainer": trainer_counts,
+             "trainer_512l": l512["train"]["counts"]}
     paths.update({f"generation_{k}": r["counts"] for k, r in sel_runs.items()})
     by_path = lambda k: {p: c.get(k, 0) for p, c in paths.items()}
     tc, fc = per_op["counts"], fused["counts"]
@@ -2436,9 +2975,27 @@ def main():
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
             if not math.isfinite(k[key]):
                 raise AssertionError(f"{k['name']}: {key} is not finite")
+    # the MAP3DBN512L b32 path: launches a pair, and each kernel at its shapes
+    lp = l512["train"]["launches_per_pair"]
+    at_512l = {"K1": l512["k1"], "K2": l512["K2"], "K7": l512["k7"], "K8": l512["K8"],
+               "K9": l512["K9"], "K10": l512["hb"]["spatial"]["k10"],
+               "K11": l512["hb"]["spatial"]["k11"]}
+    for k in kernels:
+        key = k["name"].split()[0]
+        if key in at_512l:
+            k["map3dbn512l_b32"] = dict(at_512l[key], launches_per_pair=lp[key],
+                                        batch_split=l512["train"]["batch_split"],
+                                        remat=l512["train"]["remat"])
+            if key in ("K10", "K11"):
+                k["map3dbn512l_b32"]["rank1"] = l512["hb"]["rank1"][key.lower()]
     order = sorted(kernels, key=lambda k: -k["excess_ms_per_iteration"])
     log("kernels by ms above their bound per main-path iteration (a batch or a fused pair): "
         + ", ".join(f"{k['name'].split()[0]} {k['excess_ms_per_iteration']:.3f}" for k in order))
+    t = l512["train"]
+    log(f"512L b{t['batch']}: {t['ms_per_pair']:.3f} ms/pair, {t['imgs_per_s']:.3f} imgs/s, peak "
+        f"{t['peak_gib']:.2f} GiB, batch_split {t['batch_split']}, remat {t['remat']}, loader "
+        f"{t['loader_ms_per_batch']:.1f} ms a batch; remat vs none on the card: grads rel L2 "
+        f"{l512['remat']['grad_rel_l2']:.3e}, state identical {l512['remat']['state_identical']}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -18,7 +18,6 @@ import zlib
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import scipy.sparse
 from PIL import Image
 
 from threedhumangan_tpu import configs as jconfigs
@@ -51,20 +50,6 @@ def _smooth(rs, h, w, c):
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
-def _smpl_asset(model: "smpl.SMPLModel") -> dict:
-    """``model`` in the SMPL_NEUTRAL.pkl layout, J_regressor as scipy.sparse."""
-    V = model.num_verts
-    P = model.posedirs.shape[0]
-    kintree = np.stack([model.parents, np.arange(model.num_joints)]).astype(np.int64)
-    kintree[0, 0] = -1
-    return {"v_template": model.v_template.numpy().astype(np.float64),
-            "shapedirs": model.shapedirs.numpy(),
-            "posedirs": model.posedirs.numpy().T.reshape(V, 3, P),
-            "J_regressor": scipy.sparse.csc_matrix(model.J_regressor.numpy().astype(np.float64)),
-            "kintree_table": kintree, "weights": model.lbs_weights.numpy(),
-            "f": model.faces.astype(np.uint32)}
-
-
 @pytest.fixture(scope="module")
 def tree(tmp_path_factory):
     """N_ITEMS items in the reference layout (1-indexed %06d), the SMPL
@@ -73,8 +58,7 @@ def tree(tmp_path_factory):
     for sub in ("images", "masks", "body_seg", "inversions", "smpl", "other"):
         os.makedirs(root / sub)
     model = smpl.synthetic_smpl_model(num_verts=96, num_faces=160)
-    with open(root / "SMPL_NEUTRAL.pkl", "wb") as f:
-        pickle.dump(_smpl_asset(model), f, protocol=2)
+    smpl.save_smpl_model(model, str(root / "SMPL_NEUTRAL.pkl"))
     jmodel = jsmpl.synthetic_smpl_model(num_verts=96, num_faces=160)
     rs = np.random.RandomState(7)
     J = model.num_joints
@@ -260,6 +244,9 @@ def test_native_library_is_built_under_build(tmp_path):
 
 def test_load_smpl_model_equals_jax(tree):
     path = os.path.join(tree, "SMPL_NEUTRAL.pkl")
+    with open(path, "rb") as f:
+        raw = pickle.load(f, encoding="latin1")
+    assert raw["J_regressor"].format == "csc"  # scipy.sparse, as in the asset
     got, want = smpl.load_smpl_model(path), jsmpl.load_smpl_model(path)
     for k in ("v_template", "shapedirs", "posedirs", "J_regressor", "lbs_weights"):
         a, b = getattr(got, k).numpy(), np.asarray(getattr(want, k))

@@ -69,6 +69,8 @@ def normalize_masked_image(rgb: np.ndarray, mask: Optional[np.ndarray]) -> np.nd
     """uint8 HWC (+ mask HW) -> float32 HWC in [-1, 1], white background."""
     lib = get_lib()
     h, w, c = rgb.shape
+    if mask is not None and mask.shape != (h, w):
+        raise ValueError(f"mask {mask.shape} does not match the image's {(h, w)}")
     if lib is None:
         out = rgb.astype(np.float32) * (np.float32(1.0) / np.float32(127.5)) - np.float32(1.0)
         if mask is not None:

@@ -76,8 +76,12 @@ from threedhumangan_tpu_torch.utils.misc import resolve_device
 
 
 # The flip point of ``auto_remat_synthesis``, in bytes of the estimated
-# no-remat synthesis residuals.  Fitted to peaks measured on an NVIDIA H100
-# 80GB HBM3 (700 W) by ``apps/memory_sweep.py``: PLACEHOLDER.
+# no-remat synthesis residuals, fitted to the MAP3DBN512L batch-32 pair on an
+# NVIDIA H100 80GB HBM3 at 700 W (``apps/memory_sweep.py``; 79.18 GiB on the
+# card): without remat, micro-batch 8 (estimate 14.77 GiB) peaked at 62.68
+# GiB, more than 8 GiB under the card and faster than with remat; micro-batch
+# 16 (29.53 GiB) ran out of memory, and with remat peaked at 42.43 GiB.  The
+# budget is the smallest round value above the measured fit.
 REMAT_RESIDUAL_BUDGET = 16 * 2**30
 
 

@@ -1,8 +1,9 @@
 """SMPL body model: linear blend skinning + per-point geometric features
 (threedhumangan_tpu/models/smpl.py).
 
-``load_smpl_model`` reads the ``SMPL_NEUTRAL.pkl`` asset; ``get_smpl_model``
-takes it from the given path or ``datasets/``, else the synthetic stand-in.
+``load_smpl_model`` reads the ``SMPL_NEUTRAL.pkl`` asset (``save_smpl_model``
+writes a model in its layout); ``get_smpl_model`` takes it from the given
+path or ``datasets/``, else the synthetic stand-in.
 ``synthetic_smpl_model`` draws the same numpy ``RandomState`` stream as the
 JAX version, so both packages build identical constants from one seed.
 ``get_geo_features`` is the 31-d conditioning; it runs through
@@ -213,6 +214,24 @@ def load_smpl_model(path: str) -> SMPLModel:
         lbs_weights=f32(data["weights"]),
         faces=np.asarray(data["f"], np.int64),
     )
+
+
+def save_smpl_model(model: SMPLModel, path: str) -> None:
+    """Write ``model`` in the ``SMPL_NEUTRAL.pkl`` layout that
+    ``load_smpl_model`` reads (``J_regressor`` as a ``scipy.sparse`` matrix,
+    as in the asset)."""
+    import scipy.sparse
+
+    V, P = model.num_verts, model.posedirs.shape[0]
+    kintree = np.stack([model.parents, np.arange(model.num_joints)]).astype(np.int64)
+    kintree[0, 0] = -1
+    data = {"v_template": model.v_template.numpy(), "shapedirs": model.shapedirs.numpy(),
+            "posedirs": model.posedirs.numpy().T.reshape(V, 3, P),
+            "J_regressor": scipy.sparse.csc_matrix(model.J_regressor.numpy()),
+            "kintree_table": kintree, "weights": model.lbs_weights.numpy(),
+            "f": model.faces.astype(np.uint32)}
+    with open(path, "wb") as f:
+        pickle.dump(data, f, protocol=2)
 
 
 def get_smpl_model(path: Optional[str] = None) -> SMPLModel:
