@@ -6,8 +6,11 @@
         --output_dir /tmp/run --max_steps 2 --model_save_interval 2
 
 One process on one device (``cuda`` by default; ``cpu`` runs every kernel's
-plain version).  Without SMPL assets it trains on the synthetic dataset with
-the synthetic SMPL model.  It prints ``training finished at step N``.
+plain version).  It trains on the SHHQ-layout tree under the config's
+``dataroot`` (``images/``, ``masks/``, ``body_seg/``, ``inversions/``,
+``smpl/``) with ``datasets/SMPL_NEUTRAL.pkl``; without them, on the
+synthetic dataset and SMPL model.  It prints the dataset it built and
+``training finished at step N``.
 """
 
 from __future__ import annotations

@@ -115,8 +115,9 @@ class SNConv1x1(nn.Module):
         """(in, out) weight divided by sigma = v.(W u), v = W u / |W u|."""
         return spectral_normalize(self.weight_orig[:, :, 0, 0].t().float(), self.weight_u, train)
 
-    def forward(self, x, compute_dtype=torch.float32, train: bool = False):
-        return self.apply_weight(x, self.normalized_weight(train), compute_dtype)
+    def forward(self, x, compute_dtype=torch.float32):
+        """Eval mode (frozen ``u``)."""
+        return self.apply_weight(x, self.normalized_weight(), compute_dtype)
 
     def apply_weight(self, x, w, compute_dtype=torch.float32):
         """The conv with a given normalised (in, out) weight."""
@@ -204,9 +205,8 @@ class SPADEBlock(nn.Module):
         for m in (self.conv_0, self.conv_1, self.spade_0, self.spade_1):
             m.reset_parameters(generator)
 
-    def forward(self, x, style, skip=False, compute_dtype=torch.float32, train: bool = False):
-        if train:
-            return self.forward_train(x, style, None, skip, compute_dtype)
+    def forward(self, x, style, skip=False, compute_dtype=torch.float32):
+        """Eval mode (train mode: ``train_body``)."""
         if style.ndim == 3:  # (B, 1, C) global style: rank-1 over pixels
             style = style[:, :, None, :]
         x_orig = x
@@ -224,23 +224,17 @@ class SPADEBlock(nn.Module):
         ``style``: (B, H, W, Cs) map, or a (B, 1, Cs) row (the SPADE MLP then
         runs pre-broadcast and the half-blocks take per-image gamma/beta);
         ``fixed_row``: optional (B, Cs) row added to a spatial style in-kernel."""
-        return self.forward_train(x, style, fixed_row, skip, compute_dtype, fused=True)
+        h, moments = self.train_body(x, style, fixed_row, *self.train_weights(), skip,
+                                     compute_dtype, fused=True)
+        self.update_running_stats(moments, x)
+        return h
 
     def train_weights(self):
         """Both convs' normalised weights, each ``u`` stepped once (train mode)."""
         return self.conv_0.normalized_weight(train=True), self.conv_1.normalized_weight(train=True)
 
-    def forward_train(self, x, style, fixed_row=None, skip=False, compute_dtype=torch.float32,
-                      fused=False):
-        """Train-mode block: per op, or on the fused half-blocks (``fused``,
-        the style and ``fixed_row`` as in ``forward_fused``); the state
-        updated in place."""
-        h, moments = self.train_body(x, style, fixed_row, *self.train_weights(), skip=skip,
-                                     compute_dtype=compute_dtype, fused=fused)
-        self.update_running_stats(moments, x)
-        return h
-
     def update_running_stats(self, moments, x):
+        """The BN running stats from the moments ``train_body`` returned for input ``x``."""
         n = x.shape[0] * x.shape[1] * x.shape[2]
         for spade, (mean, var) in zip((self.spade_0, self.spade_1), moments):
             _update_running_stats(spade.first_norm, mean.detach(), var.detach(), n, 0.1)
