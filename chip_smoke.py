@@ -90,6 +90,24 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
                 gradients against the plain f32 X^T Y, times at the
                 trainer's micro-batch; and one fused MAP3DBN G step with
                 remat on vs off (gradients, BN stats and u).
+ 12. ranks    — the trainer across processes (run before the result phase):
+                (a) ``Trainer`` on MAP3DBN b8 for 8 steps without a process
+                group and in an NCCL group of one rank, twice each in
+                turns: bit-equal, ms a pair of each (the collectives' own
+                cost); (a) and (b) run
+                under torch.use_deterministic_algorithms, as two default-
+                mode runs differ in their last bits; (b) two rank
+                processes sharing the card under gloo (NCCL refuses two
+                ranks on one device), MAP3DBN at a global batch of 8 (4 a
+                rank) through ``Trainer`` for 4 steps with a checkpoint at
+                2: the ranks' weights, BN stats, u, EMA and Adam states
+                bit-equal, K1, K2 and K7-K11 launched on each rank and K3
+                (the samples) on rank 0 alone, a resume from step 2 to 4
+                bit-equal to the uninterrupted run on each rank, each
+                rank's peak memory and ms a pair (for information: two
+                ranks on one card say nothing of scaling); (c) a TINY D+G
+                pair on two ranks on the card against the same on the CPU
+                (gloo), summed over ranks, within phase 6's limits.
  11. result   — K7's device time a launch (torch.profiler, last, as it may
                 slow later host-bound launches); a JSON line of the kernels
                 (times, bounds, launches by path, each kernel of the 512L
@@ -2767,6 +2785,342 @@ def run_512l(gcuda):
     return dict(train=train, k1=k1, k7=k7, k7_device=k7_device, hb=hb, remat=remat, **field)
 
 
+# ---------------------------------------------------------------------------
+# 12. ranks: the trainer across processes
+# ---------------------------------------------------------------------------
+
+RANKS_STEPS = 4       # steps of each two-rank run of phase 12 (b); it saves at 2
+RANKS_A_STEPS = 8     # steps of each run of phase 12 (a): one cycle of the phase slots
+RANKS_TIMEOUT = 600   # seconds the two rank processes may take, together
+
+
+def deterministic(on):
+    """PyTorch's deterministic algorithms, under which phase 12 compares runs
+    bit for bit: in the default mode two identical MAP3DBN runs on the card
+    differ in the last bits of the first G step's gradients (~1e-7), so a
+    difference there would not show that the process group or the resume
+    changed anything.  cuBLAS needs CUBLAS_WORKSPACE_CONFIG for it."""
+    import torch
+
+    if on:
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(on)
+
+
+def ranks_config(batch):
+    """MAP3DBN at full width, global batch ``batch``, 32 synthetic images."""
+    import types
+
+    from threedhumangan_tpu_torch import configs
+
+    config = configs.get_config(types.SimpleNamespace(config="MAP3DBN", tune="", variant=0))
+    for k in config:
+        if isinstance(k, int) and config[k]:
+            config[k]["batch_size"] = batch
+    config.update(dataset_length=32, dataroot="synthetic")
+    return config
+
+
+def replica_state(trainer):
+    """A host copy of what every rank must hold alike: G's and D's
+    parameters and buffers (BN running stats, u), the EMA and both Adam
+    states."""
+    import torch
+
+    ts = trainer.ts
+    host = lambda v: v.detach().cpu().clone()
+    out = {f"G.{k}": host(v) for k, v in ts.G.state_dict().items()}
+    out.update({f"D.{k}": host(v) for k, v in ts.D.state_dict().items()})
+    out.update({f"ema.{k}": host(v) for k, v in ts.ema["params"].items()})
+    for name, opt in (("opt_G", ts.opt_G), ("opt_D", ts.opt_D)):
+        for i, st in opt.state_dict()["state"].items():
+            out.update({f"{name}.{i}.{k}": host(v) for k, v in st.items() if torch.is_tensor(v)})
+    return out
+
+
+def state_diff(a, b):
+    """The names of the tensors in which two replica states differ."""
+    import torch
+
+    return sorted(k for k in a.keys() | b.keys()
+                  if k not in a or k not in b or not torch.equal(a[k], b[k]))
+
+
+def timed_trainer(config, out_dir, rank=0, world=1, smpl=None, sample_interval=0,
+                  save_interval=10**9, steps=RANKS_STEPS):
+    """``Trainer(rank, world)`` run to ``steps``; each pair timed by the host
+    clock synchronized at both ends.  Returns (trainer, ms of each pair,
+    what it printed)."""
+    import contextlib
+    import io
+    import types
+
+    import torch
+
+    from threedhumangan_tpu_torch.trainers import phase_trainer
+    from threedhumangan_tpu_torch.trainers.base_trainer import Trainer
+
+    opt = types.SimpleNamespace(output_dir=out_dir, device="cuda",
+                                model_save_interval=save_interval,
+                                model_keep_interval=save_interval, sample_interval=sample_interval,
+                                n_epochs=100, seed=SEED, tensorboard=0, bs_factor=1)
+    real, walls = phase_trainer.train_step_pair, []
+
+    def timed_pair(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*a, **k)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    printed = io.StringIO()
+    phase_trainer.train_step_pair = timed_pair
+    try:
+        with contextlib.redirect_stdout(printed):
+            trainer = Trainer(rank, world, opt, config, smpl_model=smpl)
+            trainer.run(max_steps=steps)
+    finally:
+        phase_trainer.train_step_pair = real
+    if trainer.step != steps:
+        raise AssertionError(f"rank {rank}: the trainer stopped at step {trainer.step}")
+    return trainer, walls, printed.getvalue()
+
+
+def run_ranks_nccl1(smpl):
+    """(a) ``Trainer`` on MAP3DBN b8 for RANKS_A_STEPS steps without a
+    process group and in an NCCL group of one rank, twice each in turns:
+    every run bit-equal to the first; ms a pair of each (the difference is
+    the group's own cost: its collectives)."""
+    import datetime
+    import tempfile
+
+    import torch
+    import torch.distributed as tdist
+
+    from threedhumangan_tpu_torch.parallel import dist
+
+    config, runs = ranks_config(BATCH), []
+    deterministic(True)
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, grouped in enumerate((False, True, False, True)):
+            if grouped:
+                tdist.init_process_group("nccl", init_method=f"file://{tmp}/nccl_init{i}",
+                                         rank=0, world_size=1,
+                                         timeout=datetime.timedelta(seconds=300))
+            n0 = dist.collectives
+            reset_counts()
+            try:
+                trainer, walls, _ = timed_trainer(config, os.path.join(tmp, str(i)), smpl=smpl,
+                                                  steps=RANKS_A_STEPS)
+            finally:
+                if grouped:
+                    tdist.destroy_process_group()
+            runs.append(dict(grouped=grouped, state=replica_state(trainer), ms=walls,
+                             counts=read_counts(), collectives=dist.collectives - n0))
+            del trainer
+            torch.cuda.empty_cache()
+    deterministic(False)
+    steady = lambda r: sum(r["ms"][1:]) / len(r["ms"][1:])
+    mean = lambda g: sum(steady(r) for r in runs if r["grouped"] == g) / 2
+    log(f"ranks (a): Trainer MAP3DBN b{BATCH} bf16 fused synthesis, {RANKS_A_STEPS} steps (the "
+        f"8 phase slots), without a group and in an NCCL group of one rank, in turns "
+        f"(deterministic algorithms on)")
+    for r in runs:
+        log(f"  {'NCCL group of 1' if r['grouped'] else 'no group'}: ms a pair (host clock) "
+            + ", ".join(f"{w:.3f}" for w in r["ms"])
+            + f"; mean of pairs 2-{RANKS_A_STEPS} {steady(r):.3f}; collectives "
+            f"{r['collectives']}")
+    cost = mean(True) - mean(False)
+    per_step = sum(r["collectives"] for r in runs) / 2 / RANKS_A_STEPS
+    log(f"  the group's own cost: {cost:.3f} ms a pair ({mean(True):.3f} against "
+        f"{mean(False):.3f}), {per_step:.1f} collectives a step (stats pulls, the start-up "
+        f"checksum and the closing barrier included)")
+    for r in runs[1:]:
+        diff = state_diff(runs[0]["state"], r["state"])
+        if diff:
+            raise AssertionError(f"a run {'in' if r['grouped'] else 'without'} the group "
+                                 f"differs from the first: {diff[:8]}")
+    log(f"  states after {RANKS_A_STEPS} steps: every run's {len(runs[0]['state'])} tensors "
+        f"bit-equal to the first run's")
+    if any(bool(r["collectives"]) != r["grouped"] for r in runs):
+        raise AssertionError(f"collectives: {[(r['grouped'], r['collectives']) for r in runs]}")
+    return dict(ms_no_group=mean(False), ms_nccl1=mean(True), counts=runs[-1]["counts"])
+
+
+def tiny_two_rank_step(rank, world):
+    """(c) one TINY D+G pair of this rank (2 images of a global 4, its own
+    draws) on the card and on the CPU, in the same gloo group: the stats of
+    each, and the ranks' replicas held equal after each."""
+    import torch
+
+    from threedhumangan_tpu_torch import configs
+    from threedhumangan_tpu_torch.data.dataset import (
+        SyntheticSHHQDataset, iterate_batches, to_tensors)
+    from threedhumangan_tpu_torch.data.preprocessor import get_preprocessor
+    from threedhumangan_tpu_torch.models.smpl import synthetic_smpl_model
+    from threedhumangan_tpu_torch.parallel import dist
+    from threedhumangan_tpu_torch.trainers.phase_trainer import init_train_state, train_step_pair
+
+    meta = dict(configs.extract_metadata(configs.MAP3DBN_TINY, 0))
+    meta.update(nerf_noise=0, perturb_rays=False, use_mixed_precision=True,
+                pallas_synthesis_train=True)
+    smpl = synthetic_smpl_model(num_verts=384, num_faces=512)
+    batch = next(iterate_batches(SyntheticSHHQDataset(smpl_model=smpl, **meta), 2 * world,
+                                 shuffle=False))
+    batch = {k: v[2 * rank:2 * rank + 2] for k, v in batch.items()}
+    gz = torch.Generator().manual_seed(SEED + rank)
+    draws = {"z": torch.randn(2, meta["latent_dim"], generator=gz), "coin": torch.tensor(0.3),
+             "h_rotation": torch.zeros(2), "v_rotation": torch.zeros(2)}
+    res = {}
+    for dev in ("cuda", "cpu"):
+        ts = init_train_state(meta, torch.Generator().manual_seed(SEED), dev)
+        with torch.no_grad():  # a positive density, so that the G step reaches the field
+            ts.G.neural_field.sigma_layer.bias.fill_(0.5)
+        dd = {k: v.to(dev) for k, v in draws.items()}
+        _, stats = train_step_pair(ts, to_tensors(batch, dev), torch.Generator(device=dev), meta,
+                                   get_preprocessor(meta, smpl), meta["phases"][3], 1e-4, 4e-4,
+                                   0.0, draws={"d": dd, "g": dd})
+        named = {f"G.{k}": v for k, v in ts.G.state_dict().items()}
+        named.update({f"D.{k}": v for k, v in ts.D.state_dict().items()})
+        dist.check_replicas(named, torch.device(dev))
+        res[dev] = {k: v.detach().cpu() for k, v in stats.items()}
+    return res
+
+
+def ranks_worker(rank, world, init_file, work):
+    """One rank of phase 12 (b) and (c), in a process of its own on cuda:0
+    (``chip_smoke.py --ranks-worker RANK WORLD INIT_FILE WORK_DIR``): the TINY
+    card-vs-CPU step, then ``Trainer`` on MAP3DBN at a global batch of
+    BATCH for RANKS_STEPS steps with a checkpoint at 2 and rank 0's samples
+    at the last step, then a second ``Trainer`` resumed from the step-2
+    checkpoint, copied alone into a directory of its own, to RANKS_STEPS.
+    Writes its readings to WORK_DIR/rank<RANK>.pt."""
+    import datetime
+    import shutil
+
+    import torch
+    import torch.distributed as tdist
+
+    from threedhumangan_tpu_torch.models.smpl import synthetic_smpl_model
+    from threedhumangan_tpu_torch.parallel import dist
+
+    torch.cuda.set_device(0)
+    deterministic(True)
+    torch.set_num_threads(4)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tdist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                             world_size=world, timeout=datetime.timedelta(seconds=RANKS_TIMEOUT))
+    out = {"tiny": tiny_two_rank_step(rank, world)}
+    config = ranks_config(BATCH)
+    smpl = synthetic_smpl_model(num_verts=6890, num_faces=13776)
+    straight, resumed = os.path.join(work, "straight"), os.path.join(work, "resumed")
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    trainer, walls, printed = timed_trainer(config, straight, rank, world, smpl,
+                                            sample_interval=RANKS_STEPS, save_interval=2)
+    out.update(counts=read_counts(), peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               ms=walls, state=replica_state(trainer), printed=printed)
+    del trainer
+    torch.cuda.empty_cache()
+    if rank == 0:
+        os.makedirs(os.path.join(resumed, config["name"]))
+        shutil.copy(os.path.join(straight, config["name"], "00000002_checkpoint.npz"),
+                    os.path.join(resumed, config["name"]))
+    dist.barrier()
+    trainer, _, printed = timed_trainer(config, resumed, rank, world, smpl, save_interval=2)
+    out.update(resumed_state=replica_state(trainer), resumed_printed=printed)
+    del trainer
+    tdist.destroy_process_group()
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    print(f"rank {rank}: done", flush=True)
+
+
+def run_ranks_gloo():
+    """(b) and (c): two rank processes sharing the card under gloo (NCCL
+    refuses two ranks on one device)."""
+    import tempfile
+
+    import torch
+
+    torch.cuda.empty_cache()
+    world = 2
+    with tempfile.TemporaryDirectory() as work:
+        init = os.path.join(work, "gloo_init")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--ranks-worker",
+                                   str(r), str(world), init, work], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for r in range(world)]
+        outs = []
+        try:
+            for p in procs:
+                left = max(1.0, RANKS_TIMEOUT - (time.perf_counter() - t0))
+                outs.append(p.communicate(timeout=left)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        wall = time.perf_counter() - t0
+        for r, (p, text) in enumerate(zip(procs, outs)):
+            if p.returncode:
+                raise AssertionError(f"rank {r} exited with {p.returncode}:\n{text[-6000:]}")
+        res = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+               for r in range(world)]
+
+    # (c) the TINY pair of both ranks, card against CPU
+    summed = {dev: {k: sum(r["tiny"][dev][k] for r in res) for k in res[0]["tiny"][dev]}
+              for dev in ("cuda", "cpu")}
+    vals = {dev: {k: float(v[1]) for k, v in summed[dev].items()
+                  if k in ("d_loss", "g_loss") or "grad_norm" in k} for dev in summed}
+    worst = {k: abs(vals["cuda"][k] - vals["cpu"][k]) / (abs(vals["cpu"][k]) + 1e-12)
+             for k in vals["cpu"] if vals["cpu"][k] != 0}
+    log(f"ranks (c): TINY D+G, R1, bf16, fused synthesis, {world} gloo ranks of 2 images, card "
+        "vs CPU plain, summed over ranks: "
+        + " ".join(f"{k} {vals['cuda'][k]:.5g}/{vals['cpu'][k]:.5g}" for k in sorted(vals["cpu"])))
+    log("  tolerance: phase 6's, losses within 2% and grad group norms within 3% relative")
+    for k, v in worst.items():
+        if v > (0.02 if k.endswith("loss") else 0.03):
+            raise AssertionError(f"two ranks on the card disagree with two on the CPU on {k}: "
+                                 f"{v:.3e}")
+    if vals["cuda"]["g_grad_norm/neural_field"] <= 0:
+        raise AssertionError("the two-rank TINY G step did not reach the field")
+
+    # (b) MAP3DBN at a global batch of BATCH on two ranks
+    log(f"ranks (b): Trainer MAP3DBN b{BATCH} ({BATCH // world} a rank) bf16 fused synthesis, "
+        f"{world} gloo ranks sharing the card, {RANKS_STEPS} steps (checkpoint at 2, rank 0's "
+        f"samples at {RANKS_STEPS}), then a resume from step 2 to {RANKS_STEPS}, deterministic "
+        f"algorithms on; both processes in {wall:.1f} s")
+    for r, x in enumerate(res):
+        for line in x["printed"].splitlines() + x["resumed_printed"].splitlines():
+            log(f"  rank {r} trainer: {line}")
+        log(f"  rank {r}: ms a pair (host clock) " + ", ".join(f"{w:.3f}" for w in x["ms"])
+            + f"; peak memory {x['peak_gib']:.2f} GiB; launches {x['counts']}")
+    log("  (two ranks time-share one card: these ms and this memory say nothing of how the "
+        "training scales over cards)")
+    diff = state_diff(res[0]["state"], res[1]["state"])
+    log(f"  replicas after {RANKS_STEPS} steps: {len(res[0]['state']) - len(diff)} of "
+        f"{len(res[0]['state'])} tensors bit-equal across the ranks")
+    if diff:
+        raise AssertionError(f"the ranks' replicas differ: {diff[:8]}")
+    for r, x in enumerate(res):
+        d = state_diff(x["state"], x["resumed_state"])
+        if d:
+            raise AssertionError(f"rank {r}: the resume from step 2 differs from the "
+                                 f"uninterrupted run in {len(d)} tensors: {d[:8]}")
+        if "resumed from" not in x["resumed_printed"] or "at step 2" not in x["resumed_printed"]:
+            raise AssertionError(f"rank {r} did not resume at step 2")
+        need = ("K1", "K2", "K7", "K8", "K9", "K10", "K11") + (("K3",) if r == 0 else ())
+        if min(x["counts"][k] for k in need) <= 0 or (r and x["counts"]["K3"]):
+            raise AssertionError(f"rank {r}'s launches: {x['counts']}")
+    log(f"  resume from step 2 bit-equal to the uninterrupted run on each rank; K1, K2, K7-K11 "
+        f"launched on each rank, K3 on rank 0 alone")
+    return dict(counts=[x["counts"] for x in res], peak_gib=[x["peak_gib"] for x in res],
+                ms=[x["ms"] for x in res])
+
+
+
 def main():
     import torch
 
@@ -2891,13 +3245,18 @@ def main():
     # kernels at its shapes, remat against no remat
     l512 = run_512l(torch.Generator(device=dev).manual_seed(SEED + 10))
 
+    # ---- 12. ranks: NCCL at world size 1, two gloo ranks sharing the card
+    ranks_a = run_ranks_nccl1(smpl)
+    ranks_b = run_ranks_gloo()
+
     # ---- 11. result
     k7.update(k7_device_times())
     l512["k7"].update(l512.pop("k7_device")())
     src = "threedhumangan_tpu_torch/csrc/"
     paths = {"generation": counts, "training_per_op": per_op["counts"],
              "training_fused": fused["counts"], "trainer": trainer_counts,
-             "trainer_512l": l512["train"]["counts"]}
+             "trainer_512l": l512["train"]["counts"], "ranks_nccl1": ranks_a["counts"],
+             "ranks_gloo_rank0": ranks_b["counts"][0], "ranks_gloo_rank1": ranks_b["counts"][1]}
     paths.update({f"generation_{k}": r["counts"] for k, r in sel_runs.items()})
     by_path = lambda k: {p: c.get(k, 0) for p, c in paths.items()}
     tc, fc = per_op["counts"], fused["counts"]
@@ -3004,4 +3363,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ranks-worker"]:
+        ranks_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+        sys.exit(0)
     sys.exit(main())

@@ -19,12 +19,14 @@ core (``data.native``).
 random pose per index and canonicalises it with ``preprocess_smpl_fix_body``.
 Batches are numpy dicts (``to_tensors`` moves one to a device).
 ``make_dataset`` / ``get_dataset`` / ``get_dataset_distributed`` resolve a
-config's dataset for one process: the synthetic one when the config names
-no assets or the directory has neither ``images/`` nor ``smpl/``.
+config's dataset (the synthetic one when the config names no assets or the
+directory has neither ``images/`` nor ``smpl/``); the distributed loader
+yields one rank's shard of each epoch.
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 import pickle
 from typing import Dict, Iterator, List
@@ -280,15 +282,24 @@ def _collate(items: List[Dict]) -> Dict:
     return {k: np.stack([it[k] for it in items]) for k in items[0]}
 
 
-def iterate_batches(dataset, batch_size: int, *, shuffle: bool = True,
-                    seed: int = 0, start: int = 0) -> Iterator[Dict]:
-    """One epoch of numpy batches from batch ``start`` on (the last partial
-    batch is dropped)."""
+def iterate_batches(dataset, batch_size: int, *, shuffle: bool = True, seed: int = 0,
+                    start: int = 0, world_size: int = 1, rank: int = 0) -> Iterator[Dict]:
+    """One epoch of rank ``rank``'s numpy batches from its batch ``start`` on
+    (the JAX package's ``iterate_batches``): the seeded shuffle of every
+    index, then every ``world_size``-th from ``rank``, in batches of
+    ``batch_size`` (the rank's share; the last partial batch is dropped)."""
     order = np.arange(len(dataset))
     if shuffle:
         np.random.RandomState(seed).shuffle(order)
+    order = order[rank::world_size]
     for i0 in range(start * batch_size, (len(order) // batch_size) * batch_size, batch_size):
         yield _collate([dataset[int(i)] for i in order[i0:i0 + batch_size]])
+
+
+def batches_per_rank(n_items: int, batch_size: int, world_size: int = 1) -> int:
+    """The batches of an epoch that every rank has: a rank's share is at
+    least ``n_items // world_size`` items."""
+    return (n_items // world_size) // batch_size
 
 
 _RESERVED_KEYS = ("name", "dataset", "batch_size", "world_size", "rank", "trainer")
@@ -322,14 +333,18 @@ def get_dataset(kind: str, batch_size: int = 1, **meta):
 
 
 def get_dataset_distributed(kind: str, world_size: int, rank: int, batch_size: int, **meta):
-    """(loader factory, dataset) for one process; ``loader(seed, shuffle,
-    start)`` yields one epoch of numpy batches."""
-    if world_size != 1 or rank != 0:
-        raise NotImplementedError("more than one training process")
+    """(loader factory, dataset) for rank ``rank`` of ``world_size``;
+    ``batch_size`` is the rank's share of the batch.  ``loader(seed,
+    shuffle, start)`` yields the rank's batches of one epoch from batch
+    ``start`` on, stopping at ``batches_per_rank`` so that every rank takes
+    as many steps."""
     ds = make_dataset(kind, **meta)
 
     def loader(seed: int = 0, shuffle: bool = True, start: int = 0):
-        return iterate_batches(ds, batch_size, shuffle=shuffle, seed=seed, start=start)
+        stop = batches_per_rank(len(ds), batch_size, world_size)
+        return itertools.islice(iterate_batches(ds, batch_size, shuffle=shuffle, seed=seed,
+                                                start=start, world_size=world_size, rank=rank),
+                                max(stop - start, 0))
 
     return loader, ds
 

@@ -9,7 +9,9 @@ Eval mode normalises by the running stats and a frozen ``u``.  Train mode
 (``train=True``) normalises by the batch moments, which gradients flow
 through, and updates the state in place under no-grad: the BN running stats
 (momentum 0.1, unbiased variance, ``num_batches_tracked``) and one power
-iteration of each ``u``.  It runs per op (the JAX package's
+iteration of each ``u``.  Under a process group the batch moments are those
+of the global batch, reduced across ranks (``batch_moments``), so every
+rank's running stats and ``u`` stay equal.  It runs per op (the JAX package's
 ``pallas_synthesis_train=False`` path) or, with ``fused=True``, on the fused
 half-blocks of ``ops/synthesis_train.py`` (K10/K11; the JAX fused path).
 Train mode is ported for batch norm only (the MAP3DBN family); adaptive
@@ -22,7 +24,9 @@ A block's state advances outside the recomputed part, once a step: both
 ``u`` are stepped and both convs' normalised weights formed before the
 block runs and passed in, and the running stats take the moments the block
 returns.  The recompute therefore sees the same weights and updates
-nothing.
+nothing.  Under a process group the recompute runs the moments' two
+all-reduces again, in the same order on every rank and on the same inputs,
+so it gets the forward's moments bit for bit.
 
 Keys follow the reference torch modules: ``network.m3d_{i}.conv_0.weight_orig``
 / ``.weight_u`` (spectral norm), ``spade_{s}.first_norm.*`` (SyncBatchNorm),
@@ -39,6 +43,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from threedhumangan_tpu_torch.parallel import dist
 from threedhumangan_tpu_torch.utils.misc import lrelu, mm, normal_, uniform_
 
 SPADE_HIDDEN = 128
@@ -143,11 +148,14 @@ def _update_running_stats(norm: nn.BatchNorm2d, mean, var, n: int, momentum: flo
 
 
 def batch_moments(x: torch.Tensor):
-    """Train-mode batch moments of NHWC ``x`` in float32 (differentiable).
-    One process: the JAX pmean over replicas is the identity."""
+    """Train-mode sync-BN moments of NHWC ``x`` in float32, differentiable,
+    in the JAX package's two passes (``sync_bn_moments``): the mean of the
+    local means over ranks, then the mean over ranks of the local mean of
+    ``(x - mean)^2``.  Both reductions cross ranks through
+    ``parallel.dist.mean_across_ranks`` (none without a process group)."""
     x32 = x.float()
-    mean = x32.mean((0, 1, 2))
-    var = torch.square(x32 - mean).mean((0, 1, 2))
+    mean = dist.mean_across_ranks(x32.mean((0, 1, 2)))
+    var = dist.mean_across_ranks(torch.square(x32 - mean).mean((0, 1, 2)))
     return mean, var
 
 
@@ -234,8 +242,10 @@ class SPADEBlock(nn.Module):
         return self.conv_0.normalized_weight(train=True), self.conv_1.normalized_weight(train=True)
 
     def update_running_stats(self, moments, x):
-        """The BN running stats from the moments ``train_body`` returned for input ``x``."""
-        n = x.shape[0] * x.shape[1] * x.shape[2]
+        """The BN running stats from the moments ``train_body`` returned for
+        input ``x``; the variance is unbiased by the global count, this
+        rank's pixels times the world size."""
+        n = x.shape[0] * x.shape[1] * x.shape[2] * dist.world_size()
         for spade, (mean, var) in zip((self.spade_0, self.spade_1), moments):
             _update_running_stats(spade.first_norm, mean.detach(), var.detach(), n, 0.1)
 

@@ -1,1 +1,3 @@
-"""Training statistics of the PyTorch port (mirrors threedhumangan_tpu/parallel)."""
+"""Data parallelism and training statistics of the PyTorch port (mirrors
+threedhumangan_tpu/parallel): ``dist`` reduces across ranks, ``stats`` holds
+the moments."""

@@ -1,10 +1,12 @@
 """Training statistics as (count, sum, sum of squares) moments
-(threedhumangan_tpu/parallel/stats.py).  On one process the JAX package's
-cross-replica psum of the moments is the identity, so there is none here.
+(threedhumangan_tpu/parallel/stats.py).
 
-``moments`` runs inside the train step on the device; ``Collector`` is the
-host-side accumulator the trainer feeds every 10 steps with the summed
-moments of those steps and reads means from.
+``moments`` runs inside the train step on the device; ``psum_moments`` sums
+a dict of them over ranks with one collective; ``Collector`` is the
+host-side accumulator the trainer feeds every 10 steps with the moments of
+those steps, summed over the steps on each rank and then over ranks.
+Moments are linear, so this equals the JAX package's per-step ``psum``
+summed over the window.
 """
 
 from __future__ import annotations
@@ -15,12 +17,24 @@ from typing import Dict
 import numpy as np
 import torch
 
+from threedhumangan_tpu_torch.parallel import dist
+
 
 def moments(x) -> torch.Tensor:
     """[count, sum, sum_sq] of a tensor as one float32 vector (no grad)."""
     x = torch.as_tensor(x).detach().float()
     return torch.stack([torch.tensor(float(x.numel()), device=x.device), x.sum(),
                         torch.square(x).sum()])
+
+
+def psum_moments(stats: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``stats`` summed over ranks: one collective over the stacked moment
+    vectors (JAX ``psum_moments``); the dict itself without a group."""
+    if not dist.initialized() or not stats:
+        return stats
+    names = sorted(stats)
+    stacked = dist.sum_across_ranks(torch.stack([stats[n] for n in names]))
+    return {n: stacked[i] for i, n in enumerate(names)}
 
 
 class Collector:

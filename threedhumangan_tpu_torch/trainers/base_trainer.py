@@ -1,4 +1,4 @@
-"""The training loop (threedhumangan_tpu/trainers/base_trainer.py), one process.
+"""The training loop (threedhumangan_tpu/trainers/base_trainer.py).
 
 ``Trainer`` holds the port's ``TrainState`` on its device and runs:
   * the curriculum: ``extract_metadata`` per step; the loop stops at a block
@@ -21,8 +21,9 @@
   * EMA sample grids (``log_image``, PNG) and weight histograms
     (``log_weights``) every ``sample_interval`` steps;
   * synthesis remat (``remat_synthesis``) by ``auto_remat_synthesis`` for
-    one device micro-batch, batch // batch_split, unless the config pins
-    it, with the fused synthesis on;
+    one device micro-batch, batch // world_size // batch_split, unless the
+    config pins it, with the fused synthesis on; ``opt.bs_factor``
+    multiplies the config's ``batch_split``;
   * out-of-memory recovery on ``torch.cuda.OutOfMemoryError``: double
     ``batch_split``, rebuild the stage (which decides remat again) and retry
     the step when no optimizer has stepped in it, else restore the latest
@@ -32,8 +33,39 @@
     retries too.  Buffers a failed forward already advanced (BN running
     stats, spectral-norm ``u``) stay advanced on a retry.
 
-ADA (``ada_interval > 0``) and more than one process raise
-``NotImplementedError``.
+Data parallelism, one process a device (as the original repo's DDP over
+NCCL; the JAX package's mesh step): the caller initialises the default
+process group (``apps/train.py``) and passes its ``rank`` and
+``world_size``; the trainer never picks a backend, and without a group it
+issues no collective.  Across ranks:
+  * the global ``batch_size`` is split: rank r takes ``batch_size //
+    world_size`` items, every ``world_size``-th of the seeded shuffle from
+    r, and an epoch has the batches that every rank has;
+  * the weights are built from the seed alone on every rank, then held
+    once: one all-reduce of a checksum of G, D and the EMA raises if the
+    ranks differ (``parallel.dist.check_replicas``);
+  * each rank draws from its own generator: rank 0's is seeded with the
+    seed (a one-process run is unchanged), rank r's with a seed derived
+    from (seed, r) (JAX's ``fold_in(rng, axis_index)``);
+  * the sync-BN moments and the gradients are reduced across ranks inside
+    the steps (``trainers/phase_trainer.py``); the summed statistics once
+    at each pull, in one collective (``parallel.stats.psum_moments``);
+  * rank 0 alone writes ``options.txt``, ``metrics.jsonl``, TensorBoard
+    events, sample grids, weight histograms and checkpoints (the samples
+    run in eval mode and make no collective, so no rank waits on them);
+    a checkpoint holds every rank's generator state, gathered before the
+    write, and every rank resumes from it with its own; the run ends with
+    the last write joined and a barrier, so no rank reads a checkpoint
+    before it is whole.
+Out of device memory at world size 2 or more, the rank raises a
+``RuntimeError`` that names it and ``--bs_factor``, and ends; the other
+ranks then fail in their next collective (at once under gloo, at the
+group's timeout under NCCL).  No rank recovers alone: the sync-BN
+all-reduces sit inside the forward, so a rank that retried would leave the
+others waiting in a collective it never reaches, or step with weights they
+do not have.
+
+ADA (``ada_interval > 0``) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -46,14 +78,20 @@ import threading
 import time
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from threedhumangan_tpu_torch import configs
-from threedhumangan_tpu_torch.data.dataset import get_dataset_distributed, to_tensors
+from threedhumangan_tpu_torch.data.dataset import (
+    batches_per_rank,
+    get_dataset_distributed,
+    to_tensors,
+)
 from threedhumangan_tpu_torch.data.prefetch import prefetch
 from threedhumangan_tpu_torch.data.preprocessor import get_preprocessor
 from threedhumangan_tpu_torch.models.generator import auto_remat_synthesis
-from threedhumangan_tpu_torch.parallel.stats import Collector
+from threedhumangan_tpu_torch.parallel import dist
+from threedhumangan_tpu_torch.parallel.stats import Collector, psum_moments
 from threedhumangan_tpu_torch.trainers.phase_trainer import TrainState, init_train_state
 from threedhumangan_tpu_torch.trainers import phase_trainer
 from threedhumangan_tpu_torch.utils.checkpoint import (
@@ -68,6 +106,14 @@ from threedhumangan_tpu_torch.utils.misc import resolve_device
 def _opt_steps(opt: torch.optim.Optimizer) -> float:
     """Updates the optimizer has made (its first parameter's Adam step count)."""
     return float(next(iter(opt.state.values()))["step"]) if opt.state else 0.0
+
+
+def rank_seed(seed: int, rank: int) -> int:
+    """The seed of rank ``rank``'s generator: ``seed`` on rank 0, else a
+    32-bit seed derived from (seed, rank)."""
+    if rank == 0:
+        return seed
+    return int(np.random.SeedSequence((seed, rank)).generate_state(1)[0])
 
 
 @contextlib.contextmanager
@@ -87,11 +133,14 @@ def _ema_weights(G: torch.nn.Module, ema: Dict):
 
 
 class Trainer:
-    """Single-process trainer; ``opt`` carries the CLI options of apps/train.py."""
+    """Trainer of rank ``rank`` of ``world_size`` (module docstring); ``opt``
+    carries the CLI options of apps/train.py."""
 
     def __init__(self, rank: int, world_size: int, opt, config: Dict, smpl_model=None):
-        if rank != 0 or world_size != 1:
-            raise NotImplementedError("more than one training process")
+        if (rank, world_size) != (dist.rank(), dist.world_size()):
+            raise ValueError(f"Trainer(rank={rank}, world_size={world_size}) needs a process "
+                             f"group of that size: the default group has rank {dist.rank()} "
+                             f"of {dist.world_size()}")
         self.rank, self.world_size = rank, world_size
         self.opt = opt
         self.config = config
@@ -103,7 +152,7 @@ class Trainer:
             raise NotImplementedError("ADA (ada_interval > 0)")
         self.smpl_model = smpl_model
         self.tb = None
-        if getattr(opt, "tensorboard", 1):
+        if rank == 0 and getattr(opt, "tensorboard", 1):
             from threedhumangan_tpu_torch.utils.tb import EventWriter
 
             self.tb = EventWriter(self.output_dir)
@@ -113,11 +162,12 @@ class Trainer:
         self._saved_step: Optional[int] = None
         self._batch_split_min = 1
         self._stage_token = 0
-        self.batch_size = self.gen_height = self.gen_width = None
+        self.batch_size = self.proc_batch_size = self.gen_height = self.gen_width = None
         self.step = 0
 
         seed = getattr(opt, "seed", 0)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(rank_seed(seed, rank))
+        # the weights from the seed alone: the same on every rank
         self.ts: TrainState = init_train_state(self.meta, torch.Generator().manual_seed(seed),
                                                self.device)
         ckpt = latest_checkpoint(self.output_dir)
@@ -132,6 +182,16 @@ class Trainer:
             latents = torch.as_tensor(self.dataset.get_all_latents())
             with torch.no_grad():
                 self.ts.G.latent_pool.latents.copy_(latents)
+        dist.check_replicas(self._replica_tensors(), self.device)
+
+    def _replica_tensors(self) -> Dict[str, torch.Tensor]:
+        """What every rank must hold alike: G's and D's parameters and
+        buffers, and the EMA."""
+        ts = self.ts
+        out = {f"G.{k}": v for k, v in ts.G.state_dict().items()}
+        out.update({f"D.{k}": v for k, v in ts.D.state_dict().items()})
+        out.update({f"ema.{k}": v for k, v in ts.ema["params"].items()})
+        return out
 
     # -- stage management -----------------------------------------------------
 
@@ -140,11 +200,15 @@ class Trainer:
         self._stage_token += 1
         self._stage_fits = False  # no pair of this stage has completed yet
         self.batch_size = meta["batch_size"]
+        if self.batch_size % self.world_size:
+            raise ValueError(f"batch_size {self.batch_size} does not split over "
+                             f"{self.world_size} ranks")
+        self.proc_batch_size = self.batch_size // self.world_size
         self.gen_height, self.gen_width = meta["gen_height"], meta["gen_width"]
         reserved = ("smpl_model", "batch_size", "name", "dataset", "world_size", "rank")
         kwargs = {k: v for k, v in meta.items() if k not in reserved}
         self.loader_fn, self.dataset = get_dataset_distributed(
-            meta["dataset"], self.world_size, self.rank, self.batch_size,
+            meta["dataset"], self.world_size, self.rank, self.proc_batch_size,
             smpl_model=self.smpl_model, **kwargs)
         root = getattr(self.dataset, "root", None)
         print(f"rank {self.rank}: dataset {type(self.dataset).__name__}, {len(self.dataset)} "
@@ -152,8 +216,9 @@ class Trainer:
         self._stage_meta = dict(meta)
         for k in ("nerf_noise", "gen_lr", "disc_lr"):
             self._stage_meta.pop(k, None)
-        self._stage_meta["batch_split"] = max(int(meta.get("batch_split", 1)),
-                                              self._batch_split_min)
+        self._stage_meta["batch_split"] = max(
+            int(meta.get("batch_split", 1)) * int(getattr(self.opt, "bs_factor", 1)),
+            self._batch_split_min)
         self._cur_lr = (meta.get("gen_lr", 0.0), meta.get("disc_lr", 0.0))
         # the fused train synthesis (K10/K11) serves the D-step fakes and the
         # G step on the card
@@ -161,7 +226,7 @@ class Trainer:
         # synthesis remat unless the config pins it: decided for one device
         # micro-batch, so again after an out-of-memory error doubles the split
         if self._stage_meta["pallas_synthesis_train"]:
-            micro = max(1, self.batch_size // self._stage_meta["batch_split"])
+            micro = max(1, self.proc_batch_size // self._stage_meta["batch_split"])
             self._stage_meta.setdefault("remat_synthesis",
                                         auto_remat_synthesis(self._stage_meta, micro))
         self.preprocessor = get_preprocessor(self._stage_meta, self.dataset.smpl_model)
@@ -178,12 +243,17 @@ class Trainer:
 
     # -- state ----------------------------------------------------------------
 
-    def _payload(self) -> Dict:
+    def _rng_states(self):
+        """Every rank's generator state, by rank (a collective)."""
+        state = self.generator.get_state()
+        return [s.cpu() for s in dist.all_gather(state.to(self.device))]
+
+    def _payload(self, rngs) -> Dict:
         ts = self.ts
         return {"G": ts.G.state_dict(), "D": ts.D.state_dict(),
                 "opt_G": ts.opt_G.state_dict(), "opt_D": ts.opt_D.state_dict(),
                 "ema": {"params": ts.ema["params"], "count": ts.ema["count"]},
-                "rng": self.generator.get_state(), "config_name": self.config["name"]}
+                "rng": rngs, "config_name": self.config["name"]}
 
     def _load_state(self, payload: Dict):
         ts, dev = self.ts, self.device
@@ -193,16 +263,26 @@ class Trainer:
         ts.opt_D.load_state_dict(payload["opt_D"])
         ts.ema = {"params": {k: v.to(dev) for k, v in payload["ema"]["params"].items()},
                   "count": int(payload["ema"]["count"])}
-        self.generator.set_state(payload["rng"])
+        rngs = payload["rng"]
+        rngs = rngs if isinstance(rngs, list) else [rngs]  # saved by one process
+        if self.rank < len(rngs):
+            self.generator.set_state(rngs[self.rank])
+        else:
+            print(f"rank {self.rank}: the checkpoint holds {len(rngs)} ranks' random states; "
+                  "this rank keeps its fresh one", flush=True)
         self.step = ts.step = int(payload["step"])
 
     def save(self):
-        """Checkpoint: the copy to the host is synchronous (the next step
-        updates the tensors in place); the npz write and prune run on a
-        background thread.  Writes are serialised."""
+        """Checkpoint, on every rank: the ranks' generator states are
+        gathered, then rank 0 copies the payload to the host synchronously
+        (the next step updates the tensors in place) and writes the npz and
+        prunes on a background thread.  Writes are serialised."""
         self._join_save()
         self._saved_step = self.step
-        payload = to_host(self._payload())
+        rngs = self._rng_states()
+        if self.rank != 0:
+            return
+        payload = to_host(self._payload(rngs))
         keep = getattr(self.opt, "model_keep_interval", 5000)
         self._save_thread = threading.Thread(
             target=save_checkpoint, args=(self.output_dir, self.step, payload),
@@ -248,6 +328,8 @@ class Trainer:
     # -- logging ------------------------------------------------------------------
 
     def write_options(self):
+        if self.rank != 0:
+            return
         n_g = sum(p.numel() for p in self.ts.G.parameters())
         n_d = sum(p.numel() for p in self.ts.D.parameters())
         with open(os.path.join(self.output_dir, "options.txt"), "w") as f:
@@ -256,6 +338,8 @@ class Trainer:
             f.write(repr({k: v for k, v in self.config.items() if isinstance(k, str)}))
 
     def _log(self, scalars: Dict[str, float]):
+        if self.rank != 0:
+            return
         with open(os.path.join(self.output_dir, "metrics.jsonl"), "a") as f:
             f.write(json.dumps({"step": self.step, **scalars}) + "\n")
         if self.tb is not None:
@@ -270,7 +354,7 @@ class Trainer:
         from threedhumangan_tpu_torch.data.utils import colorize_labels, make_grid, write_png
         from threedhumangan_tpu_torch.models.generator import staged_forward
 
-        n = min(4, self.batch_size)
+        n = min(4, self.proc_batch_size)
         data = next(iter(self.loader_fn(seed=123, shuffle=False)))
         batch = to_tensors({k: v[:n] for k, v in data.items()}, self.device)
         eval_meta = dict(self._stage_meta, nerf_noise=0, perturb_rays=False, h_stddev=0,
@@ -296,7 +380,7 @@ class Trainer:
                       make_grid(seg_rgb, nrow=2))
 
     def log_weights(self):
-        """Per-parameter weight histograms."""
+        """Per-parameter weight histograms (rank 0 alone has ``tb``)."""
         if self.tb is None:
             return
         for prefix, module in (("train/weights/gen", self.ts.G), ("train/weights/disc", self.ts.D)):
@@ -312,6 +396,7 @@ class Trainer:
             self._run(max_steps)
         finally:
             self._join_save()  # the last background checkpoint write must land
+        dist.barrier()  # and no rank goes on before it has
 
     def _train_step(self, batch, meta, phase, nerf_noise):
         """One D+G pair with out-of-memory recovery.  Returns the step's
@@ -319,14 +404,21 @@ class Trainer:
         the data at the restored step)."""
         while True:
             before = (_opt_steps(self.ts.opt_D), _opt_steps(self.ts.opt_G))
-            undo = None if self._stage_fits else self._d_on_host()
+            undo = None if self._stage_fits or self.world_size > 1 else self._d_on_host()
             try:
                 self.ts, stats = phase_trainer.train_step_pair(
                     self.ts, batch, self.generator, meta, self.preprocessor, phase,
                     self._cur_lr[0], self._cur_lr[1], nerf_noise)
                 self._stage_fits = True
                 return stats
-            except torch.cuda.OutOfMemoryError:
+            except torch.cuda.OutOfMemoryError as e:
+                if self.world_size > 1:
+                    split = self._stage_meta.get("batch_split", 1)
+                    msg = (f"rank {self.rank}: the train step at step {self.step} ran out of "
+                           f"device memory at batch_split {split}; every rank stops (one "
+                           f"rank cannot retry alone). Restart with a larger --bs_factor.")
+                    print(msg, flush=True)
+                    raise RuntimeError(msg) from e
                 if undo is not None and before[1] == _opt_steps(self.ts.opt_G):
                     self.ts.D.load_state_dict(undo["D"])
                     self.ts.opt_D.load_state_dict(undo["opt_D"])
@@ -362,7 +454,8 @@ class Trainer:
                 break
             # the epoch and batch of this step: a resumed run continues where
             # the saved one stopped
-            per_epoch = len(self.dataset) // self.batch_size
+            per_epoch = batches_per_rank(len(self.dataset), self.proc_batch_size,
+                                         self.world_size)
             if per_epoch == 0:
                 break
             epoch, start = divmod(self.step, per_epoch)
@@ -402,8 +495,9 @@ class Trainer:
                             acc = self._stats_acc
                             acc[k] = v if k not in acc else acc[k] + v
                     if self.step % 10 == 0 or self.step == 1:
-                        self.collector.update({k: v.cpu() for k, v in self._stats_acc.items()})
+                        summed = psum_moments(self._stats_acc)  # over ranks: one collective
                         self._stats_acc = None
+                        self.collector.update({k: v.cpu() for k, v in summed.items()})
                         # a zero count means no observation in the window
                         scalars = {n: self.collector[n] for n in self.collector.names()
                                    if self.collector.num(n) > 0}
@@ -421,7 +515,7 @@ class Trainer:
                         t_io = time.time()
                         self.save()
                         host_sec += time.time() - t_io
-                    if sample_interval and self.step % sample_interval == 0:
+                    if sample_interval and self.step % sample_interval == 0 and self.rank == 0:
                         t_io = time.time()
                         self.log_image(meta)
                         self.log_weights()

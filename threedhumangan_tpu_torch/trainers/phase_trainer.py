@@ -19,7 +19,14 @@ rasterized vs annotated segments) and ``h_rotation``/``v_rotation`` (B,) —
 which replaces the generator's draws of those values, so a test can feed
 in the JAX package's.  Gradients are taken with ``torch.autograd.grad`` for
 the stepped module only.  ``batch_split > 1`` runs micro-batches with
-losses divided by the split count (gradient accumulation).  Not ported:
+losses divided by the split count (gradient accumulation).  Under a process
+group each rank steps on its shard of the batch: the synthesis BN moments
+are reduced across ranks inside the forwards, and the gradients are
+averaged across ranks (``parallel.dist.all_reduce_mean_``, one collective)
+after the micro-batches and before the grad-norm stats and Adam, as the
+JAX step's ``pmean``; the stats stay per rank (the trainer sums them).
+Not ``DistributedDataParallel``: its hooks fire on ``.backward()``, which
+these steps never call.  Not ported:
 ADA (``ada_interval > 0``), the perceptual and photometric losses, dual
 discrimination and render-modal discrimination; each raises.
 """
@@ -34,6 +41,7 @@ import torch
 
 from threedhumangan_tpu_torch.models.discriminator import UNetDiscriminator
 from threedhumangan_tpu_torch.models.generator import Map3DGenerator, generator_forward
+from threedhumangan_tpu_torch.parallel import dist
 from threedhumangan_tpu_torch.parallel.stats import moments
 from threedhumangan_tpu_torch.trainers import losses as L
 from threedhumangan_tpu_torch.trainers.optim import (
@@ -222,6 +230,7 @@ def d_train_step(ts: TrainState, data: Dict, generator: torch.Generator, lr: flo
         stats["d_loss"] = moments(loss)
         params = _opt_params(ts.opt_D)
         grads = _grads(loss, params)
+    dist.all_reduce_mean_(grads)  # JAX pmean of the grads, before their norms and Adam
     stats.update(_group_norm_stats(D, params, grads, "d_grad_norm"))
     with stage("d_optimizer"):
         adam_step(ts.opt_D, grads, lr, meta.get("grad_clip", 0.0))
@@ -299,6 +308,7 @@ def g_train_step(ts: TrainState, data: Dict, generator: torch.Generator, lr: flo
         grads = g if grads is None else [a + b for a, b in zip(grads, g)]
         for k, v in st.items():
             stats[k] = stats[k] + v if k in stats else v
+    dist.all_reduce_mean_(grads)  # after the micro-batches, as the JAX pmean
     stats.update(_group_norm_stats(G, params, grads, "g_grad_norm"))
     with stage("g_optimizer"):
         adam_step(ts.opt_G, grads, lr, meta.get("grad_clip", 0.0))
