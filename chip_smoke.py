@@ -108,11 +108,30 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
                 ranks on one card say nothing of scaling); (c) a TINY D+G
                 pair on two ranks on the card against the same on the CPU
                 (gloo), summed over ranks, within phase 6's limits.
+ 13. apps     — the inference and eval apps at MAP3DBN512L (after phase 12),
+                from a temporary directory laid out as a user's checkout: a
+                64-item SHHQ tree of the synthetic body (6,844 vertices
+                of its 6,890 kept, 13,776 faces) under datasets/, random
+                weights (the field's density bias 0.5) saved with
+                torch.save.  K7, K1, K2 and K3 at batch 1: each
+                image's launch bit-equal to its image of a batch-8 launch,
+                one image against the plain version at the slice's
+                tolerances, times and bounds; one frame at batch 1 timed by
+                stage; a bf16 frame against the plain versions in float32
+                (a reading); then through their CLI entries:
+                sample_from_generator (2 seeds x 8 angles: PNGs read back
+                equal, exactly one K1, K2, K3 and K7 a frame and no other
+                kernel), eval_consistency (16 angles, finite metrics),
+                eval_parity (its own goldens < 1e-5, feature Frechet < 1e-3,
+                the saved state_dict's renders bit-equal to the in-memory
+                G's), eval_fid (64 images, batch 8: generation and features
+                timed apart), export_tensorboard over phase 10's
+                metrics.jsonl (read back scalar for scalar).
  11. result   — K7's device time a launch (torch.profiler, last, as it may
                 slow later host-bound launches); a JSON line of the kernels
                 (times, bounds, launches by path, each kernel of the 512L
-                path at its shapes), the card line, and the final
-                {"ok": true, "device": ...} line.
+                path at its shapes, K1, K2, K3 and K7 at batch 1), the card
+                line, and the final {"ok": true, "device": ...} line.
 """
 
 import contextlib
@@ -120,6 +139,7 @@ import json
 import math
 import os
 import re
+import struct
 import subprocess
 import sys
 import time
@@ -648,15 +668,10 @@ def check_synthesis(gen, meta, styles, gcuda):
         raise AssertionError("K3 (full width) disagrees with its plain version")
     ms = cuda_ms(run_k, 3)
     plain_ms = cuda_ms(run_p, 1)
-    H, F = meta["hidden_dim"], meta["feature_dim"]
-    n_mod = NB if mode == "all" else len(mods)
-    per_px = 2 * (2 * H + NB * 2 * H * H + n_mod * 2 * (F * 128 + 2 * 128 * H)
-                  + (NB - NB // 2 + 1) * 3 * H)
-    bd = bound(per_px * style.shape[0] * style.shape[1] * style.shape[2],
-               style.numel() * style.element_size() + r_k.numel() * r_k.element_size())
+    bd = synthesis_bound(meta, style, r_k)
     log(f"  time: kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound {bd['bound_ms']:.3f} ms "
         f"({bd['bound_by']})")
-    hp = round16(H)
+    hp = round16(meta["hidden_dim"])
     rank1 = sk.rank1_blocks_of(NB, mods, mode)
     pack = lambda: sk.pack_weight_stream(folded, NB, [i for i in range(NB) if i not in rank1],
                                          hp, hp)
@@ -669,6 +684,18 @@ def check_synthesis(gen, meta, styles, gcuda):
     log(f"  pack_weight_stream alone (each synthesis_cuda call, inside the kernel's time "
         f"above): {ring['pack_ms']:.3f} ms")
     return dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms, **bd, **ring)
+
+
+def synthesis_bound(meta, style, out):
+    """K3's bound on a style map (B, H, W, F) and its rgb out: the products
+    of every block, SPADE head and ToRGB a pixel in bf16, or the bytes."""
+    NB, mods, mode = meta["synthesis_blocks"], meta["mod_blocks"], meta["map3d_mode"]
+    H, F = meta["hidden_dim"], meta["feature_dim"]
+    n_mod = NB if mode == "all" else len(mods)
+    per_px = 2 * (2 * H + NB * 2 * H * H + n_mod * 2 * (F * 128 + 2 * 128 * H)
+                  + (NB - NB // 2 + 1) * 3 * H)
+    return bound(per_px * style.shape[0] * style.shape[1] * style.shape[2],
+                 style.numel() * style.element_size() + out.numel() * out.element_size())
 
 
 def ptxas_of(source):
@@ -2464,11 +2491,14 @@ def run_512l_trainer(tree, smpl, out_dir):
                              f"{(img[msk < 0] == 1.0).all()}")
     stage_ms = timer.per_pair_ms(L_TIMED)
     ms = 1e3 * sum(walls) / len(walls)
+    with open(os.path.join(trainer.output_dir, "metrics.jsonl")) as f:
+        metrics_jsonl = f.read()  # the apps phase exports it (the directory goes)
     res = dict(batch=L_BATCH, batch_split=split, micro_batch=L_BATCH // split, remat=remat,
                ms_per_pair=ms, ms_per_pair_runs=[1e3 * w for w in walls],
                imgs_per_s=L_BATCH / (ms / 1e3), stage_ms=stage_ms, peak_gib=peak,
                loader_ms_per_batch=1e3 * sum(loads) / len(loads), setup_s=setup_s, run_s=run_s,
-               launches_per_pair=per_pair, counts=counts, losses=losses)
+               launches_per_pair=per_pair, counts=counts, losses=losses,
+               metrics_jsonl=metrics_jsonl)
     log(f"train 512L: MAP3DBN512L batch {L_BATCH} on the SHHQ tree through Trainer, "
         f"{L_TIMED} timed pairs after {L_WARMUP}: batch_split {split} (micro-batch "
         f"{L_BATCH // split}), remat {remat}")
@@ -3121,6 +3151,532 @@ def run_ranks_gloo():
 
 
 
+# ---------------------------------------------------------------------------
+# 13. apps: the inference and eval apps at MAP3DBN512L
+# ---------------------------------------------------------------------------
+
+APP_CONFIG = "MAP3DBN512L"
+APP_SEEDS = (1, 2)            # sample_from_generator: seeds x angles frames
+APP_ANGLES = 8
+APP_SWEEP = 16                # eval_consistency's angles
+APP_PARITY_SEEDS = (1, 2, 3, 4)
+APP_FID_N, APP_FID_BATCH = 64, 8
+APP_DENSITY_BIAS = 0.5        # the field's density bias in the apps' weights
+
+
+def apps_meta(tree):
+    """MAP3DBN512L with the apps' eval settings, on the tree's first items."""
+    import types
+
+    from threedhumangan_tpu_torch.apps.common import eval_config
+
+    return eval_config(types.SimpleNamespace(config=APP_CONFIG, tune="", variant=0),
+                       dataroot=tree, dataset_length=BATCH)
+
+
+def check_batch1(gen, pre, meta, cond, z):
+    """K7, K1, K2 and K3 on the apps' path at batch 1: each image's own
+    launch bit-equal to that image of the batch's launch (kernel by kernel,
+    on the same inputs), the last image against the plain version at the
+    slice's tolerances, and the batch-1 times beside the plain version's and
+    the bound."""
+    import torch
+
+    from threedhumangan_tpu_torch.models.generator import resize_feature_maps
+    from threedhumangan_tpu_torch.ops import geo
+    from threedhumangan_tpu_torch.ops import rasterize as ras
+    from threedhumangan_tpu_torch.ops import raymarch as rm
+    from threedhumangan_tpu_torch.ops import synthesis_kernel as sk
+
+    bf16 = torch.bfloat16
+    B = z.shape[0]
+    one = lambda t, i: t[i:i + 1].contiguous()
+    last = B - 1
+    res = {}
+
+    def batch_equal(name, full, per_image):
+        same = all(all(torch.equal(f[i:i + 1], p) for f, p in zip(full, per_image(i)))
+                   for i in range(B))
+        log(f"  {name}: each of the {B} images' batch-1 launch bit-equal to its image of the "
+            f"batch-{B} launch: {same}")
+        if not same:
+            raise AssertionError(f"{name} at batch 1 differs from its image of a batch-{B} launch")
+
+    # K7 (the bin pre-pass and the z-test)
+    size, tile = (meta["gen_height"], meta["gen_width"]), pre.raster_tile
+    verts, faces = pre.screen_vertices(cond), pre.faces.cuda()
+    K = -(-min(pre.raster_faces_per_tile, faces.shape[0]) // 128) * 128
+    k7 = lambda v: ras.rasterize_mesh_cuda(v, faces, size, tile, K)
+    batch_equal("K7", k7(verts), lambda i: k7(one(verts, i)))
+    v1 = one(verts, last)
+    (fk, bk, zk), (fp, bp, zp) = k7(v1), ras.rasterize_mesh_plain(v1, faces, size, tile, K)
+    agree = float((fk == fp).float().mean())
+    mx = max(float((bk - bp).abs().max()), float((zk - zp).abs().max()))
+    log(f"check K7 at batch 1 ({faces.shape[0]} faces onto {size}): face-id agreement "
+        f"{agree * 100:.6f}%, bary/z max|d| {mx:.3e} (tolerance: 100% and 0, as the slice's)")
+    if agree != 1.0 or mx > 0:
+        raise AssertionError("K7 at batch 1 disagrees with its plain version")
+    needed, _ = raster_needed_pairs(v1, faces, size, tile, K)
+    run_p = lambda: ras.rasterize_mesh_plain(v1, faces, size, tile, K)
+    res["K7"] = dict(max_abs_err=mx, ms=cuda_ms(lambda: k7(v1), 5), plain_ms=cuda_ms(run_p, 1),
+                     **bound(20 * needed, v1.numel() * 4 + faces.shape[0] * 24
+                             + size[0] * size[1] * 20, PEAK_F32))
+
+    # K1
+    inp = field_inputs(gen, cond, z, meta)
+    legacy, layout = meta.get("legacy_mode", False), (meta["render_width"], meta["num_steps"])
+    gargs = (inp["points"], inp["vertices"], inp["vfeat"], inp["skeletons"])
+    k1 = lambda a: geo.geo_features(*a, legacy_mode=legacy, return_index=True, ray_layout=layout)
+    full = k1(gargs)
+    batch_equal("K1", full, lambda i: k1(tuple(one(t, i) for t in gargs)))
+    a1 = tuple(one(t, last) for t in gargs)
+    (f1, i1), (fp1, ip1) = k1(a1), geo.geo_features_plain(*a1, legacy_mode=legacy,
+                                                           point_chunk=1024)
+    agree, mx = float((i1.long() == ip1).float().mean()), diff_stats(f1, fp1)[0]
+    log(f"check K1 at batch 1 ({a1[0].shape[1]} points x {a1[1].shape[1]} vertices): index "
+        f"agreement {agree * 100:.6f}%  max|d| {mx:.3e} (tolerance: 100% and 1e-5, as the slice's)")
+    if agree != 1.0 or mx > 1e-5:
+        raise AssertionError("K1 at batch 1 disagrees with its plain version")
+    pairs = torch.zeros(1, dtype=torch.int64, device="cuda")
+    geo._geo_cuda(*a1, legacy, True, layout, pairs)
+    needed = needed_pairs(a1[0], a1[1], geo.nearest_vertex(a1[0], a1[1], 1024)[0])
+    P, V = a1[0].shape[1], a1[1].shape[1]
+    res["K1"] = dict(max_abs_err=mx, ms=cuda_ms(lambda: k1(a1), 5),
+                     plain_ms=cuda_ms(lambda: geo.geo_features_plain(
+                         *a1, legacy_mode=legacy, point_chunk=1024), 1),
+                     **nn_bounds(1, P, V, int(pairs), needed,
+                                 4 * (P * 35 + V * (3 + a1[2].shape[2]))))
+
+    # K2, on K1's features
+    S, field, NB = meta["num_steps"], gen.neural_field, meta["neural_field_blocks"]
+    packed = rm.pack_field_inputs(inp["points"], full[0], inp["dirs"],
+                                  2.0 / meta["side_length"]).to(bf16).contiguous()
+    w, exact = rm.flat_weights(field), not meta["fast_math"]
+    kw = dict(white_back=meta["white_back"], last_back=meta["last_back"])
+    k2 = lambda s: rm.field_render_cuda(w, rm.film_tables(inp["freq"][s], inp["phase"][s], NB),
+                                        packed[s].contiguous(), inp["z_vals"][s].contiguous(), S,
+                                        exact_sin=exact, **kw)
+    o8, d8 = k2(slice(0, B))
+    batch_equal("K2", (o8, d8), lambda i: k2(slice(i, i + 1)))
+    s1 = slice(last, B)
+    with torch.no_grad():
+        sh, pi = rm.fold_film_tables(field, inp["freq"][s1], inp["phase"][s1], bf16)
+    run_p = lambda: rm.field_render_plain(sh, pi, packed[s1], inp["z_vals"][s1], S,
+                                          compute_dtype=bf16, exact_sin=exact, **kw)
+    (o1, dd1), (op1, dp1) = k2(s1), run_p()
+    mx = check_render_stats("K2 at batch 1", o1, dd1, op1, dp1)
+    res["K2"] = dict(max_abs_err=mx, ms=cuda_ms(lambda: k2(s1), 5), plain_ms=cuda_ms(run_p, 1),
+                     **field_bound(packed[s1], o1, meta, backward=0))
+
+    # K3, on K2's feature maps resized as the generator resizes them
+    rh, rw = meta["render_height"], meta["render_width"]
+    with torch.no_grad():
+        style = resize_feature_maps(o8[..., 3:].reshape(B, rh, rw, -1).to(bf16),
+                                    meta["gen_height"], meta["gen_width"])
+        styles = gen.synthesis_mapping_network(z, bf16)[1]
+        folded = sk.fold_synthesis_params(gen.synthesis_network, gen.synthesis_input,
+                                          meta["spatial_normalization"])
+    NBs, mods, mode = meta["synthesis_blocks"], tuple(meta["mod_blocks"]), meta["map3d_mode"]
+    k3 = lambda s: sk.synthesis_cuda(folded, style[s].contiguous(), styles[s].contiguous(),
+                                     NBs, mods, mode)
+    # the wrapper forms the fixed-style rows by a cuBLAS product, whose last
+    # bits may change with the batch: the launch-by-launch comparison hands
+    # every launch its images' rows of one batch-B product
+    gab = sk.rank1_rows(folded, styles, sk.rank1_blocks_of(NBs, mods, mode), bf16)
+
+    def k3_rows(s):
+        real = sk.rank1_rows
+        sk.rank1_rows = lambda *a, **kw: gab[s].contiguous()
+        try:
+            return k3(s)
+        finally:
+            sk.rank1_rows = real
+
+    full = k3_rows(slice(0, B))
+    batch_equal("K3", (full,), lambda i: (k3_rows(slice(i, i + 1)),))
+    whole = max(float((k3(slice(i, i + 1)) - full[i:i + 1]).abs().max()) for i in range(B))
+    log(f"  K3's whole call at batch 1 (its fixed-style rows formed at batch 1 by cuBLAS) "
+        f"against the batch-{B} call: max|d| {whole:.3e} (information)")
+    run_p = lambda: sk.synthesis_plain(folded, style[s1], styles[s1], NBs, mods, mode, bf16,
+                                       pixel_chunk=32768)
+    r1, rp1 = k3(s1), run_p()
+    mx, mean, p99 = diff_stats(r1, rp1)
+    log(f"check K3 at batch 1 {tuple(r1.shape)}: max|d| {mx:.3e} mean|d| {mean:.3e} p99|d| "
+        f"{p99:.3e} (tolerance: mean <= 3e-3, p99 <= 2e-2, as the slice's)")
+    if mean > 3e-3 or p99 > 2e-2:
+        raise AssertionError("K3 at batch 1 disagrees with its plain version")
+    res["K3"] = dict(max_abs_err=mx, ms=cuda_ms(lambda: k3(s1), 5),
+                     plain_ms=cuda_ms(run_p, 1), whole_call_vs_batch_max_abs=whole,
+                     **synthesis_bound(meta, style[s1], r1))
+    for k in ("K7", "K1", "K2", "K3"):
+        r = res[k]
+        log(f"  time at batch 1: {k} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.3f} ms  "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return res
+
+
+def time_frame(gen, pre, meta, cond, z, avg):
+    """One frame at batch 1 as the apps render it (camera, rasterizer,
+    ``staged_forward`` in bf16): WARMUP + TIMED frames, host clock
+    synchronized at both ends, stages by CUDA events."""
+    import torch
+
+    from threedhumangan_tpu_torch.models.generator import staged_forward
+
+    timer, walls = StageTimer(), []
+    zero = torch.zeros(1, device="cuda")
+    for it in range(WARMUP + TIMED):
+        timer.on = it >= WARMUP
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with timer.stage("rasterize"):
+            c = pre.forward_with_rotation(cond, zero + 0.1 * it, zero, zero)
+        staged_forward(gen, z, c, meta, avg_latent=avg, compute_dtype=torch.bfloat16,
+                       stage=timer.stage)
+        torch.cuda.synchronize()
+        if timer.on:
+            walls.append(time.perf_counter() - t0)
+    stage_ms = timer.mean_ms()
+    ms = 1e3 * sum(walls) / len(walls)
+    log(f"one frame at batch 1 (MAP3DBN512L, bf16, {TIMED} timed after {WARMUP}): {ms:.3f} ms "
+        f"(host clock), stages (CUDA events): "
+        + ", ".join(f"{k} {stage_ms[k]:.3f}" for k in ("rasterize", "mapping", "rays", "geo",
+                                                        "field", "resize", "synthesis")))
+    return dict(ms=ms, stage_ms=stage_ms)
+
+
+
+def plain_frame_f32(gen, meta, cond, z, avg):
+    """One frame through the plain versions in float32 on the card, the JAX
+    apps' dtype: ``staged_forward``'s stages with K1, K2 and K3 replaced by
+    ``geo_features_plain``, ``field_render_plain`` on f32 tables and
+    ``synthesis_plain`` (``cond`` posed and rasterized already)."""
+    import torch
+
+    from threedhumangan_tpu_torch.models import volume_rendering as vr
+    from threedhumangan_tpu_torch.models.generator import resize_feature_maps
+    from threedhumangan_tpu_torch.ops import geo
+    from threedhumangan_tpu_torch.ops import raymarch as rm
+    from threedhumangan_tpu_torch.ops import synthesis_kernel as sk
+
+    f32 = torch.float32
+    S, W, H = meta["num_steps"], meta["render_width"], meta["render_height"]
+    psi = meta["truncation_psi"]
+    freq, phase = gen.neural_field_mapping_network(z, f32)
+    styles = gen.synthesis_mapping_network(z, f32)[1]
+    _, a_freq, a_phase, a_styles = avg
+    freq = a_freq + psi * (freq - a_freq)
+    phase = a_phase + psi * (phase - a_phase)
+    styles = a_styles + psi * (styles - a_styles)
+    pts_cam, z_vals, d_cam = vr.get_initial_rays_weak_perspective(
+        cond["intrinsics"][:, 0, 0], cond["scales"].float(), S, (W, H), meta["ray_start"],
+        meta["ray_end"])
+    pts, z_vals, ray_dirs = vr.transform_sampled_points(pts_cam, z_vals, d_cam,
+                                                        cond["cam2world_matrices"])
+    pts = pts.reshape(1, -1, 3).contiguous()
+    dirs = vr.expand_ray_directions(ray_dirs, S)
+    if meta.get("lock_view_dependence", False):
+        dirs = torch.zeros_like(dirs)
+        dirs[..., -1] = -1.0
+    vfeat = geo.build_vertex_features(cond["tpose_vertices"], cond["fk_matrices"],
+                                      cond["lbs_weights"])
+    feats = geo.geo_features_plain(pts, cond["vertices"].float(), vfeat,
+                                   cond["skeletons_xyz"].float(),
+                                   legacy_mode=meta.get("legacy_mode", False), point_chunk=1024)[0]
+    packed = rm.pack_field_inputs(pts, feats, dirs, 2.0 / meta["side_length"])
+    shared, per_image = rm.fold_film_tables(gen.neural_field, freq, phase, f32)
+    out, _ = rm.field_render_plain(shared, per_image, packed, z_vals.reshape(1, W * H, S), S,
+                                   meta["white_back"], meta["last_back"], f32,
+                                   exact_sin=not meta["fast_math"])
+    style = resize_feature_maps(out[..., 3:].reshape(1, H, W, -1), meta["gen_height"],
+                                meta["gen_width"])
+    folded = sk.fold_synthesis_params(gen.synthesis_network, gen.synthesis_input,
+                                      meta["spatial_normalization"])
+    return sk.synthesis_plain(folded, style, styles, meta["synthesis_blocks"],
+                              tuple(meta["mod_blocks"]), meta["map3d_mode"], f32)
+
+
+def bf16_against_f32(gen, pre, meta, cond, z, avg):
+    """A frame on the apps' route (kernels, bf16) against the same frame
+    through the plain versions in float32 on the card: a reading, no gate."""
+    import torch
+
+    from threedhumangan_tpu_torch.models.generator import staged_forward
+
+    zero = torch.zeros(1, device="cuda")
+    c = pre.forward_with_rotation(cond, zero, zero, zero)
+    got = staged_forward(gen, z, c, meta, avg_latent=avg, compute_dtype=torch.bfloat16)["rgbs"]
+    ref = plain_frame_f32(gen, meta, c, z, avg)
+    mx, mean, p99 = diff_stats(got, ref)
+    log(f"bf16 kernels vs float32 plain versions, one MAP3DBN512L frame (rgb in [-1, 1], "
+        f"f32 |x| mean {float(ref.abs().mean()):.4f}): mean|d| {mean:.4e} p99|d| {p99:.4e} "
+        f"max|d| {mx:.4e} (a reading, not a gate)")
+    return dict(mean_abs=mean, p99_abs=p99, max_abs=mx)
+
+
+def _wall(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def run_sample_app(meta, ckpt, out_dir):
+    """sample_from_generator through its CLI entry: APP_SEEDS x APP_ANGLES
+    frames on the card; the PNGs read back equal the frames; the counts rise
+    by one K1, K2, K3 and K7 (and its pre-pass, and K1's cluster build) a
+    frame and by nothing else."""
+    import numpy as np
+
+    from threedhumangan_tpu_torch.apps import sample_from_generator
+    from threedhumangan_tpu_torch.data.utils import read_png
+
+    argv = ["--config", APP_CONFIG, "--checkpoint", ckpt, "--seeds", *map(str, APP_SEEDS),
+            "--n_angles", str(APP_ANGLES), "--save", "png", "--output_dir", out_dir,
+            "--dataroot", os.path.join("datasets", "shhq_train_40000"),
+            "--dataset_length", str(BATCH)]
+    reset_counts()
+    written, secs = _wall(lambda: sample_from_generator.main(argv))
+    counts = read_counts()
+    frames = len(APP_SEEDS) * APP_ANGLES
+    want = {k: frames if k in ("K1", "K2", "K3", "K7", "K7 bins", "K1/K6 vertex clusters")
+            else 0 for k in counts}
+    log(f"sample_from_generator: {len(APP_SEEDS)} seeds x {APP_ANGLES} angles in {secs:.2f} s; "
+        f"launches {counts}")
+    if counts != want:
+        raise AssertionError(f"the sampler's launches {counts}, expected {want}")
+    for seed, (base, f, s) in written.items():
+        same = (np.array_equal(read_png(base + "_uncond.png"), np.concatenate(list(f), axis=1))
+                and np.array_equal(read_png(base + "_smpl.png"), np.concatenate(list(s), axis=1)))
+        if not same or f.std() == 0 or f.shape != (APP_ANGLES, meta["gen_height"],
+                                                   meta["gen_width"], 3):
+            raise AssertionError(f"seed {seed}: PNGs read back equal {same}, frames "
+                                 f"{f.shape} std {f.std():.3f}")
+    log(f"  PNG strips read back (read_png) equal to the frames in memory; frames "
+        f"{tuple(f.shape)} uint8")
+    return dict(seconds=secs, counts=counts, frames=frames)
+
+
+def run_parity_app(gen, pre, meta, ds, ckpt, tmp):
+    """eval_parity: goldens of APP_PARITY_SEEDS from the saved state_dict,
+    bit-equal to the in-memory G's renders of the same seeds; then the app
+    against them (max_abs < 1e-5, feature Frechet < 1e-3)."""
+    import numpy as np
+    import torch
+
+    from threedhumangan_tpu_torch.apps import eval_parity
+    from threedhumangan_tpu_torch.models.generator import generate_avg_latent
+    from threedhumangan_tpu_torch.trainers.phase_trainer import compute_dtype
+
+    goldens = os.path.join(tmp, "goldens")
+    base = ["--config", APP_CONFIG, "--torch_checkpoint", ckpt, "--seeds",
+            *map(str, APP_PARITY_SEEDS), "--dataroot", os.path.join("datasets", "shhq_train_40000"),
+            "--dataset_length", str(BATCH), "--output_dir", os.path.join(tmp, "parity")]
+    eval_parity.main(base + ["--write_goldens", goldens])
+    summary, secs = _wall(lambda: eval_parity.main(base + ["--goldens", goldens]))
+    avg = generate_avg_latent(gen, meta, torch.Generator(device="cuda").manual_seed(1))
+    same = []
+    for seed in APP_PARITY_SEEDS:
+        zs = torch.randn(1, meta["latent_dim"], device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(seed))
+        img = eval_parity.render_seed(gen, pre, meta, zs,
+                                      eval_parity.seed_conditions(ds, seed, "cuda"), avg,
+                                      compute_dtype(meta))
+        gold = np.load(os.path.join(goldens, f"seed_{seed:03d}.npy"))
+        same.append(np.array_equal(img.float().cpu().numpy(), gold))
+    deltas = [d["max_abs"] for d in summary["per_pixel"].values()]
+    log(f"eval_parity: {len(deltas)} seeds against its own goldens in {secs:.2f} s: max_abs "
+        f"{deltas}, feature Frechet {summary.get('feature_frechet')} "
+        f"({summary.get('feature_space')}); the saved state_dict's renders bit-equal to the "
+        f"in-memory G's: {same}")
+    if (len(deltas) != len(APP_PARITY_SEEDS) or max(deltas) >= 1e-5 or not all(same)
+            or not abs(summary["feature_frechet"]) < 1e-3):
+        raise AssertionError(f"eval_parity: {summary}, bit-equal {same}")
+    return dict(seconds=secs, max_abs=max(deltas), feature_frechet=summary["feature_frechet"])
+
+
+def run_fid_app(ckpt):
+    """eval_fid at APP_FID_N images in batches of APP_FID_BATCH, its
+    generation and its feature extraction timed apart."""
+    from threedhumangan_tpu_torch.apps import eval_fid
+
+    spent = {"generation": 0.0, "features": 0.0}
+    real = {"generation": eval_fid.generate_fakes, "features": eval_fid.fid_between}
+
+    def timed(name):
+        def call(*a, **kw):
+            out, secs = _wall(lambda: real[name](*a, **kw))
+            spent[name] += secs
+            return out
+        return call
+
+    eval_fid.generate_fakes, eval_fid.fid_between = timed("generation"), timed("features")
+    try:
+        res, secs = _wall(lambda: eval_fid.main(
+            ["--config", APP_CONFIG, "--checkpoint", ckpt, "--n", str(APP_FID_N),
+             "--batch", str(APP_FID_BATCH)]))
+    finally:
+        eval_fid.generate_fakes, eval_fid.fid_between = real["generation"], real["features"]
+    log(f"eval_fid: n {APP_FID_N}, batch {APP_FID_BATCH}: value {res['value']} in {secs:.2f} s "
+        f"(generation {spent['generation']:.2f} s, feature extraction and distance "
+        f"{spent['features']:.2f} s)")
+    if not math.isfinite(res["value"]) or "NOT Inception-FID" not in res["metric"]:
+        raise AssertionError(f"eval_fid: {res}")
+    return dict(seconds=secs, **{f"{k}_s": v for k, v in spent.items()}, value=res["value"])
+
+
+def _wire_fields(buf: bytes):
+    """(field, wire type, value) of one protobuf message: ints for varints,
+    bytes otherwise."""
+    i, out = 0, []
+    while i < len(buf):
+        key, i = _read_varint(buf, i)
+        field, wire = key >> 3, key & 7
+        if wire == 0:
+            v, i = _read_varint(buf, i)
+        elif wire in (1, 5):
+            n = 8 if wire == 1 else 4
+            v, i = buf[i:i + n], i + n
+        elif wire == 2:
+            n, i = _read_varint(buf, i)
+            v, i = buf[i:i + n], i + n
+        else:
+            raise ValueError(f"protobuf wire type {wire}")
+        out.append((field, wire, v))
+    return out
+
+
+def _read_varint(buf: bytes, i: int):
+    shift = val = 0
+    while True:
+        b = buf[i]
+        i += 1
+        val |= (b & 0x7F) << shift
+        if not b & 0x80:
+            return val, i
+        shift += 7
+
+
+def read_scalars(path: str):
+    """The scalars of an event file as (tag, step, value), in file order,
+    read without TensorBoard.  Raises ValueError on a record whose length or
+    crc does not hold."""
+    from threedhumangan_tpu_torch.utils.tb import _masked_crc
+
+    out = []
+    with open(path, "rb") as f:
+        data = f.read()
+    pos = 0
+    while pos < len(data):
+        header = data[pos:pos + 8]
+        if len(header) < 8 or struct.unpack("<I", data[pos + 8:pos + 12])[0] != _masked_crc(header):
+            raise ValueError(f"{path}: bad record header at byte {pos}")
+        (n,) = struct.unpack("<Q", header)
+        payload = data[pos + 12:pos + 12 + n]
+        crc = data[pos + 12 + n:pos + 16 + n]
+        if len(payload) < n or len(crc) < 4 or struct.unpack("<I", crc)[0] != _masked_crc(payload):
+            raise ValueError(f"{path}: bad record at byte {pos}")
+        pos += 16 + n
+        ev = _wire_fields(payload)
+        step = next((v for f, _, v in ev if f == 2), 0)
+        for f, _, summary in ev:
+            if f != 5:
+                continue
+            for _, _, value in _wire_fields(summary):
+                fields = {vf: v for vf, _, v in _wire_fields(value)}
+                if 2 in fields:
+                    out.append((fields[1].decode(), step, struct.unpack("<f", fields[2])[0]))
+    return out
+
+
+def run_export_app(metrics_jsonl, tmp):
+    """export_tensorboard over phase 10's metrics.jsonl: the event file reads
+    back with as many scalars as it reports, equal to the numbers."""
+    from threedhumangan_tpu_torch.apps import export_tensorboard
+
+    run = os.path.join(tmp, "run512l")
+    os.makedirs(run, exist_ok=True)
+    with open(os.path.join(run, "metrics.jsonl"), "w") as f:
+        f.write(metrics_jsonl)
+    path, n = export_tensorboard.main(["--run_dir", run])
+    back = read_scalars(path)
+    rows = [json.loads(line) for line in metrics_jsonl.splitlines() if line.strip()]
+    want = [(f"train/{k}", row["step"], v) for row in rows for k, v in row.items()
+            if k != "step" and isinstance(v, (int, float))]
+    ok = len(back) == len(want) == n > 0 and all(t == w[0] and s == w[1] and math.isclose(
+        v, w[2], rel_tol=1e-6, abs_tol=1e-30) for (t, s, v), w in zip(back, want))
+    log(f"export_tensorboard over phase 10's metrics.jsonl: {n} scalars reported, {len(back)} "
+        f"read back, equal to the rows' values in float32: {ok}")
+    if not ok:
+        raise AssertionError(f"export_tensorboard: {n} reported, read back {back[:4]}")
+    return dict(scalars=n)
+
+
+def run_apps(metrics_jsonl, gcuda):
+    """The apps at MAP3DBN512L on an SHHQ-layout tree of the synthetic body
+    (6,844 vertices, 13,776 faces), from a directory laid out as a user's
+    checkout (``datasets/SMPL_NEUTRAL.pkl``, ``datasets/shhq_train_40000``): the
+    kernels at batch 1, one frame timed, bf16 against float32, then each
+    app through its CLI entry on weights saved with ``torch.save``."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from threedhumangan_tpu_torch.apps import eval_consistency
+    from threedhumangan_tpu_torch.data.dataset import SHHQDataset, iterate_batches, to_tensors
+    from threedhumangan_tpu_torch.data.preprocessor import get_preprocessor
+    from threedhumangan_tpu_torch.models.generator import generate_avg_latent, init_generator
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp, torch.no_grad():
+        tree = os.path.join(tmp, "datasets", "shhq_train_40000")
+        smpl, mb, secs = write_shhq_tree(tree)
+        shutil.copy(os.path.join(tree, "SMPL_NEUTRAL.pkl"),
+                    os.path.join(tmp, "datasets", "SMPL_NEUTRAL.pkl"))
+        log(f"apps: {APP_CONFIG}, the eval settings, a {TREE_ITEMS}-item SHHQ tree ({mb:.1f} MB "
+            f"in {secs:.1f} s) of the {smpl.num_verts}-vertex, {len(smpl.faces)}-face synthetic "
+            f"body; random weights (seed {SEED}) with the field's density bias "
+            f"{APP_DENSITY_BIAS}, saved with torch.save")
+        meta = apps_meta(tree)
+        gen = init_generator(meta, torch.Generator().manual_seed(SEED), "cuda")
+        gen.neural_field.sigma_layer.bias.fill_(APP_DENSITY_BIAS)
+        ckpt = os.path.join(tmp, "g.pth")
+        torch.save(gen.state_dict(), ckpt)
+        ds = SHHQDataset(smpl_model=smpl, inference=True,
+                         **{k: v for k, v in meta.items() if k not in ("dataset", "name")})
+        pre = get_preprocessor(meta, smpl)
+        batch = to_tensors(next(iterate_batches(ds, BATCH, shuffle=False)))
+        h = torch.linspace(-math.pi / 6, math.pi / 6, BATCH, device="cuda")
+        zeros = torch.zeros(BATCH, device="cuda")
+        cond = pre.forward_with_rotation(batch, h, zeros, zeros)
+        z = torch.randn(BATCH, meta["latent_dim"], generator=gcuda, device="cuda")
+        out["kernels"] = check_batch1(gen, pre, meta, cond, z)
+        del cond
+        one = {k: v[:1] for k, v in batch.items()}
+        avg = generate_avg_latent(gen, meta, torch.Generator(device="cuda").manual_seed(1))
+        out["frame"] = time_frame(gen, pre, meta, one, z[:1], avg)
+        out["bf16_vs_f32"] = bf16_against_f32(gen, pre, meta, one, z[:1], avg)
+        torch.cuda.empty_cache()
+        with contextlib.chdir(tmp):
+            out["sample"] = run_sample_app(meta, ckpt, os.path.join(tmp, "samples"))
+            res, secs = _wall(lambda: eval_consistency.main(
+                ["--config", APP_CONFIG, "--checkpoint", ckpt, "--n_angles", str(APP_SWEEP)]))
+            log(f"eval_consistency: {APP_SWEEP} angles in {secs:.2f} s: {json.dumps(res)}")
+            if not all(math.isfinite(res[k]) for k in ("seg_iou_mean", "reproj_l1",
+                                                        "adjacent_view_l1")):
+                raise AssertionError(f"eval_consistency: {res}")
+            out["sweep"] = dict(seconds=secs, **res)
+            out["parity"] = run_parity_app(gen, pre, meta, ds, ckpt, tmp)
+            out["fid"] = run_fid_app(ckpt)
+        out["export"] = run_export_app(metrics_jsonl, tmp)
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     import torch
 
@@ -3249,6 +3805,10 @@ def main():
     ranks_a = run_ranks_nccl1(smpl)
     ranks_b = run_ranks_gloo()
 
+    # ---- 13. the inference and eval apps at MAP3DBN512L, the kernels at batch 1
+    apps = run_apps(l512["train"]["metrics_jsonl"],
+                    torch.Generator(device=dev).manual_seed(SEED + 13))
+
     # ---- 11. result
     k7.update(k7_device_times())
     l512["k7"].update(l512.pop("k7_device")())
@@ -3256,7 +3816,8 @@ def main():
     paths = {"generation": counts, "training_per_op": per_op["counts"],
              "training_fused": fused["counts"], "trainer": trainer_counts,
              "trainer_512l": l512["train"]["counts"], "ranks_nccl1": ranks_a["counts"],
-             "ranks_gloo_rank0": ranks_b["counts"][0], "ranks_gloo_rank1": ranks_b["counts"][1]}
+             "ranks_gloo_rank0": ranks_b["counts"][0], "ranks_gloo_rank1": ranks_b["counts"][1],
+             "sample_from_generator": apps["sample"]["counts"]}
     paths.update({f"generation_{k}": r["counts"] for k, r in sel_runs.items()})
     by_path = lambda k: {p: c.get(k, 0) for p, c in paths.items()}
     tc, fc = per_op["counts"], fused["counts"]
@@ -3347,6 +3908,12 @@ def main():
                                         remat=l512["train"]["remat"])
             if key in ("K10", "K11"):
                 k["map3dbn512l_b32"]["rank1"] = l512["hb"]["rank1"][key.lower()]
+    # the apps' path: each kernel at batch 1, and its launches in the sampler
+    for k in kernels:
+        key = k["name"].split()[0]
+        if key in apps["kernels"]:
+            k["batch1"] = dict(apps["kernels"][key],
+                               launches_sample_app=apps["sample"]["counts"][key])
     order = sorted(kernels, key=lambda k: -k["excess_ms_per_iteration"])
     log("kernels by ms above their bound per main-path iteration (a batch or a fused pair): "
         + ", ".join(f"{k['name'].split()[0]} {k['excess_ms_per_iteration']:.3f}" for k in order))
@@ -3355,6 +3922,11 @@ def main():
         f"{t['peak_gib']:.2f} GiB, batch_split {t['batch_split']}, remat {t['remat']}, loader "
         f"{t['loader_ms_per_batch']:.1f} ms a batch; remat vs none on the card: grads rel L2 "
         f"{l512['remat']['grad_rel_l2']:.3e}, state identical {l512['remat']['state_identical']}")
+    f, p, fid = apps["frame"], apps["bf16_vs_f32"], apps["fid"]
+    log(f"apps (512L): a frame at batch 1 {f['ms']:.3f} ms; the {APP_SWEEP}-angle sweep "
+        f"{apps['sweep']['seconds']:.2f} s; the {APP_FID_N}-image FID {fid['seconds']:.2f} s "
+        f"(generation {fid['generation_s']:.2f}, features {fid['features_s']:.2f}); bf16 vs f32 "
+        f"mean|d| {p['mean_abs']:.3e} p99|d| {p['p99_abs']:.3e} max|d| {p['max_abs']:.3e}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

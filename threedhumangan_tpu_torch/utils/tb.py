@@ -6,7 +6,8 @@ masked-crc32c framing) of hand-encoded ``Event`` protobuf messages — scalars
 as ``Summary.Value.simple_value`` and histograms as ``HistogramProto`` with
 TensorBoard's standard exponential bucketing.  Files open in stock
 TensorBoard (``tensorboard --logdir ...``).  The trainer writes the scalars
-of ``metrics.jsonl`` and, at ``sample_interval``, weight histograms.
+of ``metrics.jsonl`` and, at ``sample_interval``, weight histograms;
+``apps/export_tensorboard.py`` converts a ``metrics.jsonl`` afterwards.
 """
 
 from __future__ import annotations

@@ -9,8 +9,14 @@ and become (out, in[, 1, 1]); the equalised-lr FC weights stay (out, in)
 (their gains are recomputed from the shapes).  ``discriminator_state``
 does the same for the U-Net discriminator (HWIO convs become OIHW, with
 their spectral-norm ``u``), and ``train_state_from_jax`` builds the port's
-G, D, optimizers and EMA from a JAX ``TrainState``.  No JAX import: any
-array with ``numpy.asarray`` support is accepted.
+G, D, optimizers and EMA from a JAX ``TrainState``.  ``inception_from_jax``
+and ``vgg16_from_jax`` carry the feature extractors' weights across.  No JAX
+import: any array with ``numpy.asarray`` support is accepted.
+
+The apps load weights with ``load_torch_state_dict`` +
+``load_generator_state_dict`` (a reference-key-space file: the released
+checkpoint loads with no converter) or ``load_trainer_checkpoint`` (the
+port's own ``Trainer`` checkpoint, EMA parameters).
 """
 
 from __future__ import annotations
@@ -154,3 +160,67 @@ def train_state_from_jax(ts, meta: Dict, device="cuda"):
            "count": int(np.asarray(ts.ema["count"]))}
     opt_G, opt_D = make_optimizers(G, D, meta)
     return TrainState(G, D, opt_G, opt_D, ema, int(np.asarray(ts.step)))
+
+
+def inception_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
+    """JAX ``utils/inception.py`` weights ({name.w HWIO, name.b}) -> the
+    port's (``utils.inception``: OIHW), on the CPU."""
+    return {k: _t(np.asarray(v).transpose(3, 2, 0, 1) if k.endswith(".w") else v).float()
+            for k, v in params.items()}
+
+
+def vgg16_from_jax(convs) -> list:
+    """JAX ``trainers/perceptual.py`` convs ([{w HWIO, b}]) -> the port's
+    ([{w OIHW, b}]), on the CPU."""
+    return [{"w": _t(np.asarray(c["w"]).transpose(3, 2, 0, 1)).float(), "b": _t(c["b"]).float()}
+            for c in convs]
+
+
+def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A generator state_dict in the reference torch key space (the released
+    EMA checkpoint, or one the port saved with ``torch.save``), tensors on
+    the CPU; read with ``weights_only=True``, so nothing but tensors and
+    containers is unpickled."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    return {k: torch.as_tensor(v) for k, v in obj.items()}
+
+
+def _fit_latent_pool(gen: torch.nn.Module, latents: torch.Tensor):
+    """Size ``gen``'s latent pool as ``latents``: the pool has a row per item
+    of the training data, and an app builds G for its own dataset length."""
+    pool = gen.latent_pool.latents
+    if pool.shape != latents.shape:
+        gen.latent_pool.latents = torch.nn.Parameter(pool.new_zeros(latents.shape))
+
+
+def load_generator_state_dict(gen: torch.nn.Module, sd: Dict[str, torch.Tensor]):
+    """Load a reference-key-space state_dict into ``gen``.  Torch's spectral
+    norm also saves ``weight_v``, which the port does not keep (it forms the
+    norm from ``u``, as the JAX package's converter does); a state_dict
+    without ``latent_pool.latents`` leaves the pool as it is.  Any other
+    missing or unknown key raises."""
+    sd = {k: v for k, v in sd.items() if not k.endswith(".weight_v")}
+    if "latent_pool.latents" in sd:
+        _fit_latent_pool(gen, sd["latent_pool.latents"])
+    missing, unknown = gen.load_state_dict(sd, strict=False)
+    missing = [k for k in missing if k != "latent_pool.latents"]
+    if missing or unknown:
+        raise KeyError(f"state_dict does not fit the generator: missing {missing[:8]}, "
+                       f"unknown {unknown[:8]}")
+    return gen
+
+
+def load_trainer_checkpoint(path: str, gen: torch.nn.Module):
+    """The port's ``Trainer`` checkpoint (``utils/checkpoint.py``) into
+    ``gen``: its G state_dict (buffers: BN running stats, spectral-norm
+    ``u``), then the EMA parameters in place of the trained ones, as the
+    trainer's samples run (``trainers/base_trainer.py::_ema_weights``)."""
+    from threedhumangan_tpu_torch.utils.checkpoint import load_checkpoint
+
+    payload = load_checkpoint(path)
+    _fit_latent_pool(gen, payload["G"]["latent_pool.latents"])
+    gen.load_state_dict(payload["G"])
+    with torch.no_grad():
+        for k, p in gen.named_parameters():
+            p.copy_(payload["ema"]["params"][k])
+    return gen
