@@ -127,6 +127,23 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
                 G's), eval_fid (64 images, batch 8: generation and features
                 timed apart), export_tensorboard over phase 10's
                 metrics.jsonl (read back scalar for scalar).
+ 14. objective — the JAX package's whole training objective (after phase
+                13): (a) the ADA pipe at MAP3DBN512L's batch 32 x 512 x 256,
+                the shipped ada_aug and every group on, 3 and 6 channels,
+                the card and the CPU in float32 against the CPU in float64
+                on the same draws, ms a call, and its backward under
+                deterministic algorithms; (b) MAP3DBN512L b8 bf16 pairs on
+                the fused half-blocks on an SHHQ-layout tree: the shipped
+                objective, + gan_lambda 1, + ADA (p 0.6, gan_lambda 1),
+                + dual discrimination, a conditional phase with the
+                perceptual and photometric terms, all together: ms a pair,
+                the stage split, peak memory, finite losses, moved weights,
+                K1, K2, K7-K11 launches equal to the shipped objective's;
+                (c) a render-modal TINY pair (render at the image size)
+                card against the CPU, no K3, K10 or K11; (d) ``Trainer``
+                with the ADA controller, 6 steps, a checkpoint at 4 and a
+                resume from it: the same p, and the same state bit for bit
+                under deterministic algorithms.
  11. result   — K7's device time a launch (torch.profiler, last, as it may
                 slow later host-bound launches); a JSON line of the kernels
                 (times, bounds, launches by path, each kernel of the 512L
@@ -2418,7 +2435,8 @@ def run_512l_trainer(tree, smpl, out_dir):
     timer, walls, state = PairTimer(), [], {}
     real = phase_trainer.train_step_pair
 
-    def timed_pair(ts, data, gen, meta, pre, phase, lr_g, lr_d, noise, draws=None, stage=None):
+    def timed_pair(ts, data, gen, meta, pre, phase, lr_g, lr_d, noise, draws=None, stage=None,
+                   ada_p=0.0):
         timed = trainer.step >= L_WARMUP
         if timed and "counts" not in state:
             torch.cuda.synchronize()
@@ -2427,7 +2445,8 @@ def run_512l_trainer(tree, smpl, out_dir):
         timer.on = timed
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ts, stats = real(ts, data, gen, meta, pre, phase, lr_g, lr_d, noise, draws, timer.stage)
+        ts, stats = real(ts, data, gen, meta, pre, phase, lr_g, lr_d, noise, draws, timer.stage,
+                         ada_p)
         torch.cuda.synchronize()
         if timed:
             walls.append(time.perf_counter() - t0)
@@ -3677,6 +3696,319 @@ def run_apps(metrics_jsonl, gcuda):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 14. objective: ADA on D's inputs, dual and render-modal discrimination, the
+# perceptual and photometric terms
+# ---------------------------------------------------------------------------
+
+OBJ_BATCH = 8              # the pairs of (b) at MAP3DBN512L
+OBJ_WARMUP, OBJ_TIMED = 1, 3
+ADA_P = 0.6
+AUG_ERR_RATIO = 4.0        # the pipe: the card's error against the CPU's float32's
+ADA_STEPS, ADA_SAVE = 6, 4  # the controller's Trainer run of (d)
+
+
+def check_augment(gcuda):
+    """(a) The ADA pipe at MAP3DBN512L's batch and image size with the
+    shipped ``ada_aug`` (p = ADA_P) and with every group on (p = 1), at 3
+    and 6 channels, on uniform noise images: the card and the CPU in
+    float32 against the CPU in float64 on the same draws (the card's
+    largest error within AUG_ERR_RATIO times the CPU float32's: the warp's
+    coordinates round at ~1e-5 pixel, which noise turns into ~1e-4 of
+    value, amplified by the colour gains), ms a call (draws and pipe) and
+    ms of the pipe's forward and backward; then the backward once under
+    deterministic algorithms.  Returns (readings, whether deterministic
+    mode accepted the backward)."""
+    import torch
+
+    from threedhumangan_tpu_torch import configs
+    from threedhumangan_tpu_torch.data.augment import GROUPS, apply_augment, sample_augment
+
+    meta = configs.extract_metadata(configs.MAP3DBN512L, 0)
+    B, H, W = meta["batch_size"], meta["gen_height"], meta["gen_width"]
+    cases = (("shipped", meta["ada_aug"], ADA_P), ("every group", {g: 1 for g in GROUPS}, 1.0))
+    out = {}
+    log(f"objective (a): the ADA pipe at MAP3DBN512L's batch {B} x {H} x {W}, the card and the "
+        f"CPU in float32 against the CPU in float64 on the same draws (the card's max error "
+        f"within {AUG_ERR_RATIO} x the CPU float32's)")
+    for label, cfg, p in cases:
+        for C in (3, 6):
+            shape = (B, H, W, C)
+            img = torch.rand(shape, generator=gcuda, device="cuda") * 2 - 1
+            draws = sample_augment(cfg, shape, gcuda, "cuda")
+            got = apply_augment(img, cfg, p, draws)
+            host = {k: v.cpu() for k, v in draws.items()}
+            cpu32 = apply_augment(img.cpu(), cfg, p, host)
+            ref = apply_augment(img.cpu().double(), cfg, p,
+                                {k: v.double() if v.is_floating_point() else v
+                                 for k, v in host.items()})
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"the pipe ({label}, C {C}) gave non-finite values")
+            err = float((got.cpu().double() - ref).abs().max())
+            err_cpu = float((cpu32.double() - ref).abs().max())
+            vs_cpu = float((got.cpu() - cpu32).abs().max())
+            changed = float((got - img).abs().mean())
+            ms = cuda_ms(lambda: apply_augment(img, cfg, p,
+                                               sample_augment(cfg, shape, gcuda, "cuda")), 10)
+            x = img.clone().requires_grad_(True)
+            ct = torch.rand(shape, generator=gcuda, device="cuda")
+            fb_ms = cuda_ms(lambda: torch.autograd.grad(apply_augment(x, cfg, p, draws), x, ct),
+                            10)
+            log(f"  {label:<11} C {C} p {p}: max|d| against float64: card {err:.3e}, CPU "
+                f"float32 {err_cpu:.3e} (card - CPU float32 {vs_cpu:.3e}; max|ref| "
+                f"{float(ref.abs().max()):.3f}), mean|out - in| {changed:.4f}; draws + pipe "
+                f"{ms:.3f} ms, pipe forward + backward {fb_ms:.3f} ms a call of {B} images")
+            if err > AUG_ERR_RATIO * err_cpu:
+                raise AssertionError(f"the pipe ({label}, C {C}) on the card: max error {err} "
+                                     f"against float64, the CPU float32's {err_cpu}")
+            out[f"{label} C{C}"] = dict(max_abs_err=err, max_abs_err_cpu_f32=err_cpu, ms=ms,
+                                        fwd_bwd_ms=fb_ms)
+            del img, draws, got, ref, cpu32, host, x, ct
+    torch.cuda.empty_cache()
+    cfg, shape = cases[1][1], (2, H, W, 6)
+    x = torch.rand(shape, generator=gcuda, device="cuda").requires_grad_(True)
+    draws = sample_augment(cfg, shape, gcuda, "cuda")
+    deterministic(True)
+    try:
+        grads = [torch.autograd.grad(apply_augment(x, cfg, 1.0, draws).square().sum(), x)[0]
+                 for _ in range(2)]
+        det_ok = bool(torch.equal(*grads))
+        log(f"  every group's backward under deterministic algorithms: accepted, two calls "
+            f"bit-equal {det_ok}")
+    except RuntimeError as e:
+        det_ok = False
+        log(f"  every group's backward under deterministic algorithms: refused ({e})")
+    finally:
+        deterministic(False)
+    return out, det_ok
+
+
+def objective_cases():
+    """(b)'s objectives: (extra meta, phase or None for slot 3).  The GAN term
+    alone splits ADA's pair (which needs ``gan_lambda > 0``) into its parts."""
+    gan = dict(gan_lambda=1)
+    ada = dict(ada_interval=4, **gan)
+    dual = dict(dual_discrimination=True)
+    terms = dict(perceptual_lambda=[1, 1, 1, 1], photometric_lambda=1)
+    cond = {"name": "cond", "uncond": False, "rotate": False, "gen_modal": "rgbs", "do_r1": True}
+    return {"shipped": ({}, None), "+ gan 1": (gan, None), "+ ADA p 0.6, gan 1": (ada, None),
+            "+ dual": (dual, None),
+            "conditional + perceptual + photometric": (terms, cond),
+            "all together": ({**ada, **dual, **terms}, cond)}
+
+
+def run_objective_pairs(gcuda):
+    """(b) ``train_step_pair`` at MAP3DBN512L, batch OBJ_BATCH, bf16, fused
+    half-blocks, on an SHHQ-layout tree (phase 10's writer; the latent pool
+    from its inversions): OBJ_WARMUP + OBJ_TIMED pairs of each objective,
+    ms a pair (host clock), peak memory, finite losses, moved parameters,
+    launches of the timed pairs (each objective's K1, K2, K7-K11 equal to
+    the shipped one's)."""
+    import tempfile
+
+    import torch
+
+    from threedhumangan_tpu_torch import configs
+    from threedhumangan_tpu_torch.data.dataset import SHHQDataset, iterate_batches, to_tensors
+    from threedhumangan_tpu_torch.data.preprocessor import get_preprocessor
+    from threedhumangan_tpu_torch.models.generator import auto_remat_synthesis
+    from threedhumangan_tpu_torch.trainers.phase_trainer import init_train_state, train_step_pair
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tree = os.path.join(tmp, "shhq")
+        smpl, mb, secs = write_shhq_tree(tree)
+        base = dict(configs.extract_metadata(configs.MAP3DBN512L, 0), dataroot=tree,
+                    dataset_length=TREE_ITEMS, pallas_synthesis_train=True)
+        base["remat_synthesis"] = auto_remat_synthesis(base, OBJ_BATCH)
+        ds = SHHQDataset(smpl_model=smpl, **{k: v for k, v in base.items()
+                                             if k not in ("dataset", "name", "batch_size")})
+        batch = to_tensors(next(iterate_batches(ds, OBJ_BATCH, shuffle=False)))
+        latents = torch.as_tensor(ds.get_all_latents())
+        pre = get_preprocessor(base, smpl)
+        log(f"objective (b): MAP3DBN512L batch {OBJ_BATCH} bf16, fused half-blocks, remat "
+            f"{base['remat_synthesis']}, on a {TREE_ITEMS}-item SHHQ-layout tree ({mb:.1f} MB "
+            f"in {secs:.1f} s); {OBJ_WARMUP} warm-up + {OBJ_TIMED} timed pairs of each "
+            f"objective, phase slot 3 (R1 on) or a conditional phase with R1")
+        for name, (extra, phase) in objective_cases().items():
+            meta = dict(base, **extra)
+            phase = phase or meta["phases"][3]
+            ts = init_train_state(meta, torch.Generator().manual_seed(SEED))
+            with torch.no_grad():
+                ts.G.latent_pool.latents.copy_(latents)
+            params = list(ts.G.parameters()) + list(ts.D.parameters())
+            before = [p.detach().clone() for p in params]
+            walls, timer = [], PairTimer()
+            for it in range(OBJ_WARMUP + OBJ_TIMED):
+                torch.cuda.synchronize()
+                if it == OBJ_WARMUP:
+                    torch.cuda.reset_peak_memory_stats()
+                    reset_counts()
+                timer.on = it >= OBJ_WARMUP
+                t0 = time.perf_counter()
+                ts, stats = train_step_pair(ts, batch, gcuda, meta, pre, phase, 1e-4, 4e-4, 0.5,
+                                            stage=timer.stage, ada_p=ADA_P)
+                torch.cuda.synchronize()
+                if it >= OBJ_WARMUP:
+                    walls.append(1e3 * (time.perf_counter() - t0))
+            counts = read_counts()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            losses = {k: float(v[1] / v[0]) for k, v in stats.items()
+                      if "norm" not in k and float(v[0]) > 0}
+            if not all(math.isfinite(float(x)) for v in stats.values() for x in v):
+                raise AssertionError(f"objective {name}: non-finite stats {losses}")
+            moved = sum(not torch.equal(a, b) for a, b in zip(before, params))
+            if moved < len(params) // 2:
+                raise AssertionError(f"objective {name}: {moved} of {len(params)} moved")
+            ms = sum(walls) / len(walls)
+            stage_ms = timer.per_pair_ms(OBJ_TIMED)
+            res[name] = dict(ms_per_pair=ms, ms=walls, peak_gib=peak, losses=losses,
+                             moved=f"{moved}/{len(params)}", counts=counts, stage_ms=stage_ms)
+            log(f"  {name:<40} {ms:9.3f} ms/pair ({', '.join(f'{w:.3f}' for w in walls)}), "
+                f"peak {peak:.2f} GiB, {moved} of {len(params)} tensors moved; mean losses "
+                + json.dumps({k: round(v, 5) for k, v in losses.items()}))
+            log("    stages, ms/pair: " + ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items()))
+            del ts, params, before, stats
+            torch.cuda.empty_cache()
+    path = ("K1", "K2", "K7", "K7 bins", "K8", "K9", "K9 weight-gradient reduction", "K10",
+            "K11", "K11 weight-gradient reduction")
+    ref = res["shipped"]["counts"]
+    log(f"  launches over the {OBJ_TIMED} timed pairs: " + ", ".join(f"{k} {ref[k]}" for k in path)
+        + f" (K3 {ref['K3']})")
+    for name, r in res.items():
+        diff = {k: (r["counts"][k], ref[k]) for k in path if r["counts"][k] != ref[k]}
+        if diff or min(r["counts"][k] for k in path) <= 0:
+            raise AssertionError(f"objective {name}: launches a pair differ from the shipped "
+                                 f"objective's or are 0: {diff or r['counts']}")
+    return res
+
+
+def check_render_modal():
+    """(c) A render-modal pair at TINY with the render at the image size
+    (64 x 32, which TINY's discriminator accepts; the shipped render sizes
+    fail in the JAX package's discriminator and the port's alike), bf16, the
+    fused half-blocks selected: the card (kernels) against the CPU (plain
+    versions) on the same weights, batch and draws within phase 6's limits;
+    no synthesis runs, so K3, K10 and K11 never launch on the card."""
+    import torch
+
+    from threedhumangan_tpu_torch import configs
+    from threedhumangan_tpu_torch.data.dataset import (
+        SyntheticSHHQDataset, iterate_batches, to_tensors)
+    from threedhumangan_tpu_torch.data.preprocessor import get_preprocessor
+    from threedhumangan_tpu_torch.models.smpl import synthetic_smpl_model
+    from threedhumangan_tpu_torch.trainers.phase_trainer import init_train_state, train_step_pair
+
+    meta = dict(configs.extract_metadata(configs.MAP3DBN_TINY, 0))
+    meta.update(nerf_noise=0, perturb_rays=False, use_mixed_precision=True,
+                pallas_synthesis_train=True, render_height=meta["gen_height"],
+                render_width=meta["gen_width"])
+    phase = {"name": "render", "uncond": True, "rotate": False, "gen_modal": "rgbs_render",
+             "do_r1": True}
+    smpl = synthetic_smpl_model(num_verts=384, num_faces=512)
+    batch = next(iterate_batches(SyntheticSHHQDataset(smpl_model=smpl, **meta), 2, shuffle=False))
+    gz = torch.Generator().manual_seed(SEED)
+    draws = {"z": torch.randn(2, meta["latent_dim"], generator=gz), "coin": torch.tensor(0.3),
+             "h_rotation": torch.zeros(2), "v_rotation": torch.zeros(2)}
+    res = {}
+    for dev in ("cuda", "cpu"):
+        ts = init_train_state(meta, torch.Generator().manual_seed(SEED), dev)
+        with torch.no_grad():  # a positive density, so that the G step reaches the field
+            ts.G.neural_field.sigma_layer.bias.fill_(0.5)
+        dd = {k: v.to(dev) for k, v in draws.items()}
+        reset_counts()
+        _, stats = train_step_pair(ts, to_tensors(batch, dev), torch.Generator(device=dev), meta,
+                                   get_preprocessor(meta, smpl), phase, 1e-4, 4e-4, 0.0,
+                                   draws={"d": dd, "g": dd})
+        if dev == "cuda":
+            counts = read_counts()
+        res[dev] = {k: float(v[1]) for k, v in stats.items()
+                    if k in ("d_loss", "g_loss") or "grad_norm" in k}
+    worst = {k: abs(res["cuda"][k] - res["cpu"][k]) / (abs(res["cpu"][k]) + 1e-12)
+             for k in res["cpu"] if res["cpu"][k] != 0}
+    log(f"objective (c): a render-modal TINY pair (render {meta['render_height']} x "
+        f"{meta['render_width']}, bf16, fused half-blocks selected) card vs CPU plain: "
+        + " ".join(f"{k} {res['cuda'][k]:.5g}/{res['cpu'][k]:.5g}" for k in sorted(res["cpu"])))
+    log(f"  launches on the card: {counts}")
+    for k, v in worst.items():
+        if v > (0.02 if k.endswith("loss") else 0.03):
+            raise AssertionError(f"render-modal: the card disagrees with the CPU on {k}: {v:.3e}")
+    if counts["K3"] + counts["K10"] + counts["K11"]:
+        raise AssertionError(f"render-modal: a synthesis kernel launched: {counts}")
+    if min(counts[k] for k in ("K1", "K2", "K7", "K8", "K9")) <= 0:
+        raise AssertionError(f"render-modal: a field or raster kernel did not launch: {counts}")
+    if res["cuda"]["g_grad_norm/neural_field"] <= 0:
+        raise AssertionError("render-modal: the G step did not reach the field")
+    return dict(worst_rel=max(worst.values()), counts=counts)
+
+
+def run_ada_trainer(smpl, det_ok):
+    """(d) The ADA controller through ``Trainer``: MAP3DBN b8, ada_interval 2,
+    gan_lambda 1, ada_kimg 0.16 (p moves by 0.1 an update) and a target
+    below any mean of signs (so p rises at each update): ADA_STEPS steps
+    with a checkpoint at ADA_SAVE, then a run resumed from that checkpoint
+    to ADA_STEPS.  p moved off 0 and stayed in [0, 1]; the resumed p equals
+    the straight run's; weights, buffers, EMA and Adam states bit-equal
+    under deterministic algorithms where they accept the ADA backward
+    (``det_ok``), else within a relative L2 of 1e-3 in the default mode."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    config = ranks_config(BATCH)
+    config.update(ada_interval=2, gan_lambda=1, ada_kimg=0.16, ada_target=-2.0)
+    deterministic(det_ok)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            reset_counts()
+            straight, walls, _ = timed_trainer(config, os.path.join(tmp, "a"), smpl=smpl,
+                                               save_interval=ADA_SAVE, steps=ADA_STEPS)
+            counts = read_counts()
+            ckpt = f"{ADA_SAVE:08d}_checkpoint.npz"
+            run_b = os.path.join(tmp, "b", config["name"])
+            os.makedirs(run_b)
+            shutil.copy(os.path.join(tmp, "a", config["name"], ckpt), os.path.join(run_b, ckpt))
+            resumed, _, printed = timed_trainer(config, os.path.join(tmp, "b"), smpl=smpl,
+                                                save_interval=10**9, steps=ADA_STEPS)
+        if f"at step {ADA_SAVE}" not in printed:
+            raise AssertionError(f"the ADA run did not resume at step {ADA_SAVE}")
+        a, b = replica_state(straight), replica_state(resumed)
+    finally:
+        deterministic(False)
+    p = (straight.ada_p, resumed.ada_p)
+    log(f"objective (d): Trainer MAP3DBN b{BATCH} with ADA (interval 2, gan_lambda 1, p + 0.1 an "
+        f"update): p after {ADA_STEPS} steps {p[0]}, resumed from step {ADA_SAVE}: {p[1]}; "
+        f"ms a pair " + ", ".join(f"{w:.3f}" for w in walls)
+        + f"; deterministic algorithms {'on' if det_ok else 'off (they refused the backward)'}")
+    if not (0.0 < p[0] <= 1.0) or p[0] != p[1]:
+        raise AssertionError(f"ADA p: straight {p[0]}, resumed {p[1]}")
+    if det_ok:
+        diff = state_diff(a, b)
+        if diff:
+            raise AssertionError(f"the resumed ADA run differs: {diff[:8]}")
+        how = f"bit-equal ({len(a)} tensors, deterministic algorithms)"
+    else:
+        worst = max(rel_l2(b[k], a[k]) for k in a if a[k].is_floating_point())
+        if worst > 1e-3:
+            raise AssertionError(f"the resumed ADA run differs: rel L2 {worst:.3e}")
+        how = f"within rel L2 {worst:.3e} (default mode)"
+    log(f"  resumed against straight: {how}; launches {counts}")
+    if min(counts[k] for k in ("K1", "K2", "K7", "K8", "K9", "K10", "K11")) <= 0:
+        raise AssertionError(f"a kernel did not launch in the ADA trainer: {counts}")
+    return dict(ada_p=p[0], deterministic=det_ok, compared=how, counts=counts,
+                ms=walls)
+
+
+def run_objective(gcuda, smpl):
+    """Phase 14, (a)-(d)."""
+    pipe, det_ok = check_augment(gcuda)
+    pairs = run_objective_pairs(gcuda)
+    render = check_render_modal()
+    trainer = run_ada_trainer(smpl, det_ok)
+    return dict(pipe=pipe, pairs=pairs, render_modal=render, trainer=trainer)
+
+
 def main():
     import torch
 
@@ -3809,6 +4141,10 @@ def main():
     apps = run_apps(l512["train"]["metrics_jsonl"],
                     torch.Generator(device=dev).manual_seed(SEED + 13))
 
+    # ---- 14. the whole objective: ADA, dual and render-modal discrimination,
+    # the perceptual and photometric terms
+    objective = run_objective(torch.Generator(device=dev).manual_seed(SEED + 14), smpl)
+
     # ---- 11. result
     k7.update(k7_device_times())
     l512["k7"].update(l512.pop("k7_device")())
@@ -3819,6 +4155,10 @@ def main():
              "ranks_gloo_rank0": ranks_b["counts"][0], "ranks_gloo_rank1": ranks_b["counts"][1],
              "sample_from_generator": apps["sample"]["counts"]}
     paths.update({f"generation_{k}": r["counts"] for k, r in sel_runs.items()})
+    paths.update({f"objective_512l_b{OBJ_BATCH} {k}": r["counts"]
+                  for k, r in objective["pairs"].items()})
+    paths.update(objective_render_modal=objective["render_modal"]["counts"],
+                 objective_trainer_ada=objective["trainer"]["counts"])
     by_path = lambda k: {p: c.get(k, 0) for p, c in paths.items()}
     tc, fc = per_op["counts"], fused["counts"]
     kernels = [
@@ -3927,6 +4267,11 @@ def main():
         f"{apps['sweep']['seconds']:.2f} s; the {APP_FID_N}-image FID {fid['seconds']:.2f} s "
         f"(generation {fid['generation_s']:.2f}, features {fid['features_s']:.2f}); bf16 vs f32 "
         f"mean|d| {p['mean_abs']:.3e} p99|d| {p['p99_abs']:.3e} max|d| {p['max_abs']:.3e}")
+    log(f"objective (512L b{OBJ_BATCH}, ms a pair / peak GiB): "
+        + "; ".join(f"{k} {r['ms_per_pair']:.3f} / {r['peak_gib']:.2f}"
+                    for k, r in objective["pairs"].items())
+        + f"; ADA p after {ADA_STEPS} trainer steps {objective['trainer']['ada_p']}, resume "
+        f"{objective['trainer']['compared']}; on {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -19,7 +19,9 @@ and writes its results to ``OUT``.  Modes:
            runs out of memory in that rank's first G step;
   plain    ``trainer`` without a group, then in a one-rank group;
   cli      ``apps/train.py``'s ``main(spec["argv"])`` under ``torchrun``
-           (RANK and WORLD_SIZE from the environment; it joins the group).
+           (RANK and WORLD_SIZE from the environment; it joins the group);
+  ada      the trainer's ADA controller (``Trainer.update_augment``) on this
+           rank's ``real_signs`` (tests/test_torch_objective.py).
 
 Every mode ends by checking that no module of JAX or of the JAX package was
 imported and that no kernel was launched, and prints ``WORKER_OK``.
@@ -51,6 +53,7 @@ from threedhumangan_tpu_torch.ops import (  # noqa: E402
     synthesis_train,
 )
 from threedhumangan_tpu_torch.parallel import dist  # noqa: E402
+from threedhumangan_tpu_torch.parallel.stats import moments as stat_moments  # noqa: E402
 from threedhumangan_tpu_torch.trainers import base_trainer  # noqa: E402
 from threedhumangan_tpu_torch.trainers import phase_trainer as pt  # noqa: E402
 
@@ -219,6 +222,16 @@ def plain(spec, rank, world, init_file):
     return {"alone": alone, "group": grouped}
 
 
+def ada(spec, rank, world):
+    """p after one controller update from ``p0`` on this rank's signs, and
+    the collectives it issued."""
+    state = types.SimpleNamespace(ada_p=spec["p0"])
+    before = dist.collectives
+    signs = torch.as_tensor(spec["signs"][rank])
+    base_trainer.Trainer.update_augment(state, spec["meta"], {"real_signs": stat_moments(signs)})
+    return {"ada_p": state.ada_p, "collectives": dist.collectives - before}
+
+
 def _check_clean():
     bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))
                  or m == "threedhumangan_tpu" or m.startswith("threedhumangan_tpu."))
@@ -250,7 +263,7 @@ def main():
             tdist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
                                      world_size=world)
         result = {"moments": moments, "step": step, "remat": remat,
-                  "trainer": trainer}[mode](spec, rank, max(world, 1))
+                  "trainer": trainer, "ada": ada}[mode](spec, rank, max(world, 1))
     _check_clean()
     torch.save(result, out_path)
     if tdist.is_initialized():

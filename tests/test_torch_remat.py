@@ -138,12 +138,13 @@ def test_trainer_decides_remat_per_micro_batch_and_again_after_oom(tmp_path, mon
     real = pt.train_step_pair
     seen = []
 
-    def pair(ts, data, gen, meta, pre, phase, lr_g, lr_d, noise, draws=None, stage=None):
+    def pair(ts, data, gen, meta, pre, phase, lr_g, lr_d, noise, draws=None, stage=None,
+             ada_p=0.0):
         seen.append((meta["batch_split"], meta["remat_synthesis"]))
         if len(seen) == 1:
             pt.d_train_step(ts, data, gen, lr_d, noise, pre, meta, phase)
             raise torch.cuda.OutOfMemoryError("injected: out of memory")
-        return real(ts, data, gen, meta, pre, phase, lr_g, lr_d, noise, draws, stage)
+        return real(ts, data, gen, meta, pre, phase, lr_g, lr_d, noise, draws, stage, ada_p)
 
     monkeypatch.setattr(pt, "train_step_pair", pair)
     trainer = base_trainer.Trainer(0, 1, _opt(str(tmp_path)),

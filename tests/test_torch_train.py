@@ -383,6 +383,13 @@ ts, stats = train_step_pair(ts, batch, g, meta, get_preprocessor(meta, smpl), me
                             1e-4, 4e-4, 0.5)
 assert all(bool(torch.isfinite(v).all()) for v in stats.values())
 assert any(not torch.equal(a, b) for a, b in zip(before, ts.G.parameters()))
+# ADA (data/augment.py) with dual discrimination
+from threedhumangan_tpu_torch.data import augment
+ada = dict(meta, ada_interval=4, gan_lambda=1, dual_discrimination=True)
+ts = init_train_state(ada, g, "cpu")
+ts, stats = train_step_pair(ts, batch, g, ada, get_preprocessor(ada, smpl), ada["phases"][3],
+                            1e-4, 4e-4, 0.5, ada_p=0.5)
+assert all(bool(torch.isfinite(v).all()) for v in stats.values()) and "real_signs" in stats
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 assert not bad, bad
 ref = sorted(m for m in sys.modules if m == "threedhumangan_tpu"

@@ -216,13 +216,14 @@ def _failing_pair(monkeypatch, at_step, after_d_step):
     real = phase_trainer.train_step_pair
     state = {"failed": False}
 
-    def pair(ts, data, gen, meta, pre, phase, lr_g, lr_d, noise, draws=None, stage=None):
+    def pair(ts, data, gen, meta, pre, phase, lr_g, lr_d, noise, draws=None, stage=None,
+             ada_p=0.0):
         if ts.step == at_step and not state["failed"]:
             state["failed"] = True
             if after_d_step:
                 phase_trainer.d_train_step(ts, data, gen, lr_d, noise, pre, meta, phase)
             raise torch.cuda.OutOfMemoryError("injected: out of memory")
-        return real(ts, data, gen, meta, pre, phase, lr_g, lr_d, noise, draws, stage)
+        return real(ts, data, gen, meta, pre, phase, lr_g, lr_d, noise, draws, stage, ada_p)
 
     monkeypatch.setattr(phase_trainer, "train_step_pair", pair)
     return state

@@ -45,9 +45,10 @@ selected kernel alone; ``pallas_ok=False`` (the G step) renders through
 
 On a CUDA device every kernel launches; on the CPU each wrapper runs its
 plain PyTorch version.  Not ported: hierarchical sampling,
-``disable_render`` (the condition-image style head), ``disable_synthesis``,
-2D label/latent inputs, and nerf noise at eval; each raises
-``NotImplementedError``.  ``remat_synthesis`` (default True, as in the JAX
+``disable_render`` (the condition-image style head), the config-level
+``disable_synthesis`` (the train forward's argument of that name is
+ported: render-modal phases), 2D label/latent inputs, and nerf noise at
+eval; each raises ``NotImplementedError``.  ``remat_synthesis`` (default True, as in the JAX
 package) recomputes each synthesis block in the training backward
 (``models.synthesis`` docstring); it changes memory and time, not values.
 ``auto_remat_synthesis`` is the trainers' shape-aware default for it.
@@ -253,15 +254,21 @@ def generator_forward(gen: Map3DGenerator, z, conditions: Dict, meta: Dict,
                       compute_dtype=torch.float32, truncation_psi: float = 1.0,
                       avg_latent=None, with_depth: bool = False,
                       stage: Callable = _no_stage, train: bool = False, nerf_noise=None,
-                      latent_indices=None, pallas_ok: bool = True):
+                      latent_indices=None, pallas_ok: bool = True,
+                      disable_synthesis: bool = False):
     """Eval forward (``train=False``): returns {'rgbs', 'rgbs_render'} NHWC
     in [-1, 1], plus 'depths' and 'skeletons' when ``with_depth``.  Train
     forward: returns ({'rgbs', 'rgbs_render'}, synthesis state), see the
-    module docstring.  ``stage(name)`` returns a context manager wrapped
-    around each stage (for timing)."""
+    module docstring; ``disable_synthesis`` (train only, a render-modal
+    phase) skips the mapping to styles, the resize and the synthesis and
+    returns the render as both images, with the synthesis state untouched.
+    ``stage(name)`` returns a context manager wrapped around each stage
+    (for timing)."""
     if train:
         return _train_forward(gen, z, conditions, meta, generator, compute_dtype, nerf_noise,
-                              latent_indices, pallas_ok, stage)
+                              latent_indices, pallas_ok, stage, disable_synthesis)
+    if disable_synthesis:
+        raise NotImplementedError("disable_synthesis at eval")
     return _eval_forward(gen, z, conditions, meta, generator, compute_dtype, truncation_psi,
                          avg_latent, with_depth, stage)
 
@@ -280,7 +287,7 @@ def _check_synthesis(meta: Dict):
 
 
 def _train_forward(gen, z, conditions, meta, generator, compute_dtype, nerf_noise,
-                   latent_indices, pallas_ok, stage):
+                   latent_indices, pallas_ok, stage, disable_synthesis):
     _check_synthesis(meta)
     B = z.shape[0]
     latent = z if latent_indices is None else gen.latent_pool.latents[latent_indices.long()]
@@ -288,10 +295,14 @@ def _train_forward(gen, z, conditions, meta, generator, compute_dtype, nerf_nois
         field_latent = (latent if meta.get("neural_field_latent_input", True)
                         else torch.zeros_like(latent))
         freq, phase = gen.neural_field_mapping_network(field_latent, compute_dtype)
-        _, styles = gen.synthesis_mapping_network(latent, compute_dtype)
+        if not disable_synthesis:
+            _, styles = gen.synthesis_mapping_network(latent, compute_dtype)
     rgb_render, feature_maps, _ = render(gen, freq, phase, conditions, meta, generator,
                                          compute_dtype, stage, train=True, nerf_noise=nerf_noise,
                                          grad_field=not pallas_ok)
+    if disable_synthesis:  # the render is the output; the feature channels get no cotangent
+        return ({"rgbs": rgb_render, "rgbs_render": rgb_render},
+                dict(gen.synthesis_network.named_buffers()))
     gen_h, gen_w = meta["gen_height"], meta["gen_width"]
     with stage("resize"):
         feature_maps = resize_feature_maps(feature_maps.to(compute_dtype), gen_h, gen_w)

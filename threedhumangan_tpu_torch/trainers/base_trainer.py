@@ -65,7 +65,16 @@ all-reduces sit inside the forward, so a rank that retried would leave the
 others waiting in a collective it never reaches, or step with weights they
 do not have.
 
-ADA (``ada_interval > 0``) raises ``NotImplementedError``.
+ADA (``ada_interval > 0``): the trainer holds the augmentation
+probability ``ada_p``, hands it to every pair, and after each pair that
+succeeded on a step that ``ada_interval`` divides runs the JAX package's
+controller (``update_augment``) on that step's ``real_signs``, summed over
+ranks first in one collective, so every rank holds the same p.  The
+controller reads the moments on the host: one sync every ``ada_interval``
+steps.  ``real_signs`` exists only with ``gan_lambda > 0``; without it p
+stays where it is, as in the JAX trainer.  ``ada_p`` is saved in the
+checkpoint and restored on resume (a checkpoint without it restores 0);
+the JAX trainer does not save it and restarts p at 0.
 """
 
 from __future__ import annotations
@@ -148,8 +157,7 @@ class Trainer:
         self.output_dir = os.path.join(opt.output_dir, config["name"])
         os.makedirs(self.output_dir, exist_ok=True)
         self.meta = configs.extract_metadata(config, 0)
-        if self.meta.get("ada_interval", 0):
-            raise NotImplementedError("ADA (ada_interval > 0)")
+        self.ada_p = 0.0
         self.smpl_model = smpl_model
         self.tb = None
         if rank == 0 and getattr(opt, "tensorboard", 1):
@@ -253,7 +261,7 @@ class Trainer:
         return {"G": ts.G.state_dict(), "D": ts.D.state_dict(),
                 "opt_G": ts.opt_G.state_dict(), "opt_D": ts.opt_D.state_dict(),
                 "ema": {"params": ts.ema["params"], "count": ts.ema["count"]},
-                "rng": rngs, "config_name": self.config["name"]}
+                "rng": rngs, "ada_p": self.ada_p, "config_name": self.config["name"]}
 
     def _load_state(self, payload: Dict):
         ts, dev = self.ts, self.device
@@ -270,7 +278,19 @@ class Trainer:
         else:
             print(f"rank {self.rank}: the checkpoint holds {len(rngs)} ranks' random states; "
                   "this rank keeps its fresh one", flush=True)
+        self.ada_p = float(payload.get("ada_p", 0.0))
         self.step = ts.step = int(payload["step"])
+
+    def update_augment(self, meta: Dict, stats: Dict[str, torch.Tensor]) -> None:
+        """The ADA controller: p moves by sign(E[sign(D(real))] - ada_target)
+        * ada_interval * batch_size / (ada_kimg * 1000), clipped to [0, 1]."""
+        if "real_signs" not in stats:
+            return
+        count, total = psum_moments({"real_signs": stats["real_signs"]})["real_signs"][:2].tolist()
+        delta = meta["ada_interval"] * meta["batch_size"] / (meta["ada_kimg"] * 1000)
+        signs = np.float64(total) / np.float64(count)
+        self.ada_p = float(np.clip(self.ada_p + np.sign(signs - meta["ada_target"]) * delta,
+                                   0.0, 1.0))
 
     def save(self):
         """Checkpoint, on every rank: the ranks' generator states are
@@ -408,7 +428,7 @@ class Trainer:
             try:
                 self.ts, stats = phase_trainer.train_step_pair(
                     self.ts, batch, self.generator, meta, self.preprocessor, phase,
-                    self._cur_lr[0], self._cur_lr[1], nerf_noise)
+                    self._cur_lr[0], self._cur_lr[1], nerf_noise, ada_p=self.ada_p)
                 self._stage_fits = True
                 return stats
             except torch.cuda.OutOfMemoryError as e:
@@ -484,6 +504,8 @@ class Trainer:
                     stage_token = self._stage_token  # a retry rebuilt the same-shape stage
                     self.step += 1
                     self.ts.step = self.step
+                    if meta.get("ada_interval", 0) and self.step % meta["ada_interval"] == 0:
+                        self.update_augment(meta, stats)
 
                     # every step's moments are summed on the device (no host
                     # sync), so phase-gated stats such as r1 (slots 3 and 7)

@@ -2,8 +2,9 @@
 
 Four VGG16 feature blocks (conv1_2, conv2_2, conv3_3, conv4_3) on inputs
 normalised with the ImageNet statistics; the loss is a smooth-L1 per block.
-No shipped config turns the loss on (``perceptual_lambda`` is [0, 0, 0, 0]),
-so the trainer does not call it; ``utils.fid`` uses the features.
+The G step of a conditional phase adds it when ``perceptual_lambda`` sums
+above 0 (no shipped config does); ``utils.fid`` uses the features.  Images
+are taken in float32, as the JAX package's normalisation promotes them.
 
 Weights load from ``VGG16_WEIGHTS_NPZ`` (``conv{i}_w`` HWIO, ``conv{i}_b``)
 when it is set, else they are fixed random draws of
@@ -63,7 +64,8 @@ def init_vgg16_features(weights_path: str = "", device="cuda") -> List[Dict[str,
 
 def vgg16_features(convs: Sequence[Dict[str, torch.Tensor]], x: torch.Tensor
                    ) -> List[torch.Tensor]:
-    """x: NHWC in [0, 1].  The four tap activations, NHWC."""
+    """x: NHWC in [0, 1].  The four tap activations, NHWC, float32."""
+    x = x.float()
     mean = x.new_tensor(_IMAGENET_MEAN)
     std = x.new_tensor(_IMAGENET_STD)
     h = ((x - mean) / std).permute(0, 3, 1, 2)

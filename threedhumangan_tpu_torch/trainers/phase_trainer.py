@@ -8,16 +8,33 @@ discriminator's pre-step ``u``) -> clip -> Adam.
 
 ``g_train_step``: preprocess -> generator forward with gradients (the field
 through ``FieldRender``: K2 forward, K8/K9 backward) -> D(fake) -> CE
-against the chosen ground-truth segments -> clip -> Adam with the five
-generator lr groups -> EMA.  ``train_step_pair`` runs one of each.
+against the chosen ground-truth segments (+ the GAN / latent terms, and on
+conditional phases the VGG16 perceptual and the photometric terms) -> clip
+-> Adam with the five generator lr groups -> EMA.  ``train_step_pair`` runs
+one of each.
+
+D's inputs, as the JAX steps form them:
+  * ADA (``ada_interval > 0``; ``data.augment``) at probability ``ada_p``
+    on the reals before ``_disc_input_real``, on the D step's fakes after
+    ``_disc_input_gen``, and on the G step's fakes fed to D; statically off
+    otherwise.  The G step draws one augmentation of micro-batch shape and
+    applies it to every micro-batch (the JAX step's one key for all);
+  * dual discrimination: six channels, the render resized to the image
+    size beside the image (the reals' render-size copy from an
+    antialiased downsample, ``utils.image.resize_bilinear``);
+  * render-modal phases (``gen_modal`` other than ``rgbs``): the generator
+    runs without its synthesis (``disable_synthesis``) and the reals are
+    downsampled to the render size.
 
 Modules are updated in place: ``TrainState`` holds the generator,
 discriminator, their optimizers, the EMA and the step count.  Randomness
 comes from a ``torch.Generator``; each step also takes an optional ``draws``
 mapping — ``z`` (B, latent), ``coin`` (the uniform draw that picks
-rasterized vs annotated segments) and ``h_rotation``/``v_rotation`` (B,) —
-which replaces the generator's draws of those values, so a test can feed
-in the JAX package's.  Gradients are taken with ``torch.autograd.grad`` for
+rasterized vs annotated segments), ``h_rotation``/``v_rotation`` (B,), and
+the augmentations' draws (``data.augment.sample_augment``'s): ``aug_real``
+and ``aug_fake`` in the D step, ``aug`` in the G step — which replaces the
+generator's draws of those values, so a test can feed in the JAX package's.
+Gradients are taken with ``torch.autograd.grad`` for
 the stepped module only.  ``batch_split > 1`` runs micro-batches with
 losses divided by the split count (gradient accumulation).  Under a process
 group each rank steps on its shard of the batch: the synthesis BN moments
@@ -26,9 +43,7 @@ averaged across ranks (``parallel.dist.all_reduce_mean_``, one collective)
 after the micro-batches and before the grad-norm stats and Adam, as the
 JAX step's ``pmean``; the stats stay per rank (the trainer sums them).
 Not ``DistributedDataParallel``: its hooks fire on ``.backward()``, which
-these steps never call.  Not ported:
-ADA (``ada_interval > 0``), the perceptual and photometric losses, dual
-discrimination and render-modal discrimination; each raises.
+these steps never call.
 """
 
 from __future__ import annotations
@@ -39,11 +54,13 @@ from typing import Dict, Optional
 
 import torch
 
+from threedhumangan_tpu_torch.data.augment import apply_augment, sample_augment
 from threedhumangan_tpu_torch.models.discriminator import UNetDiscriminator
 from threedhumangan_tpu_torch.models.generator import Map3DGenerator, generator_forward
 from threedhumangan_tpu_torch.parallel import dist
 from threedhumangan_tpu_torch.parallel.stats import moments
 from threedhumangan_tpu_torch.trainers import losses as L
+from threedhumangan_tpu_torch.trainers.perceptual import init_vgg16_features, perceptual_loss
 from threedhumangan_tpu_torch.trainers.optim import (
     adam_step,
     generator_lr_multipliers,
@@ -51,6 +68,7 @@ from threedhumangan_tpu_torch.trainers.optim import (
     param_groups,
 )
 from threedhumangan_tpu_torch.utils.ema import ema_init, ema_update
+from threedhumangan_tpu_torch.utils.image import resize_bilinear
 from threedhumangan_tpu_torch.utils.misc import normalize_2nd_moment, resolve_device
 
 
@@ -83,13 +101,52 @@ def compute_dtype(meta: Dict):
     return torch.bfloat16 if meta.get("use_mixed_precision", False) else torch.float32
 
 
-def _check_meta(meta: Dict, phase: Dict):
-    if meta.get("ada_interval", 0):
-        raise NotImplementedError("ADA (ada_interval > 0)")
-    if meta.get("dual_discrimination", False) or phase["gen_modal"] != "rgbs":
-        raise NotImplementedError("dual / render-modal discrimination")
-    if sum(meta.get("perceptual_lambda", [0])) > 0 or meta.get("photometric_lambda", 0) > 0:
-        raise NotImplementedError("perceptual / photometric losses")
+def _disc_input_real(real_images, phase: Dict, meta: Dict):
+    """D's real input: six channels under dual discrimination (the image's
+    render-size copy, resized back, beside it), render size on a
+    render-modal phase, else the image."""
+    rh, rw = meta["render_height"], meta["render_width"]
+    if meta.get("dual_discrimination", False):
+        down = resize_bilinear(real_images, rh, rw)
+        render_like = resize_bilinear(down, meta["gen_height"], meta["gen_width"])
+        return torch.cat([render_like, real_images], -1)
+    if "render" in phase["gen_modal"]:
+        return resize_bilinear(real_images, rh, rw)
+    return real_images
+
+
+def _disc_input_gen(gen_out: Dict, phase: Dict, meta: Dict):
+    """D's fake input: the render resized to the image size beside the
+    image under dual discrimination, else the phase's modal."""
+    if meta.get("dual_discrimination", False):
+        rgbs = gen_out["rgbs"]
+        up = resize_bilinear(gen_out["rgbs_render"], rgbs.shape[1], rgbs.shape[2])
+        return torch.cat([up, rgbs], -1)
+    return gen_out[phase["gen_modal"]]
+
+
+def _maybe_augment(images, meta: Dict, ada_p: float, generator, draws: Optional[Dict]):
+    """ADA at probability ``ada_p`` on a batch of D inputs, with ``draws``
+    or new ones from ``generator``; statically off when ``ada_interval`` is
+    0."""
+    if not meta.get("ada_interval", 0):
+        return images
+    cfg = meta.get("ada_aug", {})
+    if draws is None:
+        draws = sample_augment(cfg, images.shape, generator, images.device)
+    return apply_augment(images, cfg, ada_p, draws)
+
+
+_VGG_CACHE: Dict[str, list] = {}
+
+
+def _vgg_convs(device) -> list:
+    """VGG16's feature convs on ``device``, built once per device and only
+    when a perceptual term asks for them."""
+    key = str(device)
+    if key not in _VGG_CACHE:
+        _VGG_CACHE[key] = init_vgg16_features(device=device)
+    return _VGG_CACHE[key]
 
 
 def _preprocess(preprocessor, data, rotate: bool, generator, draws):
@@ -153,9 +210,8 @@ def _split(x, n, i):
 
 def d_train_step(ts: TrainState, data: Dict, generator: torch.Generator, lr: float,
                  nerf_noise: float, preprocessor, meta: Dict, phase: Dict,
-                 draws: Optional[Dict] = None, stage=None):
+                 draws: Optional[Dict] = None, stage=None, ada_p: float = 0.0):
     """One discriminator step, in place; returns (ts, stats)."""
-    _check_meta(meta, phase)
     stage = stage or (lambda name: contextlib.nullcontext())
     cdt = compute_dtype(meta)
     gan_lambda, seg_lambda = meta["gan_lambda"], meta["segmentation_lambda"]
@@ -168,11 +224,14 @@ def d_train_step(ts: TrainState, data: Dict, generator: torch.Generator, lr: flo
 
     with stage("preprocess"):
         data = _preprocess(preprocessor, data, phase["rotate"], generator, draws)
-    real_images = data["images"]
-    B = real_images.shape[0]
+    B = data["images"].shape[0]
     z = _draw(draws, "z", lambda: torch.randn(B, meta["latent_dim"], generator=generator,
                                               device=dev))
     coin = _draw(draws, "coin", lambda: torch.rand((), generator=generator, device=dev))
+    with stage("d_real_inputs"):
+        real_images = _maybe_augment(data["images"], meta, ada_p, generator,
+                                     (draws or {}).get("aug_real"))
+        real_images = _disc_input_real(real_images, phase, meta)
     real_segments = _choose_segments(coin, phase["rotate"], data["rasterized_segments"],
                                      data["body_segments"].to(torch.int32))
 
@@ -184,9 +243,11 @@ def d_train_step(ts: TrainState, data: Dict, generator: torch.Generator, lr: flo
             out, _ = generator_forward(
                 G, _split(z, n_split, i), data_c, meta, generator, cdt, train=True,
                 nerf_noise=nerf_noise,
-                latent_indices=None if phase["uncond"] else data_c["indices"])
-            outs.append(out[phase["gen_modal"]])
-        fake_images = torch.cat(outs, 0)
+                latent_indices=None if phase["uncond"] else data_c["indices"],
+                disable_synthesis=phase["gen_modal"] != "rgbs")
+            outs.append(_disc_input_gen(out, phase, meta))
+        fake_images = _maybe_augment(torch.cat(outs, 0), meta, ada_p, generator,
+                                     (draws or {}).get("aug_fake"))
 
     with stage("d_step"):
         u0 = {k: v.clone() for k, v in D.named_buffers()}
@@ -239,12 +300,14 @@ def d_train_step(ts: TrainState, data: Dict, generator: torch.Generator, lr: flo
 
 def g_train_step(ts: TrainState, data: Dict, generator: torch.Generator, lr: float,
                  nerf_noise: float, preprocessor, meta: Dict, phase: Dict,
-                 draws: Optional[Dict] = None, stage=None):
+                 draws: Optional[Dict] = None, stage=None, ada_p: float = 0.0):
     """One generator step with the EMA update, in place; returns (ts, stats)."""
-    _check_meta(meta, phase)
     stage = stage or (lambda name: contextlib.nullcontext())
     cdt = compute_dtype(meta)
     gan_lambda = meta["gan_lambda"] if phase["uncond"] else 0
+    perceptual_lambda = meta.get("perceptual_lambda", [0])
+    photometric_lambda = meta.get("photometric_lambda", 0)
+    modal = phase["gen_modal"]
     seg_lambda = meta["segmentation_lambda"]
     latent_lambda = meta.get("latent_lambda", 0)
     label_dim = meta["label_dim"]
@@ -265,6 +328,7 @@ def g_train_step(ts: TrainState, data: Dict, generator: torch.Generator, lr: flo
     n_split = int(meta.get("batch_split", 1))
     params = _opt_params(ts.opt_G)
     grads = None
+    aug_draws = (draws or {}).get("aug")
     stats: Dict[str, torch.Tensor] = {}
     for i in range(n_split):
         data_c = {k: _split(v, n_split, i) for k, v in data.items()}
@@ -272,8 +336,16 @@ def g_train_step(ts: TrainState, data: Dict, generator: torch.Generator, lr: flo
         with stage("g_forward"):
             gen_out, _ = generator_forward(
                 G, z_c, data_c, meta, generator, cdt, train=True, nerf_noise=nerf_noise,
-                latent_indices=None if phase["uncond"] else data_c["indices"], pallas_ok=False)
-            out = D(gen_out[phase["gen_modal"]], cdt, train=True)
+                latent_indices=None if phase["uncond"] else data_c["indices"], pallas_ok=False,
+                disable_synthesis=modal != "rgbs")
+            fake = _disc_input_gen(gen_out, phase, meta)
+            if meta.get("ada_interval", 0):
+                # one augmentation for every micro-batch, as the JAX step's one key
+                cfg = meta.get("ada_aug", {})
+                if aug_draws is None:
+                    aug_draws = sample_augment(cfg, fake.shape, generator, dev)
+                fake = apply_augment(fake, cfg, ada_p, aug_draws)
+            out = D(fake, cdt, train=True)
             pred = out["prediction"].float()
             st = {}
             if gan_lambda > 0:
@@ -301,7 +373,18 @@ def g_train_step(ts: TrainState, data: Dict, generator: torch.Generator, lr: flo
                 st["g_latent_loss"] = moments(lat)
             else:
                 lat = 0.0 * out["latents"].float().sum()
-            loss = gan + seg + lat
+            perc = photo = 0.0
+            if not phase["uncond"] and sum(perceptual_lambda) > 0:
+                # VGG16 feature distances on [0, 1] images
+                pls = perceptual_loss(_vgg_convs(dev), 0.5 * gen_out[modal] + 0.5,
+                                      0.5 * data_c["images"] + 0.5)
+                perc = sum(lam * pl for lam, pl in zip(perceptual_lambda, pls))
+                st["perceptual_loss"] = moments(perc)
+            if not phase["uncond"] and photometric_lambda > 0:
+                # the generated modal itself, not the (maybe 6-channel) D input
+                photo = photometric_lambda * L.smooth_l1(gen_out[modal], data_c["images"])
+                st["photometric_loss"] = moments(photo)
+            loss = gan + seg + lat + perc + photo
             st["g_loss"] = moments(loss)
         with stage("g_backward"):
             g = _grads(loss / n_split, params)
@@ -319,12 +402,13 @@ def g_train_step(ts: TrainState, data: Dict, generator: torch.Generator, lr: flo
 
 def train_step_pair(ts: TrainState, data: Dict, generator: torch.Generator, meta: Dict,
                     preprocessor, phase: Dict, lr_g: float, lr_d: float, nerf_noise: float,
-                    draws: Optional[Dict] = None, stage=None):
-    """One training iteration: a D step, then a G step."""
+                    draws: Optional[Dict] = None, stage=None, ada_p: float = 0.0):
+    """One training iteration: a D step, then a G step, with ADA at
+    probability ``ada_p`` where the config turns it on."""
     d_draws = None if draws is None else draws.get("d")
     g_draws = None if draws is None else draws.get("g")
     ts, d_stats = d_train_step(ts, data, generator, lr_d, nerf_noise, preprocessor, meta, phase,
-                               d_draws, stage)
+                               d_draws, stage, ada_p)
     ts, g_stats = g_train_step(ts, data, generator, lr_g, nerf_noise, preprocessor, meta, phase,
-                               g_draws, stage)
+                               g_draws, stage, ada_p)
     return ts, {**d_stats, **g_stats}
