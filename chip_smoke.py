@@ -144,11 +144,38 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
                 with the ADA controller, 6 steps, a checkpoint at 4 and a
                 resume from it: the same p, and the same state bit for bit
                 under deterministic algorithms.
+ 15. options  — the generator's remaining options (after phase 14): (a)
+                hierarchical sampling at MAP3DBN512L b8 bf16 (the field's
+                density bias 0.5): 2 warm-up + 3 timed batches, ms by stage
+                (coarse geo, coarse field, pdf, fine geo, fine field, merge,
+                integrate, resize, synthesis), peak memory, the output
+                (8, 512, 256, 3) finite and not constant, exactly one K1,
+                one K6 and one K3 a batch and no K2/K4/K5, and the TINY
+                forward card vs CPU on the same pdf uniforms and noise;
+                (b) ``pallas_field=False`` against the K2 route at 512L b8
+                on the same weights and conditions by ``check_render_stats``,
+                ms a batch of each, the softplus clamp once (finite); (c)
+                phase 8's fused MAP3DBN b8 pair with ``pallas_field_bwd=False``:
+                the field and freq/phase gradients against K8/K9 (rel L2 a
+                tensor), one pair of each from the same state and draws
+                (phase 6's limits), ms a pair of each, and one pair each with
+                ``pallas_field_train=False`` and ``hierarchical_sample``
+                (finite, moved, peak, the field's launches); (d) the
+                synthesis variants (instance norm, adaptive batch norm, the
+                pixelwise blocks, ``disable_render``, 2D label and latent
+                inputs, cubic / lanczos3 / nearest resizes): one eval forward
+                each at 512L b8 with K3 exactly where the JAX selection rule
+                puts it, a per-op MAP3DBN b8 pair for each normalisation,
+                and the TINY card-vs-CPU check of each.
  11. result   — K7's device time a launch (torch.profiler, last, as it may
                 slow later host-bound launches); a JSON line of the kernels
                 (times, bounds, launches by path, each kernel of the 512L
                 path at its shapes, K1, K2, K3 and K7 at batch 1), the card
-                line, and the final {"ok": true, "device": ...} line.
+                line, and the final {"ok": true, "device": ...} line.  The
+                kernels' entries also carry phase 15's paths
+                (``launches_by_path``; K1, K6 and K3 the hierarchical batch,
+                K2 the remat backward and the XLA field beside it, K3 the
+                eval variants).
 """
 
 import contextlib
@@ -275,8 +302,8 @@ def field_inputs(gen, cond, z, meta):
         pts_cam, z_vals, d_cam = vr.get_initial_rays_weak_perspective(
             cond["intrinsics"][:, 0, 0], cond["scales"].float(), S, (W, H),
             meta["ray_start"], meta["ray_end"])
-        pts, z_vals, _ = vr.transform_sampled_points(pts_cam, z_vals, d_cam,
-                                                     cond["cam2world_matrices"])
+        pts, z_vals, _, _ = vr.transform_sampled_points(pts_cam, z_vals, d_cam,
+                                                        cond["cam2world_matrices"])
         B = z.shape[0]
         pts = pts.reshape(B, -1, 3).contiguous()
         vfeat = build_vertex_features(cond["tpose_vertices"], cond["fk_matrices"],
@@ -742,62 +769,40 @@ def ptxas_of(source):
 
 
 def run_generation(gen, pre, batch, z0, meta, gen_rng, label, need, forbid):
-    """WARMUP + TIMED batches through ``generator_forward`` with the counts
-    set to 0 just before and read just after: per-stage ms, imgs/s, peak
-    memory; the output must be (8, 512, 256, 3), finite and not constant,
-    every kernel of ``need`` must launch and none of ``forbid``."""
-    import torch
-
-    from threedhumangan_tpu_torch.models.generator import generator_forward
-
-    timer = StageTimer()
-    reset_counts()
-    walls = []
-    for it in range(WARMUP + TIMED):
-        timer.on = it >= WARMUP
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with timer.stage("conditions"):
-            cond = pre(batch, rotate=True, generator=gen_rng)
-        out = generator_forward(gen, z0 + 0.01 * it, cond, meta, gen_rng,
-                                compute_dtype=torch.bfloat16, stage=timer.stage)
-        torch.cuda.synchronize()
-        if timer.on:
-            walls.append(time.perf_counter() - t0)
-    counts = read_counts()
-    stage_ms = timer.mean_ms()
-    rgbs = out["rgbs"]
+    """WARMUP + TIMED batches through ``generator_forward`` (``timed_generation``):
+    per-stage ms, imgs/s, peak memory; the output must be (8, 512, 256, 3),
+    finite and not constant, every kernel of ``need`` must launch and none
+    of ``forbid``."""
+    r = timed_generation(gen, pre, batch, z0, meta, gen_rng, WARMUP, TIMED)
+    counts, stage_ms, rgbs = r["counts"], r["stage_ms"], r.pop("out")["rgbs"]
     log(f"{label}: MAP3DBN512L batch {BATCH} bf16, {TIMED} timed batches after {WARMUP} warm-up")
     for k in ("conditions", "mapping", "rays", "geo", "field", "resize", "synthesis"):
         log(f"  stage {k:<10} {stage_ms[k]:9.3f} ms/batch")
-    total = sum(walls) / len(walls)
+    total = r["ms_per_batch"] / 1e3
     log(f"  total {total * 1e3:.3f} ms/batch (host clock)  {BATCH / total:.3f} imgs/s  "
         f"stage sum {sum(v for k, v in stage_ms.items() if k != 'd_r1'):.3f} ms")
     log(f"  launches during the slice: {counts}")
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"  peak memory {peak:.2f} GiB")
-    if tuple(rgbs.shape) != (BATCH, meta["gen_height"], meta["gen_width"], 3):
-        raise AssertionError(f"bad output shape {tuple(rgbs.shape)}")
-    if not torch.isfinite(rgbs).all() or not torch.isfinite(out["rgbs_render"]).all():
-        raise AssertionError("non-finite output")
-    if float(rgbs.float().std()) <= 0.0:
-        raise AssertionError("constant output")
+    log(f"  peak memory {r['peak_gib']:.2f} GiB")
     if min(counts[k] for k in need) <= 0:
         raise AssertionError(f"a kernel did not launch during the slice: {counts}")
     if any(counts[k] for k in forbid):
         raise AssertionError(f"the slice launched a kernel its selection replaces: {counts}")
     log(f"  output {tuple(rgbs.shape)} mean {float(rgbs.mean()):.4f} std {float(rgbs.std()):.4f}")
     return dict(counts=counts, ms_per_batch=total * 1e3, imgs_per_s=BATCH / total,
-                stage_ms=stage_ms, peak_gib=peak)
+                stage_ms=stage_ms, peak_gib=r["peak_gib"])
 
 
-def check_small_config(flags=None, sigma_bias=None):
+def check_small_config(flags=None, sigma_bias=None, draws=None):
     """A small legacy/isolated config through generator_forward on the card
     (kernels) and on the CPU (plain versions), same weights and inputs.
-    ``flags`` select the generator's kernels.  ``sigma_bias`` (0.5) sets the
-    field's density bias: at these random weights every density otherwise
-    sits below the clamp and the render is the empty background on both
-    devices (as it is in the call with neither, kept as it was)."""
+    ``flags`` select the generator's kernels and options.  ``sigma_bias``
+    (0.5) sets the field's density bias: at these random weights every
+    density otherwise sits below the clamp and the render is the empty
+    background on both devices (as it is in the call with neither, kept as
+    it was).  ``draws`` (CPU tensors) hands the render the same draws on
+    both devices; options that read the rasterized labels
+    (``disable_render``, ``2d_label_input``) get the rasterizer.  Returns
+    (max, mean) |d| of each output."""
     import torch
 
     from threedhumangan_tpu_torch import configs
@@ -808,20 +813,23 @@ def check_small_config(flags=None, sigma_bias=None):
     from threedhumangan_tpu_torch.models.smpl import synthetic_smpl_model
 
     meta = dict(configs.extract_metadata(configs.MAP3DBN_TINY, 0))
-    meta.update(nerf_noise=0, perturb_rays=False, legacy_mode=True, map3d_mode="isolated",
-                **(flags or {}))
+    meta.update({"nerf_noise": 0, "perturb_rays": False, "legacy_mode": True,
+                 "map3d_mode": "isolated", **(flags or {})})
     smpl = synthetic_smpl_model(num_verts=384, num_faces=512)
     batch = next(iterate_batches(SyntheticSHHQDataset(smpl_model=smpl, **meta), 2, shuffle=False))
     z = torch.randn(2, meta["latent_dim"], generator=torch.Generator().manual_seed(SEED))
     outs = {}
+    raster = meta.get("disable_render", False) or meta.get("2d_label_input", False)
     for dev in ("cuda", "cpu"):
         gen = init_generator(meta, torch.Generator().manual_seed(SEED), dev)
         if sigma_bias is not None:
             with torch.no_grad():
                 gen.neural_field.sigma_layer.bias.fill_(sigma_bias)
-        cond = get_preprocessor(meta).forward_with_rotation(
+        cond = get_preprocessor(meta, smpl if raster else None).forward_with_rotation(
             to_tensors(batch, dev), *(torch.zeros(2, device=dev),) * 3)
-        outs[dev] = generator_forward(gen, z.to(dev), cond, meta, compute_dtype=torch.bfloat16)
+        dd = None if draws is None else {k: v.to(dev) for k, v in draws.items()}
+        outs[dev] = generator_forward(gen, z.to(dev), cond, meta, compute_dtype=torch.bfloat16,
+                                      draws=dd)
     res = {}
     for k in ("rgbs_render", "rgbs"):
         mx, mean, _ = diff_stats(outs["cuda"][k].cpu(), outs["cpu"][k])
@@ -834,6 +842,7 @@ def check_small_config(flags=None, sigma_bias=None):
     log("  tolerance: mean|d| <= 2e-2 for both (bf16 end to end, see the kernel checks)")
     if res["rgbs_render"][1] > 2e-2 or res["rgbs"][1] > 2e-2:
         raise AssertionError("the card disagrees with the CPU plain path")
+    return res
 
 
 class PairTimer(StageTimer):
@@ -1227,8 +1236,8 @@ def train_field_inputs(G, meta, cond, gcuda):
         pts_cam, z_vals, d_cam = vr.get_initial_rays_weak_perspective(
             cond["intrinsics"][:, 0, 0], cond["scales"].float(), S, (W, H), meta["ray_start"],
             meta["ray_end"])
-        pts, z_vals, _ = vr.transform_sampled_points(pts_cam, z_vals, d_cam,
-                                                     cond["cam2world_matrices"], gcuda, True)
+        pts, z_vals, _, _ = vr.transform_sampled_points(pts_cam, z_vals, d_cam,
+                                                        cond["cam2world_matrices"], gcuda, True)
         pts = pts.reshape(B, -1, 3)
         geo = get_geo_features(pts, cond["skeletons_xyz"], cond["vertices"],
                                cond["tpose_vertices"], cond["fk_matrices"], cond["lbs_weights"],
@@ -1886,9 +1895,9 @@ RENDER_LIMITS = dict(mean=5e-4, p99=1e-3, image_p99=1e-3, bad_rays=5e-4, depth_m
 BAD_RAY = 1e-2  # a ray is bad when one of its channels is off by more
 
 
-def check_render_stats(what, o_k, d_k, o_p, d_p, prefix=""):
+def check_render_stats(what, o_k, d_k, o_p, d_p, prefix="", lim=RENDER_LIMITS):
     """Log and hold a full-width render (B, R, C) + depth against its plain
-    version at ``RENDER_LIMITS``; returns the map's max |d|."""
+    version at ``lim`` (``RENDER_LIMITS``); returns the map's max |d|."""
     import torch
 
     mx, mean, p99 = diff_stats(o_k, o_p)
@@ -1901,7 +1910,6 @@ def check_render_stats(what, o_k, d_k, o_p, d_p, prefix=""):
     log(f"check {what}: {prefix}map max|d| {mx:.3e} mean|d| {mean:.3e} p99|d| {p99:.3e} "
         f"worst image p99|d| {image_p99:.3e} rays with |d| > {BAD_RAY:g} {bad:.3e}; "
         f"depth max|d| {dmx:.3e} mean|d| {dmean:.3e}")
-    lim = RENDER_LIMITS
     log(f"  tolerance: map mean|d| <= {lim['mean']:g}, p99|d| <= {lim['p99']:g}, worst image "
         f"p99|d| <= {lim['image_p99']:g}, share of bad rays <= {lim['bad_rays']:g}, depth "
         f"mean|d| <= {lim['depth_mean']:g}")
@@ -3390,8 +3398,8 @@ def plain_frame_f32(gen, meta, cond, z, avg):
     pts_cam, z_vals, d_cam = vr.get_initial_rays_weak_perspective(
         cond["intrinsics"][:, 0, 0], cond["scales"].float(), S, (W, H), meta["ray_start"],
         meta["ray_end"])
-    pts, z_vals, ray_dirs = vr.transform_sampled_points(pts_cam, z_vals, d_cam,
-                                                        cond["cam2world_matrices"])
+    pts, z_vals, ray_dirs, _ = vr.transform_sampled_points(pts_cam, z_vals, d_cam,
+                                                           cond["cam2world_matrices"])
     pts = pts.reshape(1, -1, 3).contiguous()
     dirs = vr.expand_ray_directions(ray_dirs, S)
     if meta.get("lock_view_dependence", False):
@@ -4009,6 +4017,408 @@ def run_objective(gcuda, smpl):
     return dict(pipe=pipe, pairs=pairs, render_modal=render, trainer=trainer)
 
 
+# ---------------------------------------------------------------------------
+# 15. options: the generator's remaining options (the XLA field path and its
+# remat backward, hierarchical sampling, the softplus clamp, the synthesis
+# variants)
+# ---------------------------------------------------------------------------
+
+OPT_WARMUP, OPT_TIMED = 2, 3  # (a): batches of hierarchical generation
+OPT_STAGES = ("conditions", "mapping", "rays", "geo", "field", "pdf", "fine_geo", "fine_field",
+              "merge", "integrate", "condition", "resize", "synthesis")
+# (d): each variant's meta keys, and whether the JAX selection rule puts its
+# eval synthesis on K3 (batch norm or adaptive batch norm, no 2D inputs)
+SYN_VARIANTS = {
+    "instance_norm": (dict(spatial_normalization="instance_norm"), False),
+    "adaptive_batch_norm": (dict(spatial_normalization="adaptive_batch_norm"), True),
+    "none": (dict(spatial_normalization="none"), False),
+    "disable_render": (dict(disable_render=True), True),
+    "2d_label_input": ({"2d_label_input": True}, False),
+    "2d_latent_input": ({"2d_latent_input": True}, False),
+    "resize_cubic": (dict(feature_map_interpolation="cubic"), True),
+    "resize_lanczos3": (dict(feature_map_interpolation="lanczos3"), True),
+    "resize_nearest": (dict(feature_map_interpolation="nearest"), True),
+}
+
+
+# (b): the XLA path keeps float32 activations (products on bf16 operands)
+# where K2 folds freq/phase into bf16 weight tables and rounds its
+# activations to bf16, so the two differ by their formulations, not by a
+# fault: K2's own generation limits (mean 2e-3, p99 5e-3, phase 3), the
+# worst image and the share of bad rays at the p99 limit and 1%, depth
+# mean 5e-4 (on the CPU at TINY, bf16, the plain versions differ by mean
+# 4.0e-4, p99 1.7e-3, depth mean 1.1e-4)
+XLA_VS_K2_LIMITS = dict(mean=2e-3, p99=5e-3, image_p99=5e-3, bad_rays=1e-2, depth_mean=5e-4)
+
+
+def options_generator(meta, dev):
+    """MAP3DBN512L-layout weights from the seed, the field's density bias
+    0.5 (so that a body renders and the fine samples gather on it)."""
+    import torch
+
+    from threedhumangan_tpu_torch.models.generator import init_generator
+
+    gen = init_generator(meta, torch.Generator().manual_seed(SEED), dev)
+    with torch.no_grad():
+        gen.neural_field.sigma_layer.bias.fill_(0.5)
+    return gen
+
+
+def timed_generation(gen, pre, batch, z0, meta, rng, warmup, timed):
+    """``warmup`` + ``timed`` batches through ``generator_forward`` with
+    the counts set to 0 just before and read just after; ms a batch (host
+    clock), stage ms by CUDA events, peak memory and the last output."""
+    import torch
+
+    from threedhumangan_tpu_torch.models.generator import generator_forward
+
+    timer = StageTimer()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    walls = []
+    for it in range(warmup + timed):
+        timer.on = it >= warmup
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with timer.stage("conditions"):
+            cond = pre(batch, rotate=True, generator=rng)
+        out = generator_forward(gen, z0 + 0.01 * it, cond, meta, rng,
+                                compute_dtype=torch.bfloat16, stage=timer.stage)
+        torch.cuda.synchronize()
+        if timer.on:
+            walls.append(1e3 * (time.perf_counter() - t0))
+    counts = read_counts()
+    rgbs = out["rgbs"]
+    if tuple(rgbs.shape) != (batch["images"].shape[0], meta["gen_height"], meta["gen_width"], 3):
+        raise AssertionError(f"bad output shape {tuple(rgbs.shape)}")
+    if not torch.isfinite(rgbs).all() or not torch.isfinite(out["rgbs_render"]).all():
+        raise AssertionError("non-finite output")
+    if float(rgbs.float().std()) <= 0.0:
+        raise AssertionError("constant output")
+    return dict(counts=counts, ms_per_batch=sum(walls) / len(walls), ms=walls,
+                stage_ms=timer.mean_ms() if timed else {},
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30, out=out)
+
+
+def tiny_draws(flags, B=2, seed=SEED + 15):
+    """The render's draws for a TINY run on both devices (``render``'s
+    ``draws``): the pdf uniforms, the coarse and the final noise."""
+    import torch
+
+    from threedhumangan_tpu_torch import configs
+
+    meta = dict(configs.extract_metadata(configs.MAP3DBN_TINY, 0), **flags)
+    R, S = meta["render_width"] * meta["render_height"], meta["num_steps"]
+    g = torch.Generator().manual_seed(seed)
+    steps = 2 * S if meta.get("hierarchical_sample") else S
+    return {"pdf": torch.rand(B * R, S, generator=g),
+            "hier_noise": torch.randn(B, R, S, 1, generator=g),
+            "noise": torch.randn(B, R, steps, 1, generator=g)}
+
+
+def options_hierarchical(pre, batch, z0, dev):
+    """(a) hierarchical generation at MAP3DBN512L b8 bf16: OPT_WARMUP +
+    OPT_TIMED batches, ms by stage, peak; exactly one K1 (coarse), one K6
+    (fine) and one K3 a batch, no K2/K4/K5; the TINY forward card vs CPU on
+    the same pdf uniforms and noise."""
+    import torch
+
+    meta = dict(slice_meta(), hierarchical_sample=True)
+    gen = options_generator(meta, dev)
+    rng = torch.Generator(device=dev).manual_seed(SEED + 15)
+    r = timed_generation(gen, pre, batch, z0, meta, rng, OPT_WARMUP, OPT_TIMED)
+    n = OPT_WARMUP + OPT_TIMED
+    c = r["counts"]
+    sm = r["stage_ms"]
+    log(f"options (a): hierarchical sampling, MAP3DBN512L batch {BATCH} bf16 (the field's "
+        f"density bias 0.5), {OPT_TIMED} timed batches after {OPT_WARMUP} warm-up: "
+        f"{r['ms_per_batch']:.3f} ms/batch (host clock; {', '.join(f'{w:.3f}' for w in r['ms'])})"
+        f", {1e3 * BATCH / r['ms_per_batch']:.3f} imgs/s, peak {r['peak_gib']:.2f} GiB")
+    log("  stages, ms/batch: " + ", ".join(f"{k} {sm[k]:.3f}" for k in OPT_STAGES if k in sm)
+        + f" (merge + integrate {sm['merge'] + sm['integrate']:.3f})")
+    log(f"  launches over {n} batches: {c}")
+    if (c["K1"], c["K6"], c["K3"]) != (n, n, n) or c["K2"] + c["K4"] + c["K5"]:
+        raise AssertionError(f"hierarchical generation: expected one K1, K6, K3 a batch and no "
+                             f"K2/K4/K5: {c}")
+    rgbs = r.pop("out")["rgbs"]
+    log(f"  output {tuple(rgbs.shape)} mean {float(rgbs.float().mean()):.4f} std "
+        f"{float(rgbs.float().std()):.4f}")
+    del gen, rgbs
+    torch.cuda.empty_cache()
+    flags = dict(hierarchical_sample=True, nerf_noise=0.5)
+    r["tiny"] = check_small_config(flags, sigma_bias=0.5, draws=tiny_draws(flags))
+    return r
+
+
+def options_xla(pre, batch, z0, dev):
+    """(b) ``pallas_field=False`` against the default K2 route at
+    MAP3DBN512L b8 bf16, the same weights and conditions (no perturbation,
+    no noise: no draws): the render by ``check_render_stats``; ms a batch of
+    each (1 warm-up + 3); the softplus clamp once, finite."""
+    import torch
+
+    from threedhumangan_tpu_torch.models.generator import render
+
+    meta = slice_meta()
+    gen = options_generator(meta, dev)
+    rng = torch.Generator(device=dev).manual_seed(SEED + 16)
+    cond = pre(batch, rotate=True, generator=rng)
+    maps = {}
+    with torch.no_grad():
+        freq, phase = gen.neural_field_mapping_network(z0, torch.bfloat16)
+        for name, m in (("K2", meta), ("xla", dict(meta, pallas_field=False)),
+                        ("softplus", dict(meta, clamp_mode="softplus"))):
+            reset_counts()
+            rgb, feat, depth = render(gen, freq, phase, cond, m, rng, torch.bfloat16)
+            torch.cuda.synchronize()
+            B = rgb.shape[0]
+            maps[name] = (torch.cat([(rgb + 1.0) * 0.5, feat], -1).reshape(B, -1, rgb.shape[-1]
+                                                                           + feat.shape[-1]),
+                          depth, read_counts())
+    if maps["K2"][2]["K2"] != 1 or maps["xla"][2]["K2"] or maps["softplus"][2]["K2"]:
+        raise AssertionError(f"the field routes: {[maps[k][2] for k in maps]}")
+    mx = check_render_stats("pallas_field=False (the XLA field path, f32 SIREN on bf16 "
+                            "operands) vs K2 at MAP3DBN512L b8", maps["xla"][0], maps["xla"][1],
+                            maps["K2"][0], maps["K2"][1], lim=XLA_VS_K2_LIMITS)
+    sp = maps["softplus"]
+    if not (torch.isfinite(sp[0]).all() and torch.isfinite(sp[1]).all()):
+        raise AssertionError("the softplus clamp gave non-finite values")
+    log(f"  softplus clamp (XLA path): finite, map mean {float(sp[0].mean()):.4f}, depth mean "
+        f"{float(sp[1].mean()):.4f}")
+    del maps, sp
+    runs = {}
+    for name, m in (("K2", meta), ("xla", dict(meta, pallas_field=False))):
+        runs[name] = timed_generation(gen, pre, batch, z0, m, rng, 1, 3)
+        runs[name].pop("out")
+    log(f"  generation ms/batch (1 warm-up + 3): K2 {runs['K2']['ms_per_batch']:.3f}, XLA field "
+        f"{runs['xla']['ms_per_batch']:.3f}; field stage {runs['K2']['stage_ms']['field']:.3f} vs "
+        f"{runs['xla']['stage_ms']['field']:.3f} (+ integrate "
+        f"{runs['xla']['stage_ms']['integrate']:.3f}); peak {runs['K2']['peak_gib']:.2f} vs "
+        f"{runs['xla']['peak_gib']:.2f} GiB")
+    del gen
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=mx, runs=runs)
+
+
+def options_pairs(tbatch, tpre, gcuda_seed, dev):
+    """(c) phase 8's fused MAP3DBN b8 pair with ``pallas_field_bwd=False``
+    (the K2 forward, the remat backward) against the K8/K9 pair: the field's
+    gradients at the training shapes by rel L2 against K8+K9 (phase 5's
+    limit against autograd, 5e-2 a tensor); one pair of each from the same
+    state and draws, losses within 2% and gradient group norms within 3%
+    (phase 6's limits); ms a pair of each (1 warm-up + 3); then one pair
+    each with ``pallas_field_train=False`` and with ``hierarchical_sample``:
+    finite losses, moved weights, peak memory."""
+    import torch
+
+    from threedhumangan_tpu_torch.ops import raymarch as rm
+    from threedhumangan_tpu_torch.ops import raymarch_bwd as rb
+    from threedhumangan_tpu_torch.trainers.phase_trainer import init_train_state, train_step_pair
+
+    fmeta = dict(train_meta(), pallas_synthesis_train=True)
+    res = {}
+    # the remat backward against K8/K9 on the training shapes' field inputs
+    ts = init_train_state(fmeta, torch.Generator().manual_seed(SEED), dev)
+    with torch.no_grad():
+        ts.G.neural_field.sigma_layer.bias.fill_(0.5)
+    g = torch.Generator(device=dev).manual_seed(gcuda_seed)
+    cond = tpre(tbatch, rotate=True, generator=g)
+    fr, ph, pts, zv, geo, dirs, noise = train_field_inputs(ts.G, fmeta, cond, g)
+    S = fmeta["num_steps"]
+    # the packed inputs in bf16, as phase 5 holds K8/K9 against autograd:
+    # float32 columns reach the two backwards differently (K2, K8 and K9
+    # read them in bf16, the unfolded render adds the noise column in f32),
+    # which the pairs below compare end to end
+    with torch.no_grad():
+        pk = rm.pack_field_inputs(pts, geo, dirs, 2.0 / fmeta["side_length"], noise).to(
+            torch.bfloat16)
+    go = torch.randn(pk.shape[0], zv.shape[1], fmeta["feature_dim"] + 3, generator=g, device=dev)
+    gd = torch.randn(pk.shape[0], zv.shape[1], 1, generator=g, device=dev)
+    field = ts.G.neural_field
+    grads = {}
+    for bwd in (True, False):
+        fr_, ph_ = fr.clone().requires_grad_(), ph.clone().requires_grad_()
+        out, depth = rb.field_render_trainable(field, pk, fr_, ph_, zv, S, fmeta["white_back"],
+                                               fmeta["last_back"], torch.bfloat16,
+                                               not fmeta["fast_math"], pallas_bwd=bwd)
+        grads[bwd] = torch.autograd.grad((out * go).sum() + (depth * gd).sum(),
+                                         list(field.parameters()) + [fr_, ph_])
+    names = [n for n, _ in field.named_parameters()] + ["freq", "phase"]
+    errs = {n: rel_l2(a, b) for n, a, b in zip(names, grads[False], grads[True])}
+    log("options (c): pallas_field_bwd=False (K2 forward, autograd through the unfolded render "
+        "recomputed) vs K8/K9 at the MAP3DBN b8 training shapes, bf16 packed inputs, rel L2: "
+        + " ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    log("  tolerance: 5e-2 a tensor (phase 5's K8+K9 limit against autograd through the "
+        "unfolded render)")
+    if max(errs.values()) > 5e-2:
+        raise AssertionError("the remat backward disagrees with K8/K9")
+    res["grad_rel_l2"] = errs
+    del grads, out, depth, pk, go, gd, fr, ph, pts, zv, geo, dirs, noise, ts
+    torch.cuda.empty_cache()
+
+    draws = {"z": torch.randn(BATCH, fmeta["latent_dim"], generator=g, device=dev),
+             "coin": torch.tensor(0.3, device=dev),
+             "h_rotation": torch.zeros(BATCH, device=dev),
+             "v_rotation": torch.zeros(BATCH, device=dev)}
+
+    def pairs(meta, n_warm, n_timed, with_draws=False):
+        ts = init_train_state(meta, torch.Generator().manual_seed(SEED), dev)
+        with torch.no_grad():
+            ts.G.neural_field.sigma_layer.bias.fill_(0.5)
+        params = list(ts.G.parameters()) + list(ts.D.parameters())
+        before = [p.detach().clone() for p in params]
+        rng = torch.Generator(device=dev).manual_seed(gcuda_seed + 1)
+        walls, first = [], None
+        for it in range(n_warm + n_timed):
+            torch.cuda.synchronize()
+            if it == n_warm:
+                torch.cuda.reset_peak_memory_stats()
+                reset_counts()
+            t0 = time.perf_counter()
+            ts, stats = train_step_pair(ts, tbatch, rng, meta, tpre, meta["phases"][3], 1e-4,
+                                        4e-4, 0.5,
+                                        draws={"d": draws, "g": draws} if with_draws else None)
+            torch.cuda.synchronize()
+            if it >= n_warm:
+                walls.append(1e3 * (time.perf_counter() - t0))
+            first = first or {k: float(v[1]) for k, v in stats.items()}
+        if not all(math.isfinite(float(x)) for v in stats.values() for x in v):
+            raise AssertionError(f"non-finite stats: {stats}")
+        moved = sum(not torch.equal(a, b) for a, b in zip(before, params))
+        if moved < len(params) // 2:
+            raise AssertionError(f"{moved} of {len(params)} tensors moved")
+        return dict(ms_per_pair=sum(walls) / len(walls), ms=walls, first=first,
+                    moved=f"{moved}/{len(params)}", counts=read_counts(),
+                    peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+    # one pair each from the same state and draws: the G step's gradients
+    one = {k: pairs(dict(fmeta, pallas_field_bwd=k), 0, 1, True)["first"] for k in (True, False)}
+    keys = [k for k in one[True] if k in ("d_loss", "g_loss") or k.startswith("g_grad_norm/")]
+    worst = {k: abs(one[False][k] - one[True][k]) / (abs(one[True][k]) + 1e-12) for k in keys
+             if one[True][k] != 0}
+    log("  first pair, remat backward vs K8/K9 from the same state and draws: "
+        + " ".join(f"{k} {one[False][k]:.5g}/{one[True][k]:.5g}" for k in keys))
+    log("  tolerance: losses within 2% and grad group norms within 3% relative (phase 6's)")
+    for k, v in worst.items():
+        if v > (0.02 if k.endswith("loss") else 0.03):
+            raise AssertionError(f"the remat backward's pair disagrees with K8/K9's on {k}")
+    res["first_pair"] = one
+    for name, extra in (("K8/K9", {}), ("remat backward", dict(pallas_field_bwd=False))):
+        r = res[name] = pairs(dict(fmeta, **extra), 1, 3)
+        c = r["counts"]
+        log(f"  {name} pair (fused, 1 warm-up + 3): {r['ms_per_pair']:.3f} ms/pair "
+            f"({', '.join(f'{w:.3f}' for w in r['ms'])}), peak {r['peak_gib']:.2f} GiB, "
+            f"launches K2 {c['K2']} K8 {c['K8']} K9 {c['K9']} K10 {c['K10']} K11 {c['K11']}")
+    c = res["remat backward"]["counts"]
+    if c["K8"] or c["K9"] or c["K2"] != 2 * 3 or c["K4"]:
+        raise AssertionError(f"the remat backward's pair: expected 2 K2 a pair, no K8/K9: {c}")
+    for name, extra in (("pallas_field_train=False", dict(pallas_field_train=False)),
+                        ("hierarchical_sample", dict(hierarchical_sample=True))):
+        r = res[name] = pairs(dict(fmeta, **extra), 0, 1)
+        c = r["counts"]
+        log(f"  {name} pair (fused, 1): {r['ms_per_pair']:.3f} ms (with its first-call costs), "
+            f"peak {r['peak_gib']:.2f} GiB, {r['moved']} tensors moved, d_loss "
+            f"{r['first']['d_loss']:.5g} g_loss {r['first']['g_loss']:.5g}, launches {c}")
+        # the D step's fakes on K2 and the G step on the XLA path; or both
+        # hierarchical, each with K1 (coarse) and K6 (fine)
+        want = {"K2": 1, "K6": 0} if "pallas_field_train" in extra else {"K2": 0, "K6": 2}
+        if any(c[k] != v for k, v in want.items()) or c["K8"] or c["K9"] or c["K1"] != 2:
+            raise AssertionError(f"{name}: unexpected field launches {c}")
+    return res
+
+
+def options_synthesis(pre_raster, batch, z0, tbatch, tpre, dev):
+    """(d) the synthesis variants: one eval forward each at MAP3DBN512L b8
+    bf16 (finite; K3 exactly where the JAX selection rule puts it, K1 and
+    K2 unless there is no render); one per-op train pair at MAP3DBN b8 for
+    each normalisation (no K10/K11); the TINY card-vs-CPU check of each."""
+    import torch
+
+    from threedhumangan_tpu_torch.trainers.phase_trainer import init_train_state, train_step_pair
+
+    res = {"eval": {}, "pairs": {}}
+    rng = torch.Generator(device=dev).manual_seed(SEED + 17)
+    log(f"options (d): the synthesis variants, one eval forward each at MAP3DBN512L batch {BATCH}"
+        " bf16 (the field's density bias 0.5)")
+    for name, (extra, k3) in SYN_VARIANTS.items():
+        meta = dict(slice_meta(), **extra)
+        gen = options_generator(meta, dev)
+        r = timed_generation(gen, pre_raster, batch, z0, meta, rng, 0, 1)
+        r.pop("out")
+        c = r["counts"]
+        render = not extra.get("disable_render", False)
+        log(f"  {name:<22} {r['ms_per_batch']:9.3f} ms (the first call), peak "
+            f"{r['peak_gib']:.2f} GiB, launches K1 {c['K1']} K2 {c['K2']} K3 {c['K3']}")
+        if c["K3"] != int(k3) or (c["K1"], c["K2"]) != ((1, 1) if render else (0, 0)):
+            raise AssertionError(f"{name}: launches do not follow the selection rule: {c}")
+        res["eval"][name] = r
+        del gen
+        torch.cuda.empty_cache()
+    for norm in ("instance_norm", "adaptive_batch_norm", "none"):
+        meta = dict(train_meta(), spatial_normalization=norm, pallas_synthesis_train=True)
+        ts = init_train_state(meta, torch.Generator().manual_seed(SEED), dev)
+        before = [p.detach().clone() for p in ts.G.parameters()]
+        buf = {k: v.clone() for k, v in ts.G.synthesis_network.named_buffers()}
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, stats = train_step_pair(ts, tbatch, rng, meta, tpre, meta["phases"][3], 1e-4, 4e-4,
+                                    0.5)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        c = read_counts()
+        moved = sum(not torch.equal(a, b) for a, b in zip(before, ts.G.parameters()))
+        state = sum(not torch.equal(v, buf[k])
+                    for k, v in ts.G.synthesis_network.named_buffers())
+        log(f"  {norm} per-op pair at MAP3DBN b{BATCH} (pallas_synthesis_train asked, batch norm "
+            f"only): {ms:.3f} ms (the first call), peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, G tensors moved {moved}, "
+            f"synthesis buffers moved {state}, d_loss {float(stats['d_loss'][1]):.5g} g_loss "
+            f"{float(stats['g_loss'][1]):.5g}, launches K10 {c['K10']} K11 {c['K11']}")
+        if not all(math.isfinite(float(x)) for v in stats.values() for x in v):
+            raise AssertionError(f"{norm}: non-finite stats")
+        if c["K10"] or c["K11"] or moved < len(before) // 2:
+            raise AssertionError(f"{norm}: the pair took the fused half-blocks or did not move")
+        res["pairs"][norm] = dict(ms=ms, counts=c, moved=moved, buffers_moved=state)
+        del ts
+        torch.cuda.empty_cache()
+    for name, (extra, _) in SYN_VARIANTS.items():
+        res.setdefault("tiny", {})[name] = check_small_config(extra, sigma_bias=0.5)
+    return res
+
+
+def run_options(dev):
+    """Phase 15: (a)-(d) above.  Returns their readings."""
+    import torch
+
+    from threedhumangan_tpu_torch.data.dataset import (
+        SyntheticSHHQDataset, iterate_batches, to_tensors)
+    from threedhumangan_tpu_torch.data.preprocessor import get_preprocessor
+    from threedhumangan_tpu_torch.models.smpl import synthetic_smpl_model
+
+    t0 = time.perf_counter()
+    meta = slice_meta()
+    smpl = synthetic_smpl_model(num_verts=6890, num_faces=13776)
+    batch = to_tensors(next(iterate_batches(SyntheticSHHQDataset(smpl_model=smpl, **meta), BATCH,
+                                            shuffle=False)), dev)
+    pre = get_preprocessor(meta)
+    z0 = torch.randn(BATCH, meta["latent_dim"], generator=torch.Generator(device=dev)
+                     .manual_seed(SEED + 15), device=dev)
+    res = {"hierarchical": options_hierarchical(pre, batch, z0, dev),
+           "xla": options_xla(pre, batch, z0, dev)}
+    tmeta = train_meta()
+    tbatch = to_tensors(next(iterate_batches(SyntheticSHHQDataset(smpl_model=smpl, **tmeta),
+                                             BATCH, shuffle=False)), dev)
+    tpre = get_preprocessor(tmeta, smpl)
+    res["pairs"] = options_pairs(tbatch, tpre, SEED + 18, dev)
+    res["synthesis"] = options_synthesis(get_preprocessor(meta, smpl), batch, z0, tbatch, tpre,
+                                         dev)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"options: phase 15 took {res['seconds']:.1f} s")
+    return res
+
+
 def main():
     import torch
 
@@ -4145,6 +4555,10 @@ def main():
     # the perceptual and photometric terms
     objective = run_objective(torch.Generator(device=dev).manual_seed(SEED + 14), smpl)
 
+    # ---- 15. the generator's remaining options: hierarchical sampling, the
+    # XLA field path and its remat backward, the synthesis variants
+    options = run_options(dev)
+
     # ---- 11. result
     k7.update(k7_device_times())
     l512["k7"].update(l512.pop("k7_device")())
@@ -4159,6 +4573,15 @@ def main():
                   for k, r in objective["pairs"].items()})
     paths.update(objective_render_modal=objective["render_modal"]["counts"],
                  objective_trainer_ada=objective["trainer"]["counts"])
+    opt_pairs, opt_syn = options["pairs"], options["synthesis"]
+    paths.update({"options_hierarchical_512l": options["hierarchical"]["counts"],
+                  "options_k2_512l": options["xla"]["runs"]["K2"]["counts"],
+                  "options_xla_field_512l": options["xla"]["runs"]["xla"]["counts"]})
+    paths.update({f"options_pair {k}": opt_pairs[k]["counts"]
+                  for k in ("K8/K9", "remat backward", "pallas_field_train=False",
+                            "hierarchical_sample")})
+    paths.update({f"options_eval_512l {k}": r["counts"] for k, r in opt_syn["eval"].items()})
+    paths.update({f"options_pair {k}": r["counts"] for k, r in opt_syn["pairs"].items()})
     by_path = lambda k: {p: c.get(k, 0) for p, c in paths.items()}
     tc, fc = per_op["counts"], fused["counts"]
     kernels = [
@@ -4254,6 +4677,27 @@ def main():
         if key in apps["kernels"]:
             k["batch1"] = dict(apps["kernels"][key],
                                launches_sample_app=apps["sample"]["counts"][key])
+    # phase 15: the paths the options put these kernels on
+    hier = options["hierarchical"]
+    for k in kernels:
+        key = k["name"].split()[0]
+        if key in ("K1", "K6", "K3"):
+            k["hierarchical_512l"] = dict(
+                ms_per_batch=hier["ms_per_batch"], stage_ms=hier["stage_ms"],
+                peak_gib=hier["peak_gib"],
+                launches_per_batch=hier["counts"][key] / (OPT_WARMUP + OPT_TIMED))
+        if key == "K2":
+            k["field_bwd_off"] = dict(
+                grad_rel_l2_vs_k8k9=opt_pairs["grad_rel_l2"],
+                ms_per_pair=opt_pairs["remat backward"]["ms_per_pair"],
+                ms_per_pair_k8k9=opt_pairs["K8/K9"]["ms_per_pair"],
+                peak_gib=opt_pairs["remat backward"]["peak_gib"])
+            k["xla_field_512l"] = dict(
+                max_abs_err_vs_k2=options["xla"]["max_abs_err"],
+                ms_per_batch=options["xla"]["runs"]["xla"]["ms_per_batch"],
+                ms_per_batch_k2=options["xla"]["runs"]["K2"]["ms_per_batch"])
+        if key == "K3":
+            k["eval_variants_512l"] = {n: r["counts"]["K3"] for n, r in opt_syn["eval"].items()}
     order = sorted(kernels, key=lambda k: -k["excess_ms_per_iteration"])
     log("kernels by ms above their bound per main-path iteration (a batch or a fused pair): "
         + ", ".join(f"{k['name'].split()[0]} {k['excess_ms_per_iteration']:.3f}" for k in order))
@@ -4272,6 +4716,12 @@ def main():
                     for k, r in objective["pairs"].items())
         + f"; ADA p after {ADA_STEPS} trainer steps {objective['trainer']['ada_p']}, resume "
         f"{objective['trainer']['compared']}; on {card}")
+    log(f"options (512L b{BATCH}): hierarchical {hier['ms_per_batch']:.3f} ms/batch, peak "
+        f"{hier['peak_gib']:.2f} GiB; XLA field {options['xla']['runs']['xla']['ms_per_batch']:.3f}"
+        f" vs K2 {options['xla']['runs']['K2']['ms_per_batch']:.3f} ms/batch; MAP3DBN b{BATCH} "
+        f"pair with the remat backward {opt_pairs['remat backward']['ms_per_pair']:.3f} vs K8/K9 "
+        f"{opt_pairs['K8/K9']['ms_per_pair']:.3f} ms; phase 15 {options['seconds']:.1f} s; on "
+        f"{card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

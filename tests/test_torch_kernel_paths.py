@@ -119,11 +119,11 @@ def test_fused_geo_serves_the_d_fakes_with_noise_and_never_the_grad_path(spy):
     z = torch.randn(2, meta["latent_dim"])
     freq, phase = g.neural_field_mapping_network(z)
     with torch.no_grad():
-        gen.render(g, freq, phase, cond, meta, torch.Generator().manual_seed(1), train=True)
+        gen.render(g, freq, phase, cond, meta, torch.Generator().manual_seed(1))
     assert spy == [("field_render_geo_plain", rm.GEO_PACK + 1)]
     spy.clear()
     rgb, feats, _ = gen.render(g, freq, phase, cond, meta, torch.Generator().manual_seed(1),
-                               train=True, grad_field=True)
+                               grad_field=True)
     assert spy == [("geo_features_plain", 3), ("field_render_plain", rm.INPUT_PACK + 1)]
     (rgb.sum() + feats.sum()).backward()
     assert g.neural_field.sigma_layer.weight.grad is not None
@@ -161,10 +161,27 @@ def test_pallas_raster_false_gives_the_default_output():
 
 
 @pytest.mark.parametrize("key", ["pallas_field", "pallas_field_train", "pallas_field_bwd"])
-def test_unported_field_paths_raise(key):
+def test_unported_field_paths_raise(spy, key):
+    """Once refused, these keys are ported (tests/test_torch_field_options.py
+    holds their values against the JAX package) and no longer raise:
+    ``pallas_field=False`` renders on the XLA field path (K1, no field
+    kernel) at eval and in the G step; ``pallas_field_train=False`` takes it
+    in the G step only; ``pallas_field_bwd=False`` keeps the field kernel's
+    forward in the G step and backs it by autograd through the unfolded
+    render."""
     meta, g, cond = _nano(**{key: False})
-    with pytest.raises(NotImplementedError, match=key):
-        gen.generator_forward(g, torch.randn(2, meta["latent_dim"]), cond, meta)
+    z = torch.randn(2, meta["latent_dim"])
+    out = gen.generator_forward(g, z, cond, meta)
+    assert torch.isfinite(out["rgbs"]).all()
+    kernel = [] if key == "pallas_field" else ["field_render_plain"]
+    assert [name for name, _ in spy] == ["geo_features_plain"] + kernel
+    spy.clear()
+    freq, phase = g.neural_field_mapping_network(z)
+    rgb, feats, _ = gen.render(g, freq, phase, cond, meta, grad_field=True)
+    (rgb.sum() + feats.sum()).backward()
+    assert g.neural_field.sigma_layer.weight.grad is not None
+    kernel = ["field_render_plain"] if key == "pallas_field_bwd" else []
+    assert [name for name, _ in spy] == ["geo_features_plain"] + kernel
 
 
 _NO_JAX = r"""

@@ -3,9 +3,8 @@
 
 ``generator_forward`` / ``staged_forward`` (eval) run: the mapping
 networks, weak-perspective rays, the geo features
-(``models.smpl.get_geo_features``), the field render, a bilinear resize of
-the feature map, and K3 synthesis (``ops.synthesis_kernel.fused_synthesis``),
-under no-grad.
+(``models.smpl.get_geo_features``), the field render, a resize of the
+feature map, and the synthesis, under no-grad.
 
 The JAX meta flags that pick the field path's kernels select the port's
 counterparts, with the JAX package's on-accelerator values as defaults
@@ -19,6 +18,10 @@ counterparts, with the JAX package's on-accelerator values as defaults
   pallas_fuse_geo (False)   True: K5, the geo features inside the field
                             render (no K1, K2 or K6), off the grad path and
                             without ``disable_modulation``
+  pallas_field_bwd (True)   the G step's field backward on K8/K9; False: the
+                            remat backward (``ops.raymarch_bwd.FieldRenderRemat``:
+                            the K2/K4 forward, then autograd through the
+                            unfolded render recomputed, JAX raymarch.py:952-953)
 
 (``ops.raymarch.fused_field_render`` also takes K4 for a field with fewer
 than 2 trunk blocks.)  The TPU-only knobs ``pallas_tile_rays``,
@@ -27,41 +30,71 @@ than 2 trunk blocks.)  The TPU-only knobs ``pallas_tile_rays``,
 kernels and have no role here.  Nor does ``pallas_synthesis``: the JAX flag
 picks its fused synthesis kernel against the per-op eval stack
 (JAX ``generator.py:498-504``), two ways to compute the same function, and
-the port always runs K3 (its plain version on the CPU); False gives the
-same output.  The field always renders through the
-kernels' path: ``pallas_field``, ``pallas_field_train`` or
-``pallas_field_bwd`` set to False (the XLA field and its remat backward)
-raise ``NotImplementedError``.
+the port runs K3 (its plain version on the CPU) wherever the JAX rule
+allows it: batch norm or adaptive batch norm without 2D label or latent
+input; every other eval synthesis runs the per-op stack
+(``SynthesisNetwork.forward(train=False)``), which has no kernel in JAX
+either.
 
-``generator_forward(train=True)`` is the training forward: the nerf noise
-(``noise_std * randn`` from the generator) rides as the field render's
-noise column, the synthesis runs in train mode (batch moments; BN running
-stats and spectral-norm ``u`` updated in place), per op or, with
+The XLA field path (JAX ``generator.py:330-399``) is taken where JAX takes
+it: ``pallas_field`` False (the port's default is True on every device),
+``hierarchical_sample``, ``clamp_mode`` other than 'relu', or the grad path
+with ``pallas_field_train`` False.  The field runs over all points through
+``CoordConcatSiren.forward`` (plain PyTorch: JAX computes it in XLA), under
+``torch.utils.checkpoint`` with gradients and ``remat_field`` (default
+True), then ``ray_integration`` with the nerf noise drawn there.
+Hierarchical sampling integrates the detached coarse output with its own
+noise, samples as many fine depths per ray by ``sample_pdf``, takes the
+fine points' geo features through torch around K6 (``pallas_geo=False``
+as JAX, ``pallas_knn`` as set), evaluates the field on them, merges fine
+before coarse by a stable sort of depth and integrates the 2S samples.
+
+Nerf noise (``noise_std * randn``) is drawn wherever ``nerf_noise`` (or the
+``nerf_noise`` argument) is not 0, at eval as in training: on the kernels'
+path it rides as the field render's noise column.  ``draws`` hands in the
+draws that the JAX package makes from its own keys, so that a test can
+feed the same tensors to both: 'perturb' (uniform, the z samples' shape),
+'noise' (standard normal, one a sample of the final integration),
+'hier_noise' (standard normal, the coarse samples' shape) and 'pdf'
+(uniform, (B * rays, steps)); a key that is absent is drawn from
+``generator``.
+
+``generator_forward(train=True)`` is the training forward: the synthesis
+runs in train mode (batch moments; the running stats and spectral-norm
+``u`` updated in place), per op or, with batch norm and
 ``meta['pallas_synthesis_train']``, on the fused half-blocks (K10 forward,
 K11 backward), and it returns (outputs, the synthesis state).
 ``pallas_ok=True`` (the D step's fakes, under no-grad) renders with the
 selected kernel alone; ``pallas_ok=False`` (the G step) renders through
 ``ops.raymarch_bwd.FieldRender``, K2 or K4 forward with the K8/K9 backward.
 
-On a CUDA device every kernel launches; on the CPU each wrapper runs its
-plain PyTorch version.  Not ported: hierarchical sampling,
-``disable_render`` (the condition-image style head), the config-level
-``disable_synthesis`` (the train forward's argument of that name is
-ported: render-modal phases), 2D label/latent inputs, and nerf noise at
-eval; each raises ``NotImplementedError``.  ``remat_synthesis`` (default True, as in the JAX
-package) recomputes each synthesis block in the training backward
-(``models.synthesis`` docstring); it changes memory and time, not values.
-``auto_remat_synthesis`` is the trainers' shape-aware default for it.
+The synthesis variants follow JAX ``generator.py:471-550``:
+``disable_render`` takes the feature maps from the condition-image style
+head (``SynthesisStyleInput``) with a zero render and depth; the
+config-level ``disable_synthesis`` (and the argument of that name, at eval
+and in training) returns the render as both images; ``2d_label_input``
+concatenates the rasterized labels (``/ label_dim * 2 - 1``) to the
+coordinates and ``2d_latent_input`` the broadcast latent after the
+synthesis input; ``feature_map_interpolation`` takes every method of
+``jax.image.resize`` (``utils.image.resize``; bilinear upsampling stays on
+``F.interpolate``).  On a CUDA device every kernel launches; on the CPU
+each wrapper runs its plain PyTorch version.  ``remat_synthesis`` (default
+True, as in the JAX package) recomputes each synthesis block in the
+training backward (``models.synthesis`` docstring); it changes memory and
+time, not values.  ``auto_remat_synthesis`` is the trainers' shape-aware
+default for it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from threedhumangan_tpu_torch.models import synthesis as syn
 from threedhumangan_tpu_torch.models import volume_rendering as vr
@@ -73,7 +106,8 @@ from threedhumangan_tpu_torch.ops.raymarch import (fused_field_render, fused_fie
                                                   pack_field_inputs)
 from threedhumangan_tpu_torch.ops.raymarch_bwd import field_render_trainable
 from threedhumangan_tpu_torch.ops.synthesis_kernel import fold_synthesis_params, fused_synthesis
-from threedhumangan_tpu_torch.utils.misc import resolve_device
+from threedhumangan_tpu_torch.utils import image
+from threedhumangan_tpu_torch.utils.misc import resolve_device, take_draw
 
 
 # The flip point of ``auto_remat_synthesis``, in bytes of the estimated
@@ -157,45 +191,77 @@ def _no_stage(name: str):
     return contextlib.nullcontext()
 
 
-def resize_feature_maps(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
-    """Bilinear NHWC resize with half-pixel centres and no antialiasing
-    (``jax.image.resize(..., 'bilinear')`` when upsampling)."""
-    y = F.interpolate(x.permute(0, 3, 1, 2), size=(height, width), mode="bilinear",
-                      align_corners=False, antialias=False)
-    return y.permute(0, 2, 3, 1).contiguous()
+def resize_feature_maps(x: torch.Tensor, height: int, width: int,
+                        method: str = "bilinear") -> torch.Tensor:
+    """NHWC resize as ``jax.image.resize(..., method)``: a bilinear (or
+    'linear') upsampling is ``F.interpolate`` with half-pixel centres and no
+    antialiasing; every other case ``utils.image.resize``."""
+    if method in ("bilinear", "linear") and x.shape[1] <= height and x.shape[2] <= width:
+        y = F.interpolate(x.permute(0, 3, 1, 2), size=(height, width), mode="bilinear",
+                          align_corners=False, antialias=False)
+        return y.permute(0, 2, 3, 1).contiguous()
+    return image.resize(x, height, width, method)
+
+
+def xla_field_path(meta: Dict, grad_field: bool) -> bool:
+    """True where the JAX package renders on its XLA field path
+    (``generator.py:205-210``)."""
+    return (not meta.get("pallas_field", True) or meta.get("hierarchical_sample", False)
+            or meta["clamp_mode"] != "relu"
+            or (grad_field and not meta.get("pallas_field_train", True)))
+
+
+def _field(gen: Map3DGenerator, meta: Dict, freq, phase, points, geo, dirs, compute_dtype):
+    """The field over all points (JAX ``field_apply``): (B, P, 3+F+1) in
+    float32, the products in ``compute_dtype`` accumulated in float32; under
+    ``torch.utils.checkpoint`` with gradients and ``remat_field``."""
+    fn = functools.partial(gen.neural_field, input_scaler=2.0 / meta["side_length"],
+                           compute_dtype=compute_dtype, fast_math=meta.get("fast_math", True))
+    if torch.is_grad_enabled() and meta.get("remat_field", True):
+        return checkpoint(fn, points, freq, phase, geo, dirs, use_reentrant=False)
+    return fn(points, freq, phase, geo, dirs)
+
+
+def _geo(conditions: Dict, meta: Dict, points, pallas_geo: bool, ray_layout):
+    f32 = lambda t: t.float().contiguous()
+    if meta.get("disable_modulation", False):
+        return points.new_zeros(points.shape[0], points.shape[1], meta["geo_feature_dim"])
+    return get_geo_features(
+        points, f32(conditions["skeletons_xyz"]), f32(conditions["vertices"]),
+        f32(conditions["tpose_vertices"]), f32(conditions["fk_matrices"]),
+        f32(conditions["lbs_weights"]), legacy_mode=meta.get("legacy_mode", False),
+        use_pallas_knn=meta.get("pallas_knn", True), use_pallas_geo=pallas_geo,
+        ray_layout=ray_layout)
 
 
 def render(gen: Map3DGenerator, freq, phase, conditions: Dict, meta: Dict,
            generator: Optional[torch.Generator] = None, compute_dtype=torch.float32,
-           stage: Callable = _no_stage, train: bool = False, nerf_noise=None,
-           grad_field: bool = False):
+           stage: Callable = _no_stage, nerf_noise=None, grad_field: bool = False,
+           draws: Optional[Dict] = None):
     """Volume-render the pose-conditioned field.  Returns (rgb_render NHWC,
-    feature_maps NHWC, depths (B, rays, 1)).  ``train`` draws the nerf
-    noise (``nerf_noise``, else meta's); ``grad_field`` renders through
-    ``FieldRender`` so that gradients reach the field and freq/phase."""
-    if meta.get("hierarchical_sample", False) or meta["clamp_mode"] != "relu":
-        raise NotImplementedError("hierarchical sampling / softplus clamp")
-    for key in ("pallas_field", "pallas_field_train", "pallas_field_bwd"):
-        if not meta.get(key, True):
-            raise NotImplementedError(f"{key}=False: the XLA field path is not ported")
+    feature_maps NHWC, depths (B, rays, 1)).  The nerf noise is
+    ``nerf_noise``, else meta's, at eval and in training; ``grad_field``
+    renders so that gradients reach the field and freq/phase (the G step);
+    ``draws`` as the module docstring says."""
     noise_std = meta.get("nerf_noise", 0.5) if nerf_noise is None else nerf_noise
-    if noise_std != 0 and not train:
-        raise NotImplementedError("nerf noise belongs to training; set meta['nerf_noise'] = 0")
+    xla = xla_field_path(meta, grad_field)
     # the geo features inside the field render: off the grad path and
     # without disable_modulation (JAX generator.py:215-220)
-    fuse_geo = (meta.get("pallas_fuse_geo", False) and not grad_field
+    fuse_geo = (not xla and meta.get("pallas_fuse_geo", False) and not grad_field
                 and not meta.get("disable_modulation", False))
     render_w, render_h, S = meta["render_width"], meta["render_height"], meta["num_steps"]
     B = freq.shape[0]
+    R = render_w * render_h
     with stage("rays"):
         focals = conditions["intrinsics"][:, 0, 0]
         scales = conditions["scales"].float()
         points_cam, z_vals, rays_d_cam = vr.get_initial_rays_weak_perspective(
             focals, scales, S, (render_w, render_h), meta["ray_start"], meta["ray_end"])
-        points, z_vals, ray_dirs = vr.transform_sampled_points(
+        points, z_vals, ray_dirs, origins = vr.transform_sampled_points(
             points_cam, z_vals, rays_d_cam, conditions["cam2world_matrices"], generator,
-            perturb=meta.get("perturb_rays", True))
-        points = points.reshape(B, render_w * render_h * S, 3)
+            perturb=meta.get("perturb_rays", True),
+            perturb_u=None if draws is None else draws.get("perturb"))
+        points = points.reshape(B, R * S, 3)
         dirs = vr.expand_ray_directions(ray_dirs, S)
         if meta.get("lock_view_dependence", False):
             dirs = torch.zeros_like(dirs)
@@ -205,38 +271,97 @@ def render(gen: Map3DGenerator, freq, phase, conditions: Dict, meta: Dict,
         if fuse_geo:  # only the per-vertex [inverse-FK 16; T-pose 3] table
             vfeat = build_vertex_features(conditions["tpose_vertices"], conditions["fk_matrices"],
                                           conditions["lbs_weights"])
-        elif meta.get("disable_modulation", False):
-            geo = points.new_zeros(B, points.shape[1], meta["geo_feature_dim"])
         else:
-            geo = get_geo_features(
-                points, f32(conditions["skeletons_xyz"]), f32(conditions["vertices"]),
-                f32(conditions["tpose_vertices"]), f32(conditions["fk_matrices"]),
-                f32(conditions["lbs_weights"]), legacy_mode=meta.get("legacy_mode", False),
-                use_pallas_knn=meta.get("pallas_knn", True),
-                use_pallas_geo=meta.get("pallas_geo", True), ray_layout=(render_w, S))
-    with stage("field"):
-        noise = None
-        if noise_std != 0:
-            noise = noise_std * torch.randn(B, points.shape[1], 1, generator=generator,
-                                            device=points.device)
-        z_flat = z_vals.reshape(B, render_w * render_h, S)
-        kw = dict(white_back=meta.get("white_back", False), last_back=meta.get("last_back", False),
-                  compute_dtype=compute_dtype, exact_sin=not meta.get("fast_math", True))
-        if fuse_geo:
-            packed = torch.cat([points, dirs] + ([noise] if noise is not None else []), -1)
-            render_out, depths = fused_field_render_geo(
-                gen.neural_field, packed, freq, phase, z_flat, f32(conditions["vertices"]),
-                vfeat, f32(conditions["skeletons_xyz"]), S, 2.0 / meta["side_length"],
-                legacy_mode=meta.get("legacy_mode", False), **kw)
-        else:
-            packed = pack_field_inputs(points, geo, dirs, 2.0 / meta["side_length"], noise=noise)
-            render_fn = field_render_trainable if grad_field else fused_field_render
-            # the JAX loop-mode kernel is the unfolded one: both select K4
-            fold = meta.get("pallas_fold_film", True) and not meta.get("pallas_march_loop", False)
-            render_out, depths = render_fn(gen.neural_field, packed, freq, phase, z_flat, S,
-                                           fold_film=fold, **kw)
+            geo = _geo(conditions, meta, points, meta.get("pallas_geo", True), (render_w, S))
+    if xla:
+        render_out, depths = _render_xla(gen, meta, freq, phase, conditions, points, geo, dirs,
+                                         z_vals, ray_dirs, origins, noise_std, generator,
+                                         compute_dtype, stage, draws)
+    else:
+        with stage("field"):
+            noise = None
+            if noise_std != 0:
+                noise = noise_std * take_draw(draws, "noise", lambda: torch.randn(
+                    B, points.shape[1], 1, generator=generator, device=points.device)).reshape(
+                        B, points.shape[1], 1)
+            z_flat = z_vals.reshape(B, R, S)
+            kw = dict(white_back=meta.get("white_back", False),
+                      last_back=meta.get("last_back", False),
+                      compute_dtype=compute_dtype, exact_sin=not meta.get("fast_math", True))
+            if fuse_geo:
+                packed = torch.cat([points, dirs] + ([noise] if noise is not None else []), -1)
+                render_out, depths = fused_field_render_geo(
+                    gen.neural_field, packed, freq, phase, z_flat, f32(conditions["vertices"]),
+                    vfeat, f32(conditions["skeletons_xyz"]), S, 2.0 / meta["side_length"],
+                    legacy_mode=meta.get("legacy_mode", False), **kw)
+            else:
+                packed = pack_field_inputs(points, geo, dirs, 2.0 / meta["side_length"],
+                                           noise=noise)
+                # the JAX loop-mode kernel is the unfolded one: both select K4
+                fold = (meta.get("pallas_fold_film", True)
+                        and not meta.get("pallas_march_loop", False))
+                if grad_field:
+                    render_out, depths = field_render_trainable(
+                        gen.neural_field, packed, freq, phase, z_flat, S, fold_film=fold,
+                        pallas_bwd=meta.get("pallas_field_bwd", True), **kw)
+                else:
+                    render_out, depths = fused_field_render(gen.neural_field, packed, freq,
+                                                            phase, z_flat, S, fold_film=fold,
+                                                            **kw)
     render_out = render_out.reshape(B, render_h, render_w, -1)
     return render_out[..., :3] * 2.0 - 1.0, render_out[..., 3:], depths
+
+
+def _render_xla(gen, meta, freq, phase, conditions, points, geo, dirs, z_vals, ray_dirs,
+                origins, noise_std, generator, compute_dtype, stage, draws):
+    """The XLA field path (JAX ``generator.py:330-399``): returns (render
+    (B, rays, 3+F), depths (B, rays, 1))."""
+    render_w, S = meta["render_width"], meta["num_steps"]
+    B, R = z_vals.shape[0], z_vals.shape[1]
+    F_out = gen.neural_field.feature_layer_linear.out_features + 4
+    clamp = meta["clamp_mode"]
+    randn = lambda *shape: torch.randn(*shape, generator=generator, device=points.device)
+    with stage("field"):
+        coarse = _field(gen, meta, freq, phase, points, geo, dirs, compute_dtype)
+        coarse = coarse.reshape(B, R, S, F_out)
+    z_int, field_out = z_vals, coarse
+    if meta.get("hierarchical_sample", False):
+        with stage("pdf"), torch.no_grad():
+            hier = None
+            if noise_std != 0:
+                hier = take_draw(draws, "hier_noise", lambda: randn(B, R, S, 1)).reshape(B, R, S, 1)
+            _, _, c_weights = vr.ray_integration(coarse.detach(), z_vals, noise_std=noise_std,
+                                                 noise=hier, clamp_mode=clamp)
+            w_flat = c_weights.reshape(B * R, S) + 1e-5
+            z_flat = z_vals.reshape(B * R, S)
+            z_mid = 0.5 * (z_flat[:, :-1] + z_flat[:, 1:])
+            u = take_draw(draws, "pdf", lambda: torch.rand(B * R, S, generator=generator,
+                                                           device=points.device))
+            fine_z = vr.sample_pdf(z_mid, w_flat[:, 1:-1], S, u=u).reshape(B, R, S, 1)
+            fine_points = (origins[:, :, None, :] + ray_dirs[:, :, None, :] * fine_z).reshape(
+                B, R * S, 3)
+        with stage("fine_geo"), torch.no_grad():
+            fine_geo = _geo(conditions, meta, fine_points, False, (render_w, S))
+        with stage("fine_field"):
+            fine = _field(gen, meta, freq, phase, fine_points, fine_geo, dirs, compute_dtype)
+            fine = fine.reshape(B, R, S, F_out)
+        with stage("merge"):
+            # fine before coarse, then a stable sort by depth (jnp.argsort)
+            z_int = torch.cat([fine_z, z_vals], -2)
+            field_out = torch.cat([fine, coarse], -2)
+            _, order = torch.sort(z_int[..., 0], dim=-1, stable=True)
+            z_int = torch.gather(z_int, 2, order[..., None])
+            field_out = torch.gather(field_out, 2,
+                                     order[..., None].expand(-1, -1, -1, field_out.shape[-1]))
+    with stage("integrate"):
+        noise = None
+        if noise_std != 0:
+            noise = take_draw(draws, "noise", lambda: randn(*z_int.shape)).reshape(z_int.shape)
+        render_out, depths, _ = vr.ray_integration(
+            field_out, z_int, noise_std=noise_std, noise=noise,
+            white_back=meta.get("white_back", False), last_back=meta.get("last_back", False),
+            clamp_mode=clamp)
+    return render_out, depths
 
 
 @torch.no_grad()
@@ -255,62 +380,91 @@ def generator_forward(gen: Map3DGenerator, z, conditions: Dict, meta: Dict,
                       avg_latent=None, with_depth: bool = False,
                       stage: Callable = _no_stage, train: bool = False, nerf_noise=None,
                       latent_indices=None, pallas_ok: bool = True,
-                      disable_synthesis: bool = False):
+                      disable_synthesis: bool = False, draws: Optional[Dict] = None):
     """Eval forward (``train=False``): returns {'rgbs', 'rgbs_render'} NHWC
     in [-1, 1], plus 'depths' and 'skeletons' when ``with_depth``.  Train
     forward: returns ({'rgbs', 'rgbs_render'}, synthesis state), see the
-    module docstring; ``disable_synthesis`` (train only, a render-modal
-    phase) skips the mapping to styles, the resize and the synthesis and
-    returns the render as both images, with the synthesis state untouched.
-    ``stage(name)`` returns a context manager wrapped around each stage
-    (for timing)."""
+    module docstring.  ``disable_synthesis`` (or meta's; a render-modal
+    phase in training) skips the mapping to styles, the resize and the
+    synthesis and returns the render as both images, with the synthesis
+    state untouched.  ``draws``: the module docstring.  ``stage(name)``
+    returns a context manager wrapped around each stage (for timing)."""
+    disable_synthesis = disable_synthesis or meta.get("disable_synthesis", False)
     if train:
         return _train_forward(gen, z, conditions, meta, generator, compute_dtype, nerf_noise,
-                              latent_indices, pallas_ok, stage, disable_synthesis)
-    if disable_synthesis:
-        raise NotImplementedError("disable_synthesis at eval")
+                              latent_indices, pallas_ok, stage, disable_synthesis, draws)
     return _eval_forward(gen, z, conditions, meta, generator, compute_dtype, truncation_psi,
-                         avg_latent, with_depth, stage)
+                         avg_latent, with_depth, stage, disable_synthesis, nerf_noise, draws)
 
 
-def _check_synthesis(meta: Dict):
-    norm = meta.get("spatial_normalization")
-    if (meta.get("disable_synthesis", False) or meta.get("2d_label_input", False)
-            or meta.get("2d_latent_input", False)
-            or norm not in ("batch_norm", "adaptive_batch_norm")):
-        raise NotImplementedError("synthesis needs batch-norm SPADE without 2D label/latent inputs")
-    if meta.get("disable_render", False):
-        raise NotImplementedError("disable_render (the condition-image style head)")
-    if meta.get("feature_map_interpolation", "bilinear") != "bilinear":
-        raise NotImplementedError("only bilinear feature-map interpolation is ported")
-    return norm
+def _mapping(gen, meta, latent, compute_dtype, disable_synthesis):
+    """(freq, phase), or None under ``disable_render``, and the styles, or
+    None under ``disable_synthesis``."""
+    film = styles = None
+    if not meta.get("disable_render", False):
+        field_latent = (latent if meta.get("neural_field_latent_input", True)
+                        else torch.zeros_like(latent))
+        film = gen.neural_field_mapping_network(field_latent, compute_dtype)
+    if not disable_synthesis:
+        _, styles = gen.synthesis_mapping_network(latent, compute_dtype)
+    return film, styles
+
+
+def _render_or_condition(gen, meta, conditions, film, latent, generator, compute_dtype, stage,
+                         nerf_noise, grad_field, draws):
+    """(rgb_render, feature_maps, depths): the field render, or under
+    ``disable_render`` the condition-image style head's feature maps with a
+    zero render and depth (JAX ``generator.py:450-466``)."""
+    if not meta.get("disable_render", False):
+        return render(gen, *film, conditions, meta, generator, compute_dtype, stage,
+                      nerf_noise=nerf_noise, grad_field=grad_field, draws=draws)
+    B = latent.shape[0]
+    rh, rw = meta["render_height"], meta["render_width"]
+    with stage("condition"):
+        modal = meta["condition_modal_gen"]
+        condition = conditions[modal]
+        if "segments" in modal:
+            condition = condition[..., None].to(latent.dtype) / (meta["label_dim"] - 1) * 2 - 1
+        lat = latent if meta.get("spade_latent_input", True) else torch.zeros_like(latent)
+        feature_maps = gen.synthesis_style_input(condition, lat, compute_dtype)
+    return (latent.new_zeros(B, rh, rw, 3), feature_maps, latent.new_zeros(B, rh * rw, 1))
+
+
+def _synthesis_input(gen, meta, conditions, latent, B, gen_h, gen_w, compute_dtype):
+    """The synthesis input: sin(conv1x1(coords)), the coordinates with the
+    rasterized labels (``2d_label_input``: / label_dim * 2 - 1) and the
+    broadcast latent after it (``2d_latent_input``)."""
+    coords = syn.get_2d_coords(B, gen_h, gen_w, device=latent.device)
+    if meta.get("2d_label_input", False):
+        label = conditions["rasterized_segments"][..., None] / meta["label_dim"] * 2 - 1
+        coords = torch.cat([coords, label.to(coords.dtype)], -1)
+    x = gen.synthesis_input(coords, compute_dtype)
+    if meta.get("2d_latent_input", False):
+        lat = latent[:, None, None, :].expand(B, gen_h, gen_w, latent.shape[-1])
+        x = torch.cat([x, lat.to(x.dtype)], -1)
+    return x
 
 
 def _train_forward(gen, z, conditions, meta, generator, compute_dtype, nerf_noise,
-                   latent_indices, pallas_ok, stage, disable_synthesis):
-    _check_synthesis(meta)
+                   latent_indices, pallas_ok, stage, disable_synthesis, draws):
     B = z.shape[0]
     latent = z if latent_indices is None else gen.latent_pool.latents[latent_indices.long()]
     with stage("mapping"):
-        field_latent = (latent if meta.get("neural_field_latent_input", True)
-                        else torch.zeros_like(latent))
-        freq, phase = gen.neural_field_mapping_network(field_latent, compute_dtype)
-        if not disable_synthesis:
-            _, styles = gen.synthesis_mapping_network(latent, compute_dtype)
-    rgb_render, feature_maps, _ = render(gen, freq, phase, conditions, meta, generator,
-                                         compute_dtype, stage, train=True, nerf_noise=nerf_noise,
-                                         grad_field=not pallas_ok)
+        film, styles = _mapping(gen, meta, latent, compute_dtype, disable_synthesis)
+    rgb_render, feature_maps, _ = _render_or_condition(
+        gen, meta, conditions, film, latent, generator, compute_dtype, stage, nerf_noise,
+        not pallas_ok, draws)
     if disable_synthesis:  # the render is the output; the feature channels get no cotangent
         return ({"rgbs": rgb_render, "rgbs_render": rgb_render},
                 dict(gen.synthesis_network.named_buffers()))
     gen_h, gen_w = meta["gen_height"], meta["gen_width"]
     with stage("resize"):
-        feature_maps = resize_feature_maps(feature_maps.to(compute_dtype), gen_h, gen_w)
+        feature_maps = resize_feature_maps(feature_maps.to(compute_dtype), gen_h, gen_w,
+                                           meta.get("feature_map_interpolation", "bilinear"))
     with stage("synthesis"):
-        coords = syn.get_2d_coords(B, gen_h, gen_w, device=z.device)
-        x = gen.synthesis_input(coords, compute_dtype)
+        x = _synthesis_input(gen, meta, conditions, latent, B, gen_h, gen_w, compute_dtype)
         # pallas_synthesis_train (the JAX key) picks the fused half-blocks,
-        # K10 forward / K11 backward; the JAX TPU-only keys
+        # K10 forward / K11 backward, under batch norm; the JAX TPU-only keys
         # pallas_synthesis_train_tile_rows and pallas_interpret have no role here
         rgbs = gen.synthesis_network(x, feature_maps, styles, compute_dtype, train=True,
                                      fused=meta.get("pallas_synthesis_train", False),
@@ -319,39 +473,56 @@ def _train_forward(gen, z, conditions, meta, generator, compute_dtype, nerf_nois
             dict(gen.synthesis_network.named_buffers()))
 
 
+def fused_synthesis_eval(meta: Dict, normalization: str) -> bool:
+    """The JAX rule for its fused eval synthesis (``generator.py:498-504``)
+    without the ``pallas_synthesis`` flag: K3 runs batch norm or adaptive
+    batch norm without 2D label or latent input."""
+    return (normalization in ("batch_norm", "adaptive_batch_norm")
+            and not meta.get("2d_label_input", False) and not meta.get("2d_latent_input", False))
+
+
 @torch.no_grad()
 def _eval_forward(gen, z, conditions, meta, generator, compute_dtype, truncation_psi,
-                  avg_latent, with_depth, stage):
+                  avg_latent, with_depth, stage, disable_synthesis, nerf_noise, draws):
     B = z.shape[0]
     gen_h, gen_w = meta["gen_height"], meta["gen_width"]
     render_h, render_w = meta["render_height"], meta["render_width"]
-    norm = _check_synthesis(meta)
     latent = z
     with stage("mapping"):
-        field_latent = (latent if meta.get("neural_field_latent_input", True)
-                        else torch.zeros_like(latent))
-        freq, phase = gen.neural_field_mapping_network(field_latent, compute_dtype)
-        _, styles = gen.synthesis_mapping_network(latent, compute_dtype)
+        film, styles = _mapping(gen, meta, latent, compute_dtype, False)
         if truncation_psi < 1.0:
             if avg_latent is None:
                 avg_latent = generate_avg_latent(gen, meta, generator, device=z.device)
             avg_z, avg_freq, avg_phase, avg_styles = avg_latent
-            freq = avg_freq + truncation_psi * (freq - avg_freq)
-            phase = avg_phase + truncation_psi * (phase - avg_phase)
+            if film is not None:
+                film = tuple(a + truncation_psi * (x - a)
+                             for x, a in zip(film, (avg_freq, avg_phase)))
+            latent = avg_z + truncation_psi * (latent - avg_z)
             styles = avg_styles + truncation_psi * (styles - avg_styles)
 
-    rgb_render, feature_maps, depths = render(
-        gen, freq, phase, conditions, meta, generator, compute_dtype, stage)
+    rgb_render, feature_maps, depths = _render_or_condition(
+        gen, meta, conditions, film, latent, generator, compute_dtype, stage, nerf_noise, False,
+        draws)
 
-    with stage("resize"):
-        feature_maps = resize_feature_maps(feature_maps.to(compute_dtype), gen_h, gen_w)
-
-    with stage("synthesis"):
-        folded = fold_synthesis_params(gen.synthesis_network, gen.synthesis_input, norm)
-        rgbs = fused_synthesis(folded, feature_maps, styles, meta["synthesis_blocks"],
-                               tuple(meta["mod_blocks"]), meta.get("map3d_mode", "isolated"),
-                               compute_dtype)
-    output = {"rgbs": rgbs, "rgbs_render": rgb_render}
+    if disable_synthesis:
+        output = {"rgbs": rgb_render, "rgbs_render": rgb_render}
+    else:
+        with stage("resize"):
+            feature_maps = resize_feature_maps(feature_maps.to(compute_dtype), gen_h, gen_w,
+                                               meta.get("feature_map_interpolation", "bilinear"))
+        with stage("synthesis"):
+            net = gen.synthesis_network
+            norm = net.spatial_normalization
+            if fused_synthesis_eval(meta, norm):
+                folded = fold_synthesis_params(net, gen.synthesis_input, norm)
+                rgbs = fused_synthesis(folded, feature_maps, styles, meta["synthesis_blocks"],
+                                       tuple(meta["mod_blocks"]),
+                                       meta.get("map3d_mode", "isolated"), compute_dtype)
+            else:
+                x = _synthesis_input(gen, meta, conditions, latent, B, gen_h, gen_w,
+                                     compute_dtype)
+                rgbs = net(x, feature_maps, styles, compute_dtype)
+        output = {"rgbs": rgbs, "rgbs_render": rgb_render}
 
     if with_depth:
         focals = conditions["intrinsics"][:, 0, 0]

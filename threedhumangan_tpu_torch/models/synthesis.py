@@ -1,37 +1,49 @@
 """2D synthesis stack (threedhumangan_tpu/models/synthesis.py).
 
-SPADE blocks with batch norm and spectral-norm 1x1 convs, the
-Fourier-feature input head, the condition-image style head and ToRGB.
-NHWC throughout; a 1x1 conv is a matmul over flattened pixels whose result
-is stored in the compute dtype, as in the JAX package.
+SPADE blocks with spectral-norm 1x1 convs under batch norm, adaptive batch
+norm, instance norm or no norm; the pixelwise blocks of
+``spatial_normalization='none'`` (two demodulated style-modulated products a
+block); the Fourier-feature input head, the condition-image style head and
+ToRGB.  NHWC throughout (the pixelwise blocks run on the flat (B, H*W, C)
+map); a 1x1 conv is a matmul over flattened pixels whose result is stored
+in the compute dtype, as in the JAX package.
 
-Eval mode normalises by the running stats and a frozen ``u``.  Train mode
-(``train=True``) normalises by the batch moments, which gradients flow
-through, and updates the state in place under no-grad: the BN running stats
-(momentum 0.1, unbiased variance, ``num_batches_tracked``) and one power
-iteration of each ``u``.  Under a process group the batch moments are those
-of the global batch, reduced across ranks (``batch_moments``), so every
-rank's running stats and ``u`` stay equal.  It runs per op (the JAX package's
-``pallas_synthesis_train=False`` path) or, with ``fused=True``, on the fused
-half-blocks of ``ops/synthesis_train.py`` (K10/K11; the JAX fused path).
-Train mode is ported for batch norm only (the MAP3DBN family); adaptive
-batch norm and instance norm raise.
+Eval mode normalises by the running stats (batch norm, adaptive batch
+norm), per image (instance norm) or not at all, with a frozen ``u``.  Train
+mode (``train=True``) updates the state in place under no-grad: one power
+iteration of each ``u`` and the running stats.  Batch norm normalises by
+the batch moments, which gradients flow through, and updates its stats at
+momentum 0.1 with the unbiased variance; adaptive batch norm takes the
+unbiased batch moments under no-grad, moves its stats by
+``old + (m - old) * 0.05`` and normalises by the updated stats, so no
+gradient flows through the moments; instance norm's per-image moments carry
+gradient and it keeps no state.  Under a process group the batch moments
+are those of the global batch, reduced across ranks (``batch_moments``;
+adaptive batch norm takes the mean over ranks of each rank's moments, as
+the JAX package), so every rank's running stats and ``u`` stay equal.
+Batch norm runs per op (the JAX package's ``pallas_synthesis_train=False``
+path) or, with ``fused=True``, on the fused half-blocks of
+``ops/synthesis_train.py`` (K10/K11; the JAX fused path, batch norm only).
 
 ``remat=True`` (the JAX ``jax.checkpoint`` around each block) runs each
-train-mode block with its ToRGB under ``torch.utils.checkpoint`` (non-
-reentrant): the backward keeps the block's input and recomputes the rest.
-A block's state advances outside the recomputed part, once a step: both
-``u`` are stepped and both convs' normalised weights formed before the
-block runs and passed in, and the running stats take the moments the block
-returns.  The recompute therefore sees the same weights and updates
-nothing.  Under a process group the recompute runs the moments' two
-all-reduces again, in the same order on every rank and on the same inputs,
-so it gets the forward's moments bit for bit.
+train-mode block under ``torch.utils.checkpoint`` (non-reentrant; a SPADE
+block with its ToRGB): the backward keeps the block's input and recomputes
+the rest.  A block's state advances outside the recomputed part, once a
+step: both ``u`` are stepped and both convs' normalised weights formed
+before the block runs and passed in, adaptive batch norm's running stats
+before the step are passed in too, and the running stats take the values
+the block returns.  The recompute therefore sees the same weights and
+stats and updates nothing.  Under a process group the recompute runs the
+moments' all-reduces again, in the same order on every rank and on the
+same inputs, so it gets the forward's moments bit for bit.
 
 Keys follow the reference torch modules: ``network.m3d_{i}.conv_0.weight_orig``
-/ ``.weight_u`` (spectral norm), ``spade_{s}.first_norm.*`` (SyncBatchNorm),
-``spade_{s}.mlp_shared.0``, ``to_rgbs.m3d_{i}.linear``; conv weights are
-(out, in, 1, 1).
+/ ``.weight_u`` (spectral norm), ``spade_{s}.first_norm.*`` (SyncBatchNorm;
+none under instance norm or no norm), ``spade_{s}.mlp_shared.0``,
+``to_rgbs.m3d_{i}.linear``; conv weights are (out, in, 1, 1).  No released
+checkpoint holds a pixelwise block: its keys follow the JAX tree,
+``network.m3d_{i}.mod1.weight`` ((in, out), as JAX's), ``mod1.bias``,
+``mod1.affine.weight`` / ``.bias`` (a 1x1 conv), and ``mod2.*``.
 """
 
 from __future__ import annotations
@@ -44,7 +56,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from threedhumangan_tpu_torch.parallel import dist
-from threedhumangan_tpu_torch.utils.misc import lrelu, mm, normal_, uniform_
+from threedhumangan_tpu_torch.utils.misc import (lrelu, mm, normal_, normalize_2nd_moment,
+                                                 uniform_)
 
 SPADE_HIDDEN = 128
 
@@ -159,13 +172,40 @@ def batch_moments(x: torch.Tensor):
     return mean, var
 
 
+@torch.no_grad()
+def adaptive_stats(x: torch.Tensor, old_mean, old_var, momentum: float = 0.05):
+    """Adaptive batch norm's running stats after one train step (JAX
+    ``apply_adaptive_batch_norm``): this rank's mean and unbiased variance
+    of NHWC ``x`` under no-grad, each then averaged over ranks, and the
+    stats moved by ``old + (m - old) * momentum``."""
+    xs = x.detach().float()
+    mean = xs.mean((0, 1, 2))
+    n = xs.shape[0] * xs.shape[1] * xs.shape[2]
+    var = torch.square(xs - mean).sum((0, 1, 2)) / max(n - 1, 1)
+    mean, var = dist.mean_across_ranks(mean), dist.mean_across_ranks(var)
+    return old_mean + (mean - old_mean) * momentum, old_var + (var - old_var) * momentum
+
+
+def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """``nn.InstanceNorm2d`` without affine or running stats on NHWC ``x``:
+    per-image, per-channel moments in float32, differentiable."""
+    x32 = x.float()
+    mean = x32.mean((1, 2), keepdim=True)
+    var = torch.square(x32 - mean).mean((1, 2), keepdim=True)
+    return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+NORMALIZATIONS = ("batch_norm", "adaptive_batch_norm", "instance_norm", "none")
+
+
 class SPADE2d(nn.Module):
     def __init__(self, input_dim: int, feature_dim: int, normalization: str = "batch_norm"):
         super().__init__()
+        if normalization not in NORMALIZATIONS:
+            raise ValueError(f"SPADE with {normalization!r}")
         self.normalization = normalization
-        if normalization not in ("batch_norm", "adaptive_batch_norm"):
-            raise NotImplementedError(f"SPADE with {normalization!r}")
-        self.first_norm = nn.BatchNorm2d(input_dim, affine=normalization == "batch_norm")
+        if normalization in ("batch_norm", "adaptive_batch_norm"):
+            self.first_norm = nn.BatchNorm2d(input_dim, affine=normalization == "batch_norm")
         self.mlp_shared = nn.Sequential(Conv1x1(feature_dim, SPADE_HIDDEN), nn.ReLU())
         self.mlp_gamma = Conv1x1(SPADE_HIDDEN, input_dim)
         self.mlp_beta = Conv1x1(SPADE_HIDDEN, input_dim)
@@ -184,21 +224,52 @@ class SPADE2d(nn.Module):
 
     def forward(self, x, feature_maps, compute_dtype=torch.float32):
         """Eval mode.  x, feature_maps: NHWC (feature_maps may be (B, 1, 1, C))."""
-        norm = self.first_norm
-        return self.modulate(x, feature_maps, norm.running_mean.float(),
-                             norm.running_var.float(), compute_dtype)
+        if self.normalization in ("batch_norm", "adaptive_batch_norm"):
+            norm = self.first_norm
+            normalized = self.by_moments(x, norm.running_mean.float(), norm.running_var.float())
+        else:
+            normalized = self.unit_normalize(x)
+        return self.modulate(normalized, feature_maps, compute_dtype)
 
-    def modulate(self, x, feature_maps, mean, var, compute_dtype=torch.float32):
-        """The normalisation by the given moments, then the SPADE modulation."""
-        norm = self.first_norm
+    def by_moments(self, x, mean, var):
+        """x normalised by the given moments (and batch norm's affine), in
+        float32, stored in x's dtype."""
         y = (x.float() - mean) * torch.rsqrt(var + 1e-5)
         if self.normalization == "batch_norm":
-            y = y * norm.weight.float() + norm.bias.float()
-        normalized = y.to(x.dtype)
+            y = y * self.first_norm.weight.float() + self.first_norm.bias.float()
+        return y.to(x.dtype)
+
+    def unit_normalize(self, x):
+        """The stateless normalisations: per image (instance norm) or none."""
+        return instance_norm(x) if self.normalization == "instance_norm" else x
+
+    def train_stats(self):
+        """The state a train step starts from, passed into the (recomputed)
+        block: adaptive batch norm's running stats, cloned; else None."""
+        if self.normalization != "adaptive_batch_norm":
+            return None
+        return self.first_norm.running_mean.clone(), self.first_norm.running_var.clone()
+
+    def train_normalize(self, x, stats):
+        """Train-mode normalisation: returns (normalised x, what the state
+        takes: the batch moments under batch norm, the updated running stats
+        under adaptive batch norm, else None)."""
+        if self.normalization == "batch_norm":
+            mean, var = batch_moments(x)
+            return self.by_moments(x, mean, var), (mean, var)
+        if self.normalization == "adaptive_batch_norm":
+            mean, var = adaptive_stats(x, *stats)
+            return self.by_moments(x, mean, var), (mean, var)
+        return self.unit_normalize(x), None
+
+    def modulate(self, normalized, feature_maps, compute_dtype=torch.float32):
+        """The SPADE modulation of a normalised map; under no norm gamma is
+        normalised to unit second moment and there is no beta."""
         actv = torch.relu(self.mlp_shared[0](feature_maps, compute_dtype))
         gamma = 1.0 + self.mlp_gamma(actv, compute_dtype)
-        beta = self.mlp_beta(actv, compute_dtype)
-        return normalized * gamma + beta
+        if self.normalization == "none":
+            return normalized * normalize_2nd_moment(gamma, -1)
+        return normalized * gamma + self.mlp_beta(actv, compute_dtype)
 
 
 class SPADEBlock(nn.Module):
@@ -238,21 +309,32 @@ class SPADEBlock(nn.Module):
         return h
 
     def train_weights(self):
-        """Both convs' normalised weights, each ``u`` stepped once (train mode)."""
-        return self.conv_0.normalized_weight(train=True), self.conv_1.normalized_weight(train=True)
+        """Both convs' normalised weights, each ``u`` stepped once (train mode),
+        and the norms' state before the step (``SPADE2d.train_stats``)."""
+        return (self.conv_0.normalized_weight(train=True),
+                self.conv_1.normalized_weight(train=True),
+                self.spade_0.train_stats(), self.spade_1.train_stats())
 
     def update_running_stats(self, moments, x):
-        """The BN running stats from the moments ``train_body`` returned for
-        input ``x``; the variance is unbiased by the global count, this
-        rank's pixels times the world size."""
+        """The running stats from what ``train_body`` returned for input
+        ``x``: batch norm's from the batch moments, its variance unbiased by
+        the global count (this rank's pixels times the world size);
+        adaptive batch norm's are the returned stats."""
         n = x.shape[0] * x.shape[1] * x.shape[2] * dist.world_size()
-        for spade, (mean, var) in zip((self.spade_0, self.spade_1), moments):
-            _update_running_stats(spade.first_norm, mean.detach(), var.detach(), n, 0.1)
+        for spade, m in zip((self.spade_0, self.spade_1), moments):
+            if spade.normalization == "batch_norm":
+                _update_running_stats(spade.first_norm, m[0].detach(), m[1].detach(), n, 0.1)
+            elif spade.normalization == "adaptive_batch_norm":
+                with torch.no_grad():
+                    spade.first_norm.running_mean.copy_(m[0])
+                    spade.first_norm.running_var.copy_(m[1])
+                    spade.first_norm.num_batches_tracked.add_(1)
 
-    def train_body(self, x, style, fixed_row, w0, w1, skip=False, compute_dtype=torch.float32,
-                   fused=False):
+    def train_body(self, x, style, fixed_row, w0, w1, stats0=None, stats1=None, skip=False,
+                   compute_dtype=torch.float32, fused=False):
         """The train-mode block without its state updates: returns (output,
-        the two half-blocks' batch moments)."""
+        what each half-block's norm hands the state, ``SPADE2d.train_normalize``).
+        ``stats0``/``stats1``: adaptive batch norm's stats before the step."""
         if fused:
             from threedhumangan_tpu_torch.ops.synthesis_train import (
                 spade_half_block_rank1,
@@ -264,15 +346,18 @@ class SPADEBlock(nn.Module):
         B = x.shape[0]
         h = x.to(cd) if fused else x
         moments = []
-        for spade, conv, w in ((self.spade_0, self.conv_0, w0), (self.spade_1, self.conv_1, w1)):
+        for spade, conv, w, st in ((self.spade_0, self.conv_0, w0, stats0),
+                                   (self.spade_1, self.conv_1, w1, stats1)):
+            if not fused:
+                normalized, m = spade.train_normalize(h, st)
+                moments.append(m)
+                h = conv.apply_weight(lrelu(spade.modulate(normalized, style, cd)), w, cd)
+                continue
             if spade.normalization != "batch_norm":
-                raise NotImplementedError(f"train-mode SPADE with {spade.normalization!r}")
+                raise ValueError("the fused half-blocks take batch norm only")
             norm = spade.first_norm
             mean, var = batch_moments(h)
             moments.append((mean, var))
-            if not fused:
-                h = conv.apply_weight(lrelu(spade.modulate(h, style, mean, var, cd)), w, cd)
-                continue
             r = torch.rsqrt(var + 1e-5)
             if style.ndim == 4:
                 h = spade_half_block_spatial(h, style.to(cd), fixed_row, mean, r, norm.weight,
@@ -287,6 +372,55 @@ class SPADEBlock(nn.Module):
         if skip and h.shape[-1] == x.shape[-1]:
             h = h + x
         return h, moments
+
+
+class SpatialStyleModLayer(nn.Module):
+    """Per-pixel style-modulated product with demodulation (JAX
+    ``apply_spatial_style_mod``), as two products: ((x * mod) @ W) *
+    rsqrt((mod^2) @ W^2 + eps) + bias, with mod = affine(style) + 1.
+    ``weight`` (in, out) as JAX's; the output is float32."""
+
+    def __init__(self, in_dim: int, out_dim: int, style_dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(in_dim, out_dim))
+        self.bias = nn.Parameter(torch.zeros(out_dim))
+        self.affine = Conv1x1(style_dim, in_dim)
+
+    def reset_parameters(self, generator):
+        """JAX init: weight normal * sqrt(2 / 1.04) / sqrt(in), bias zero,
+        the affine kaiming-normal (linear gain) with the default bias."""
+        normal_(self.weight, math.sqrt(2.0 / (1 + 0.2 ** 2)) / math.sqrt(self.weight.shape[0]),
+                generator)
+        with torch.no_grad():
+            self.bias.zero_()
+        self.affine.reset_parameters(generator, w_std=1.0 / math.sqrt(self.affine.weight.shape[1]))
+
+    def forward(self, x, style, compute_dtype=torch.float32):
+        """x (B, N, in); style (B, N, style_dim) or (B, 1, style_dim)."""
+        mod = self.affine(style, compute_dtype) + 1.0
+        w = self.weight.to(compute_dtype)
+        y = mm(x * mod, w, compute_dtype)
+        y = y * torch.rsqrt(mm(torch.square(mod), torch.square(w), compute_dtype) + 1e-8)
+        return y + self.bias.float()
+
+
+class SynthesisBlock(nn.Module):
+    """Pixelwise block (JAX ``apply_synthesis_block``) on (B, N, C) maps."""
+
+    def __init__(self, in_dim, out_dim, style_dim):
+        super().__init__()
+        self.mod1 = SpatialStyleModLayer(in_dim, out_dim, style_dim)
+        self.mod2 = SpatialStyleModLayer(out_dim, out_dim, style_dim)
+
+    def reset_parameters(self, generator):
+        self.mod1.reset_parameters(generator)
+        self.mod2.reset_parameters(generator)
+
+    def forward(self, x, style, skip=False, compute_dtype=torch.float32):
+        out = lrelu(self.mod2(lrelu(self.mod1(x, style, compute_dtype)), style, compute_dtype))
+        if skip and out.shape[-1] == x.shape[-1]:
+            out = out + x
+        return out
 
 
 class ToRGB(nn.Module):
@@ -315,10 +449,17 @@ class SynthesisNetwork(nn.Module):
         self.to_rgbs = nn.ModuleDict()
         in_dim = input_dim
         for i in range(num_blocks):
-            self.network[f"m3d_{i}"] = SPADEBlock(in_dim, hidden_dim, style_dim,
-                                                  spatial_normalization)
+            if spatial_normalization == "none":
+                block = SynthesisBlock(in_dim, hidden_dim, style_dim)
+            else:
+                block = SPADEBlock(in_dim, hidden_dim, style_dim, spatial_normalization)
+            self.network[f"m3d_{i}"] = block
             self.to_rgbs[f"m3d_{i}"] = ToRGB(hidden_dim)
             in_dim = hidden_dim
+
+    @property
+    def pixelwise(self) -> bool:
+        return self.spatial_normalization == "none"
 
     def reset_parameters(self, generator):
         for i in range(self.num_blocks):
@@ -327,14 +468,16 @@ class SynthesisNetwork(nn.Module):
 
     def block_style(self, idx, style, fixed_style):
         """Style input of block ``idx`` under the map3d mode: the spatial map
-        (plus the fixed row in 'mixed'/'all'), or the (B, 1, C) fixed row."""
+        (plus the fixed row in 'mixed'/'all'), or the (B, 1, C) fixed row.
+        ``style`` is NHWC, or (B, N, C) for the pixelwise blocks."""
         fs = fixed_style[:, 0]
+        row = fs.reshape(fs.shape[:1] + (1,) * (style.ndim - 2) + fs.shape[1:])
         if self.map3d_mode == "all":
-            return style + fs[:, None, None, :]
+            return style + row
         if self.map3d_mode == "mixed":
             if idx not in self.mod_blocks:
                 return fs[:, None, :]
-            return style + fs[:, None, None, :]
+            return style + row
         if self.map3d_mode == "isolated":
             return style if idx in self.mod_blocks else fixed_style
         raise ValueError(f"invalid map3d_mode {self.map3d_mode!r}")
@@ -360,16 +503,25 @@ class SynthesisNetwork(nn.Module):
         rgb; in train mode the state is updated in place.  ``fused`` (train
         mode, batch norm) runs each block on the fused half-blocks
         (``SPADEBlock.forward_fused``), else every op in PyTorch; ``remat``
-        (train mode, with gradients) recomputes each block and its ToRGB in
-        the backward (module docstring)."""
+        (train mode, with gradients) recomputes each block (a SPADE block
+        with its ToRGB) in the backward (module docstring)."""
         fused = fused and train and self.spatial_normalization == "batch_norm"
+        remat = remat and train and torch.is_grad_enabled()
+        B, H, W, _ = x.shape
+        if self.pixelwise:
+            x = x.reshape(B, H * W, -1)
+            style = style.reshape(B, H * W, -1)
         rgb = None
         for idx in range(self.num_blocks):
             skip = idx >= self.num_blocks // 2
             block = self.network[f"m3d_{idx}"]
             to_rgb = self.to_rgbs[f"m3d_{idx}"] if idx >= self.num_blocks // 2 - 1 else None
-            if not train:
-                x = block(x, self.block_style(idx, style, fixed_style), skip, compute_dtype)
+            if self.pixelwise or not train:
+                st = self.block_style(idx, style, fixed_style)
+                if remat:
+                    x = checkpoint(block, x, st, skip, compute_dtype, use_reentrant=False)
+                else:
+                    x = block(x, st, skip, compute_dtype)
                 if to_rgb is not None:
                     rgb = to_rgb(x, rgb, compute_dtype)
                 continue
@@ -380,20 +532,22 @@ class SynthesisNetwork(nn.Module):
             step = functools.partial(_train_block_step, block, to_rgb, skip=skip,
                                      compute_dtype=compute_dtype, fused=fused)
             args = (x, rgb, st, fixed_row, *block.train_weights())
-            if remat and torch.is_grad_enabled():
+            if remat:
                 out, rgb, moments = checkpoint(step, *args, use_reentrant=False)
             else:
                 out, rgb, moments = step(*args)
             block.update_running_stats(moments, x)
             x = out
-        return rgb
+        return rgb.reshape(B, H, W, -1) if self.pixelwise else rgb
 
 
-def _train_block_step(block, to_rgb, x, rgb, style, fixed_row, w0, w1, skip, compute_dtype,
-                      fused):
+def _train_block_step(block, to_rgb, x, rgb, style, fixed_row, w0, w1, stats0, stats1, skip,
+                      compute_dtype, fused):
     """One train-mode block and its ToRGB, without state updates: the unit
-    that remat recomputes.  Returns (x, rgb, the block's batch moments)."""
-    x, moments = block.train_body(x, style, fixed_row, w0, w1, skip, compute_dtype, fused)
+    that remat recomputes.  Returns (x, rgb, what the block's norms hand
+    the state)."""
+    x, moments = block.train_body(x, style, fixed_row, w0, w1, stats0, stats1, skip,
+                                  compute_dtype, fused)
     if to_rgb is not None:
         rgb = to_rgb(x, rgb, compute_dtype)
     return x, rgb, moments
@@ -423,9 +577,10 @@ class SynthesisInput(nn.Module):
 
 
 class SynthesisStyleInput(nn.Module):
-    """Condition-image style head.  Generation with a render never runs it
-    (``disable_render`` is not ported); it holds its parameters so the
-    generator keeps the reference key space."""
+    """Condition-image style head (``disable_render``): the feature maps
+    from the condition image and the latent, sin(conv1x1(condition))
+    concatenated with the broadcast latent (normalised to unit second
+    moment), then two 1x1 convs with leaky ReLU."""
 
     def __init__(self, input_dim, latent_dim, output_dim, num_layers=3):
         super().__init__()
@@ -444,3 +599,13 @@ class SynthesisStyleInput(nn.Module):
         for conv in self._convs():
             std = math.sqrt(2.0 / 1.04) / math.sqrt(conv.weight.shape[1])
             conv.reset_parameters(generator, w_std=std)
+
+    def forward(self, condition, latent, compute_dtype=torch.float32):
+        """condition: NHWC condition image; latent (B, latent_dim)."""
+        B, H, W, _ = condition.shape
+        latent = normalize_2nd_moment(latent, -1)
+        ff = torch.sin(self.from_coords[0](condition, compute_dtype))
+        x = torch.cat([ff, latent[:, None, None, :].expand(B, H, W, -1).to(ff.dtype)], -1)
+        for conv in self._convs():
+            x = lrelu(conv(x, compute_dtype))
+        return x

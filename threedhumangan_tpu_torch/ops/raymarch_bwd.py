@@ -31,7 +31,9 @@ transposes K9's backprop takes) beside small float32 tables
 (``field_bwd_side_tables``).
 ``FieldRender`` is the ``torch.autograd.Function``: K2 forward on folded
 tables, or K4 on the unfolded ones under ``fold_film=False`` (JAX
-raymarch.py:920-927), and this backward.  The tables,
+raymarch.py:920-927), and this backward; ``FieldRenderRemat`` has the same
+forward and the JAX package's remat backward (``pallas_bwd=False``):
+autograd through ``field_render_unfolded`` recomputed.  The tables,
 ``slab_forward`` and ``flat_weights`` live in ops/raymarch.py beside K4.
 ``field_render_unfolded`` (``_xla_packed_render``) is the plain
 differentiable render that the tests hold both against.
@@ -242,16 +244,43 @@ class FieldRender(torch.autograd.Function):
                 *d_params)
 
 
+class FieldRenderRemat(FieldRender):
+    """The remat backward of ``pallas_field_bwd=False`` (JAX
+    ``fused_field_render_trainable(..., pallas_bwd=False)``, the vjp of
+    ``_xla_packed_render``): ``FieldRender``'s forward (K2, or K4 under
+    ``fold_film=False``; the plain versions on the CPU), saving only the
+    inputs; the backward recomputes the render through
+    ``field_render_unfolded`` under autograd and pulls the cotangents back to
+    the field's parameters and freq/phase.  As in JAX, the gradient is the
+    unfolded function's even when the forward is folded."""
+
+    @staticmethod
+    def backward(ctx, g_out, g_depth):
+        packed, freq, phase, z_vals = ctx.saved_tensors
+        field = ctx.field
+        num_steps, white_back, last_back, compute_dtype, exact_sin, _ = ctx.opts
+        params = list(field.parameters())
+        with torch.enable_grad():
+            f, p = freq.detach().requires_grad_(), phase.detach().requires_grad_()
+            out, depth = field_render_unfolded(field, packed, f, p, z_vals, num_steps,
+                                               white_back, last_back, compute_dtype, exact_sin)
+            grads = torch.autograd.grad((out, depth), [f, p] + params, (g_out, g_depth),
+                                        allow_unused=True)
+        grads = [torch.zeros_like(t) if g is None else g for t, g in zip([f, p] + params, grads)]
+        return (None, None, None, grads[0], grads[1], None, *grads[2:])
+
+
 def field_render_trainable(field, packed, freq, phase, z_vals, num_steps: int,
                            white_back: bool = False, last_back: bool = False,
                            compute_dtype=torch.bfloat16, exact_sin: bool = False,
-                           fold_film: bool = True):
+                           fold_film: bool = True, pallas_bwd: bool = True):
     """``fused_field_render`` with gradients for the field and freq/phase
-    (JAX ``fused_field_render_trainable(..., pallas_bwd=True)``); the
-    forward kernel as ``fold_film`` selects it."""
+    (JAX ``fused_field_render_trainable``); the forward kernel as
+    ``fold_film`` selects it; the K8/K9 backward (``FieldRender``), or with
+    ``pallas_bwd=False`` the remat backward (``FieldRenderRemat``)."""
     opts = (num_steps, white_back, last_back, compute_dtype, exact_sin, fold_film)
-    return FieldRender.apply(field, opts, packed, freq, phase, z_vals,
-                             *field.parameters())
+    fn = FieldRender if pallas_bwd else FieldRenderRemat
+    return fn.apply(field, opts, packed, freq, phase, z_vals, *field.parameters())
 
 
 def field_render_unfolded(field, packed, freq, phase, z_vals, num_steps: int,

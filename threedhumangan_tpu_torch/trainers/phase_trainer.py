@@ -69,7 +69,7 @@ from threedhumangan_tpu_torch.trainers.optim import (
 )
 from threedhumangan_tpu_torch.utils.ema import ema_init, ema_update
 from threedhumangan_tpu_torch.utils.image import resize_bilinear
-from threedhumangan_tpu_torch.utils.misc import normalize_2nd_moment, resolve_device
+from threedhumangan_tpu_torch.utils.misc import normalize_2nd_moment, resolve_device, take_draw
 
 
 @dataclasses.dataclass
@@ -156,10 +156,6 @@ def _preprocess(preprocessor, data, rotate: bool, generator, draws):
     return preprocessor(data, rotate, generator)
 
 
-def _draw(draws, key, make):
-    return make() if draws is None or key not in draws else draws[key]
-
-
 def _choose_segments(coin, rotate: bool, rasterized, body, p: float = 0.5):
     """Rotated phases use the rasterized labels (the annotations no longer
     align); otherwise a coin picks: rasterized when coin < p."""
@@ -225,9 +221,9 @@ def d_train_step(ts: TrainState, data: Dict, generator: torch.Generator, lr: flo
     with stage("preprocess"):
         data = _preprocess(preprocessor, data, phase["rotate"], generator, draws)
     B = data["images"].shape[0]
-    z = _draw(draws, "z", lambda: torch.randn(B, meta["latent_dim"], generator=generator,
+    z = take_draw(draws, "z", lambda: torch.randn(B, meta["latent_dim"], generator=generator,
                                               device=dev))
-    coin = _draw(draws, "coin", lambda: torch.rand((), generator=generator, device=dev))
+    coin = take_draw(draws, "coin", lambda: torch.rand((), generator=generator, device=dev))
     with stage("d_real_inputs"):
         real_images = _maybe_augment(data["images"], meta, ada_p, generator,
                                      (draws or {}).get("aug_real"))
@@ -319,9 +315,9 @@ def g_train_step(ts: TrainState, data: Dict, generator: torch.Generator, lr: flo
     with stage("preprocess"):
         data = _preprocess(preprocessor, data, phase["rotate"], generator, draws)
     B = data["images"].shape[0]
-    z = _draw(draws, "z", lambda: torch.randn(B, meta["latent_dim"], generator=generator,
+    z = take_draw(draws, "z", lambda: torch.randn(B, meta["latent_dim"], generator=generator,
                                               device=dev))
-    coin = _draw(draws, "coin", lambda: torch.rand((), generator=generator, device=dev))
+    coin = take_draw(draws, "coin", lambda: torch.rand((), generator=generator, device=dev))
     gt_segments = _choose_segments(coin, phase["rotate"], data["rasterized_segments"],
                                    data["body_segments"].to(torch.int32))
 

@@ -57,3 +57,8 @@ def pad_to(t: torch.Tensor, shape, dtype) -> torch.Tensor:
     out = t.new_zeros(shape, dtype=dtype)
     out[tuple(slice(0, n) for n in t.shape)] = t.to(dtype)
     return out
+
+
+def take_draw(draws, key: str, make):
+    """``draws[key]`` where a caller handed that draw in, else ``make()``."""
+    return make() if draws is None or key not in draws else draws[key]

@@ -65,10 +65,23 @@ def synthesis_input_state(p: Dict) -> Dict[str, torch.Tensor]:
 
 
 def synthesis_network_state(sn: Dict, sn_state: Dict) -> Dict[str, torch.Tensor]:
-    """JAX synthesis-network (params, state) -> ``SynthesisNetwork`` state_dict."""
+    """JAX synthesis-network (params, state) -> ``SynthesisNetwork`` state_dict:
+    SPADE blocks under every normalisation (no ``first_norm`` keys where the
+    JAX tree has no ``norm``: instance norm; adaptive batch norm has running
+    stats and no affine), and the pixelwise blocks of
+    ``spatial_normalization='none'``, whose keys follow the JAX tree
+    (``mod1.weight`` (in, out) as JAX's, ``mod1.bias``, ``mod1.affine.*`` a
+    1x1 conv; no released checkpoint holds them, and the JAX package's
+    ``convert_generator_state_dict`` reads SPADE blocks only)."""
     sd: Dict[str, torch.Tensor] = {}
     for b, (bp, bs) in enumerate(zip(sn["blocks"], sn_state["blocks"])):
         pre = f"network.m3d_{b}"
+        if "mod1" in bp:
+            for m in ("mod1", "mod2"):
+                sd[f"{pre}.{m}.weight"] = _t(bp[m]["weight"])
+                sd[f"{pre}.{m}.bias"] = _t(bp[m]["bias"])
+                _conv(sd, f"{pre}.{m}.affine", bp[m]["affine"])
+            continue
         for c in ("conv_0", "conv_1"):
             _conv(sd, f"{pre}.{c}", bp[c], "weight_orig")
             sd[f"{pre}.{c}.weight_u"] = _t(bs[c]["u"])
@@ -77,7 +90,7 @@ def synthesis_network_state(sn: Dict, sn_state: Dict) -> Dict[str, torch.Tensor]
             _conv(sd, f"{pre}.{s}.mlp_shared.0", sp["mlp_shared"])
             _conv(sd, f"{pre}.{s}.mlp_gamma", sp["mlp_gamma"])
             _conv(sd, f"{pre}.{s}.mlp_beta", sp["mlp_beta"])
-            if "norm" in sp:
+            if "scale" in sp.get("norm", {}):
                 sd[f"{pre}.{s}.first_norm.weight"] = _t(sp["norm"]["scale"])
                 sd[f"{pre}.{s}.first_norm.bias"] = _t(sp["norm"]["bias"])
             if "norm" in ss:
