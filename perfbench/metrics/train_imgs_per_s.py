@@ -1,0 +1,8 @@
+"""Images of every pair finished in the window over the window's seconds (host clock, the
+device synchronised at both ends)."""
+
+from perfbench.metrics._common import window_s
+
+
+def read(rec):
+    return sum(r[2] for r in rec.requests) / window_s(rec)
