@@ -9,7 +9,8 @@ one nvcc process per source, all started together:
 and links the objects into one shared library with a plain C interface
 (``nvcc -shared -o libkernels_<hash>.so *.o``)
 
-and loads it with ``ctypes`` (pointers and the stream as ``c_void_p``).  The
+and loads it with ``ctypes`` (pointers and the stream as ``c_void_p``), each
+entry called inside a ``launch.<entry>`` span (``bind``).  The
 library name carries a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one loads the existing build.  The build directory
 lies in the checkout (``build/`` is git-ignored).  Nothing here runs at
@@ -24,6 +25,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+
+from threedhumangan_tpu_torch.utils import trace
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -168,13 +171,28 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, built at first call."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(build())
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _LIB = lib
+        _LIB = bind(ctypes.CDLL(build()))
     return _LIB
+
+
+def bind(lib):
+    """``lib`` with each entry of ``SIGNATURES`` typed and replaced by a call
+    inside the span ``launch.<entry>`` (``utils.trace``): a host range open
+    at each of the port's launches."""
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        setattr(lib, name, _spanned(fn, "launch." + name))
+    return lib
+
+
+def _spanned(fn, span_name: str):
+    def call(*args):
+        with trace.span(span_name):
+            return fn(*args)
+
+    return call
 
 
 def check(err: int, name: str) -> None:

@@ -7,6 +7,8 @@ step: it builds each numpy batch (SMPL posing, collation) and runs
 default stream the step also uses).  An error in the worker surfaces on
 the consumer side at the next ``next()``.  ``close()`` stops the worker
 when the consumer leaves early (a curriculum stage change, ``max_steps``).
+Spans (``utils.trace``): ``loader.build`` around each batch the worker
+builds and transforms, ``loader.wait`` around the consumer's wait for one.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from __future__ import annotations
 import queue
 import threading
 from typing import Callable, Iterator, Optional
+
+from threedhumangan_tpu_torch.utils import trace
 
 
 class PrefetchIterator:
@@ -39,10 +43,13 @@ class PrefetchIterator:
 
         def worker():
             try:
-                for item in iterator:
-                    if self._stop.is_set():
-                        return
-                    if not put(transform(item) if transform is not None else item):
+                items = iter(iterator)
+                while not self._stop.is_set():
+                    with trace.span("loader.build"):
+                        item = next(items, self._SENTINEL)
+                        if item is not self._SENTINEL and transform is not None:
+                            item = transform(item)
+                    if item is self._SENTINEL or not put(item):
                         return
             except BaseException as e:  # surfaced on the consumer side
                 self._error = e
@@ -56,7 +63,8 @@ class PrefetchIterator:
         return self
 
     def __next__(self):
-        item = self._queue.get()
+        with trace.span("loader.wait"):
+            item = self._queue.get()
         if item is self._SENTINEL:
             self._queue.put(item)  # later next() calls end too
             if self._error is not None:

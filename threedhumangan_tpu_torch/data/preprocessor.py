@@ -28,6 +28,7 @@ import torch
 
 from threedhumangan_tpu_torch.models.smpl import euler_angles_to_matrix_xyz
 from threedhumangan_tpu_torch.ops.rasterize import rasterize_mesh_tiled
+from threedhumangan_tpu_torch.utils import trace
 
 
 def _pad_rotation_4x4(R: torch.Tensor) -> torch.Tensor:
@@ -67,11 +68,12 @@ class Preprocessor:
         return self.forward_with_rotation(data, h, v, torch.zeros_like(h))
 
     def forward_with_rotation(self, data: Dict, h_rotation, v_rotation, r_rotation) -> Dict:
-        if self.mode == "fix_body":
-            data = self._forward_fix_body(data, h_rotation, v_rotation, r_rotation)
-        else:
-            data = self._forward_fix_camera(data, h_rotation, v_rotation, r_rotation)
-        return data if self.faces is None else self._forward_rasterize(data)
+        with trace.span("preprocessor.camera"):
+            if self.mode == "fix_body":
+                data = self._forward_fix_body(data, h_rotation, v_rotation, r_rotation)
+            else:
+                data = self._forward_fix_camera(data, h_rotation, v_rotation, r_rotation)
+            return data if self.faces is None else self._forward_rasterize(data)
 
     def _forward_fix_body(self, data, h_rotation, v_rotation, r_rotation):
         """Rotate the camera around the fixed body; euler x = pi - v flips

@@ -87,7 +87,6 @@ default for it.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 from typing import Callable, Dict, Optional
 
@@ -106,7 +105,7 @@ from threedhumangan_tpu_torch.ops.raymarch import (fused_field_render, fused_fie
                                                   pack_field_inputs)
 from threedhumangan_tpu_torch.ops.raymarch_bwd import field_render_trainable
 from threedhumangan_tpu_torch.ops.synthesis_kernel import fold_synthesis_params, fused_synthesis
-from threedhumangan_tpu_torch.utils import image
+from threedhumangan_tpu_torch.utils import image, trace
 from threedhumangan_tpu_torch.utils.misc import resolve_device, take_draw
 
 
@@ -187,10 +186,6 @@ def init_generator(meta: Dict, generator: torch.Generator, device="cuda") -> Map
     return Map3DGenerator(meta, generator).to(resolve_device(device)).eval()
 
 
-def _no_stage(name: str):
-    return contextlib.nullcontext()
-
-
 def resize_feature_maps(x: torch.Tensor, height: int, width: int,
                         method: str = "bilinear") -> torch.Tensor:
     """NHWC resize as ``jax.image.resize(..., method)``: a bilinear (or
@@ -236,13 +231,15 @@ def _geo(conditions: Dict, meta: Dict, points, pallas_geo: bool, ray_layout):
 
 def render(gen: Map3DGenerator, freq, phase, conditions: Dict, meta: Dict,
            generator: Optional[torch.Generator] = None, compute_dtype=torch.float32,
-           stage: Callable = _no_stage, nerf_noise=None, grad_field: bool = False,
+           stage: Optional[Callable] = None, nerf_noise=None, grad_field: bool = False,
            draws: Optional[Dict] = None):
     """Volume-render the pose-conditioned field.  Returns (rgb_render NHWC,
     feature_maps NHWC, depths (B, rays, 1)).  The nerf noise is
     ``nerf_noise``, else meta's, at eval and in training; ``grad_field``
     renders so that gradients reach the field and freq/phase (the G step);
-    ``draws`` as the module docstring says."""
+    ``draws`` as the module docstring says; ``stage`` as
+    ``generator_forward``'s."""
+    stage = trace.staged(stage)
     noise_std = meta.get("nerf_noise", 0.5) if nerf_noise is None else nerf_noise
     xla = xla_field_path(meta, grad_field)
     # the geo features inside the field render: off the grad path and
@@ -378,7 +375,7 @@ def generator_forward(gen: Map3DGenerator, z, conditions: Dict, meta: Dict,
                       generator: Optional[torch.Generator] = None,
                       compute_dtype=torch.float32, truncation_psi: float = 1.0,
                       avg_latent=None, with_depth: bool = False,
-                      stage: Callable = _no_stage, train: bool = False, nerf_noise=None,
+                      stage: Optional[Callable] = None, train: bool = False, nerf_noise=None,
                       latent_indices=None, pallas_ok: bool = True,
                       disable_synthesis: bool = False, draws: Optional[Dict] = None):
     """Eval forward (``train=False``): returns {'rgbs', 'rgbs_render'} NHWC
@@ -387,14 +384,19 @@ def generator_forward(gen: Map3DGenerator, z, conditions: Dict, meta: Dict,
     module docstring.  ``disable_synthesis`` (or meta's; a render-modal
     phase in training) skips the mapping to styles, the resize and the
     synthesis and returns the render as both images, with the synthesis
-    state untouched.  ``draws``: the module docstring.  ``stage(name)``
-    returns a context manager wrapped around each stage (for timing)."""
+    state untouched.  ``draws``: the module docstring.  The forward is the
+    span ``generator.forward`` (``utils.trace``; a unit's root outside a
+    training pair) and each stage the span of its name, around the caller's
+    ``stage(name)`` hook where one is given (a context manager, for
+    timing)."""
     disable_synthesis = disable_synthesis or meta.get("disable_synthesis", False)
-    if train:
-        return _train_forward(gen, z, conditions, meta, generator, compute_dtype, nerf_noise,
-                              latent_indices, pallas_ok, stage, disable_synthesis, draws)
-    return _eval_forward(gen, z, conditions, meta, generator, compute_dtype, truncation_psi,
-                         avg_latent, with_depth, stage, disable_synthesis, nerf_noise, draws)
+    stage = trace.staged(stage)
+    with trace.span("generator.forward", unit=True):
+        if train:
+            return _train_forward(gen, z, conditions, meta, generator, compute_dtype, nerf_noise,
+                                  latent_indices, pallas_ok, stage, disable_synthesis, draws)
+        return _eval_forward(gen, z, conditions, meta, generator, compute_dtype, truncation_psi,
+                             avg_latent, with_depth, stage, disable_synthesis, nerf_noise, draws)
 
 
 def _mapping(gen, meta, latent, compute_dtype, disable_synthesis):
@@ -514,7 +516,8 @@ def _eval_forward(gen, z, conditions, meta, generator, compute_dtype, truncation
             net = gen.synthesis_network
             norm = net.spatial_normalization
             if fused_synthesis_eval(meta, norm):
-                folded = fold_synthesis_params(net, gen.synthesis_input, norm)
+                with trace.span("synthesis.glue"):  # K3's operands: here and in its wrapper
+                    folded = fold_synthesis_params(net, gen.synthesis_input, norm)
                 rgbs = fused_synthesis(folded, feature_maps, styles, meta["synthesis_blocks"],
                                        tuple(meta["mod_blocks"]),
                                        meta.get("map3d_mode", "isolated"), compute_dtype)
@@ -536,7 +539,7 @@ def _eval_forward(gen, z, conditions, meta, generator, compute_dtype, truncation
 def staged_forward(gen: Map3DGenerator, z, conditions: Dict, meta: Dict,
                    generator: Optional[torch.Generator] = None,
                    truncation_psi: Optional[float] = None, avg_latent=None,
-                   compute_dtype=torch.float32, stage: Callable = _no_stage) -> Dict:
+                   compute_dtype=torch.float32, stage: Optional[Callable] = None) -> Dict:
     """Inference entry: truncation from ``meta['truncation_psi']`` and depth."""
     psi = meta.get("truncation_psi", 1.0) if truncation_psi is None else truncation_psi
     return generator_forward(gen, z, conditions, meta, generator, compute_dtype=compute_dtype,

@@ -27,6 +27,7 @@ import torch
 
 from threedhumangan_tpu_torch import _build
 from threedhumangan_tpu_torch.models.synthesis import SPADE_HIDDEN, norm_affine
+from threedhumangan_tpu_torch.utils import trace
 from threedhumangan_tpu_torch.utils.misc import mm, pad_to, round16
 
 launches = 0  # K3 launches (the CUDA path only)
@@ -218,51 +219,52 @@ def _stack_pad(ts, shape, dtype):
 
 def synthesis_cuda(folded, style_map, fixed_style, num_blocks, mod_blocks, map3d_mode):
     global launches
-    bf16, f32 = torch.bfloat16, torch.float32
-    B, H, W, F = style_map.shape
-    dev = style_map.device
-    hidden = folded["b0_conv0_w"].shape[1]
-    if folded["in_w"].shape[1] != hidden or F != hidden:
-        raise ValueError("synthesis kernel needs feature_dim == hidden_dim "
-                         f"(got style {F}, input {folded['in_w'].shape[1]}, hidden {hidden})")
-    if (H * W) % PIXELS_PER_CTA:
-        raise ValueError(f"synthesis kernel needs H*W divisible by {PIXELS_PER_CTA}")
-    hp = fp = round16(hidden)
-    rank1 = rank1_blocks_of(num_blocks, mod_blocks, map3d_mode)
-    mods = [i for i in range(num_blocks) if i not in rank1]
-    if num_blocks > 32:
-        raise ValueError(f"synthesis kernel takes at most 32 blocks, got {num_blocks}")
-    dummy = torch.zeros(16, dtype=f32, device=dev)
-    if rank1:
-        gab = rank1_rows(folded, fixed_style, rank1, bf16)
-        gab = pad_to(gab.to(bf16).float(), (B, gab.shape[1], hp), f32)
-    else:
-        gab = dummy
-    stream, _ = pack_weight_stream(folded, num_blocks, mods, hp, fp)
-    cb = [folded[f"b{i}_conv{ci}_b"][0] for i in range(num_blocks) for ci in (0, 1)]
-    spk = lambda k: [folded[f"b{i}_sp{si}_{k}"][0] for i in mods for si in (0, 1)]
-    rnd = lambda t: t.to(bf16).float()  # operands the kernel reads as bf16 values
-    if mods:
-        sp = [_stack_pad(spk("sh_b"), (SPADE_HIDDEN,), f32), _stack_pad(spk("g_b"), (hp,), f32),
-              _stack_pad(spk("bt_b"), (hp,), f32)]
-    else:
-        sp = [dummy] * 3
-    args = [
-        style_map.to(bf16).contiguous(),
-        fixed_style.reshape(B, F).to(bf16).contiguous(),
-        gab,
-        pad_to(rnd(folded["in_w"]), (2, hp), f32),
-        pad_to(folded["in_b"][0], (hp,), f32),
-        stream,
-        _stack_pad(cb, (hp,), f32),
-        *sp,
-        _stack_pad([rnd(folded[f"b{i}_rgb_w"]) for i in range(num_blocks)], (hp, 3), f32),
-        torch.stack([folded[f"b{i}_rgb_b"][0].float() for i in range(num_blocks)], 0),
-    ]
-    for t in args:
-        if t.device != dev:
-            raise ValueError(f"synthesis kernel operand on {t.device}, expected {dev}")
-    rgb = torch.empty(B, H, W, 3, dtype=f32, device=dev)
+    with trace.span("synthesis.glue"):  # the operands, up to the C call
+        bf16, f32 = torch.bfloat16, torch.float32
+        B, H, W, F = style_map.shape
+        dev = style_map.device
+        hidden = folded["b0_conv0_w"].shape[1]
+        if folded["in_w"].shape[1] != hidden or F != hidden:
+            raise ValueError("synthesis kernel needs feature_dim == hidden_dim "
+                             f"(got style {F}, input {folded['in_w'].shape[1]}, hidden {hidden})")
+        if (H * W) % PIXELS_PER_CTA:
+            raise ValueError(f"synthesis kernel needs H*W divisible by {PIXELS_PER_CTA}")
+        hp = fp = round16(hidden)
+        rank1 = rank1_blocks_of(num_blocks, mod_blocks, map3d_mode)
+        mods = [i for i in range(num_blocks) if i not in rank1]
+        if num_blocks > 32:
+            raise ValueError(f"synthesis kernel takes at most 32 blocks, got {num_blocks}")
+        dummy = torch.zeros(16, dtype=f32, device=dev)
+        if rank1:
+            gab = rank1_rows(folded, fixed_style, rank1, bf16)
+            gab = pad_to(gab.to(bf16).float(), (B, gab.shape[1], hp), f32)
+        else:
+            gab = dummy
+        stream, _ = pack_weight_stream(folded, num_blocks, mods, hp, fp)
+        cb = [folded[f"b{i}_conv{ci}_b"][0] for i in range(num_blocks) for ci in (0, 1)]
+        spk = lambda k: [folded[f"b{i}_sp{si}_{k}"][0] for i in mods for si in (0, 1)]
+        rnd = lambda t: t.to(bf16).float()  # operands the kernel reads as bf16 values
+        if mods:
+            sp = [_stack_pad(spk("sh_b"), (SPADE_HIDDEN,), f32), _stack_pad(spk("g_b"), (hp,), f32),
+                  _stack_pad(spk("bt_b"), (hp,), f32)]
+        else:
+            sp = [dummy] * 3
+        args = [
+            style_map.to(bf16).contiguous(),
+            fixed_style.reshape(B, F).to(bf16).contiguous(),
+            gab,
+            pad_to(rnd(folded["in_w"]), (2, hp), f32),
+            pad_to(folded["in_b"][0], (hp,), f32),
+            stream,
+            _stack_pad(cb, (hp,), f32),
+            *sp,
+            _stack_pad([rnd(folded[f"b{i}_rgb_w"]) for i in range(num_blocks)], (hp, 3), f32),
+            torch.stack([folded[f"b{i}_rgb_b"][0].float() for i in range(num_blocks)], 0),
+        ]
+        for t in args:
+            if t.device != dev:
+                raise ValueError(f"synthesis kernel operand on {t.device}, expected {dev}")
+        rgb = torch.empty(B, H, W, 3, dtype=f32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         cuda_stream = torch.cuda.current_stream(dev).cuda_stream

@@ -11,7 +11,13 @@
     it on on an accelerator), so the synthesis runs on K10/K11;
   * metrics: every step's moments summed on the device, pulled every 10
     steps into a ``Collector``; the windowed ``imgs_per_sec`` and the
-    cumulative ``imgs_per_sec_cum``; ``metrics.jsonl`` plus TensorBoard;
+    cumulative ``imgs_per_sec_cum``; the stage's ``batch_split`` and
+    ``remat_synthesis`` (0/1) and the run's ``oom_retries``; ``metrics.jsonl``
+    plus TensorBoard;
+  * spans (``utils.trace``): ``trainer.pair`` around each iteration of the
+    loop (the batch's wait included; a unit's root), ``trainer.step``
+    around the pair with its out-of-memory retries, ``trainer.stats_pull``
+    around each pull and log;
   * checkpoints every ``model_save_interval`` steps, written on a background
     thread after a synchronous copy to the host, pruned to
     ``model_keep_interval``; resume from the latest.  The checkpoint also
@@ -109,6 +115,7 @@ from threedhumangan_tpu_torch.utils.checkpoint import (
     save_checkpoint,
     to_host,
 )
+from threedhumangan_tpu_torch.utils import trace
 from threedhumangan_tpu_torch.utils.misc import resolve_device
 
 
@@ -169,6 +176,7 @@ class Trainer:
         self._save_thread: Optional[threading.Thread] = None
         self._saved_step: Optional[int] = None
         self._batch_split_min = 1
+        self._oom_retries = 0  # out-of-memory recoveries of the run so far
         self._stage_token = 0
         self.batch_size = self.proc_batch_size = self.gen_height = self.gen_width = None
         self.step = 0
@@ -329,6 +337,7 @@ class Trainer:
         if not untouched and not latest_checkpoint(self.output_dir):
             return None
         self._batch_split_min = new
+        self._oom_retries += 1
         print(f"rank {self.rank}: train step ran out of device memory; batch_split {cur} -> "
               f"{new}", flush=True)
         if self.device.type == "cuda":
@@ -450,6 +459,30 @@ class Trainer:
                     return None
                 meta = self._stage_meta  # retry the same batch, micro-batched
 
+    def _pull_stats(self, t0: float, t_window: float, step_window: int, host_sec: float):
+        """Pull the summed moments to the host and log them with the windowed
+        throughput and the run's memory choices (``batch_split``,
+        ``remat_synthesis``, ``oom_retries``).  Returns the next window's
+        (start time, start step)."""
+        summed = psum_moments(self._stats_acc)  # over ranks: one collective
+        self._stats_acc = None
+        self.collector.update({k: v.cpu() for k, v in summed.items()})
+        # a zero count means no observation in the window
+        scalars = {n: self.collector[n] for n in self.collector.names()
+                   if self.collector.num(n) > 0}
+        now = time.time()
+        scalars["imgs_per_sec"] = ((self.step - step_window) * self.batch_size
+                                   / max(now - t_window, 1e-9))
+        scalars["imgs_per_sec_cum"] = self.step * self.batch_size / max(now - t0, 1e-9)
+        if host_sec:
+            scalars["host_io_sec"] = host_sec
+        scalars["batch_split"] = int(self._stage_meta.get("batch_split", 1))
+        scalars["remat_synthesis"] = int(bool(self._stage_meta.get("remat_synthesis", True)))
+        scalars["oom_retries"] = self._oom_retries
+        self._log(scalars)
+        self.collector.reset()
+        return now, self.step
+
     def _d_on_host(self) -> Dict:
         """A host copy of the discriminator's state and its optimizer's."""
         host = lambda t: t.detach().to("cpu", copy=True) if torch.is_tensor(t) else copy.copy(t)
@@ -485,63 +518,56 @@ class Trainer:
             batches = prefetch(self.loader_fn(seed=epoch, shuffle=True, start=start),
                                transform=lambda b: to_tensors(b, self.device))
             try:
-                for batch in batches:
-                    meta = self._meta_for_step(self.step)
-                    if meta is None or (max_steps is not None and self.step >= max_steps):
-                        done = True
-                        break
-                    if self._stage_token != stage_token:
-                        # curriculum boundary: the in-flight loader yields
-                        # batches of the old shape; restart on the new one
-                        self._stats_acc = None
-                        break
-                    phase = meta["phases"][self.step % len(meta["phases"])]
-                    nerf_noise = max(0.0, 1.0 - self.step / 5000.0)
-                    stats = self._train_step(batch, meta, phase, nerf_noise)
-                    if stats is None:  # restored from a checkpoint: restart the data there
-                        self._stats_acc = None
-                        break
-                    stage_token = self._stage_token  # a retry rebuilt the same-shape stage
-                    self.step += 1
-                    self.ts.step = self.step
-                    if meta.get("ada_interval", 0) and self.step % meta["ada_interval"] == 0:
-                        self.update_augment(meta, stats)
+                while True:
+                    with trace.span("trainer.pair", unit=True):
+                        batch = next(batches, None)
+                        if batch is None:
+                            break
+                        meta = self._meta_for_step(self.step)
+                        if meta is None or (max_steps is not None and self.step >= max_steps):
+                            done = True
+                            break
+                        if self._stage_token != stage_token:
+                            # curriculum boundary: the in-flight loader yields
+                            # batches of the old shape; restart on the new one
+                            self._stats_acc = None
+                            break
+                        phase = meta["phases"][self.step % len(meta["phases"])]
+                        nerf_noise = max(0.0, 1.0 - self.step / 5000.0)
+                        with trace.span("trainer.step"):
+                            stats = self._train_step(batch, meta, phase, nerf_noise)
+                        if stats is None:  # restored from a checkpoint: restart the data there
+                            self._stats_acc = None
+                            break
+                        stage_token = self._stage_token  # a retry rebuilt the same-shape stage
+                        self.step += 1
+                        self.ts.step = self.step
+                        if meta.get("ada_interval", 0) and self.step % meta["ada_interval"] == 0:
+                            self.update_augment(meta, stats)
 
-                    # every step's moments are summed on the device (no host
-                    # sync), so phase-gated stats such as r1 (slots 3 and 7)
-                    # are not lost between the pulls every 10 steps
-                    if self._stats_acc is None:
-                        self._stats_acc = dict(stats)
-                    else:
-                        for k, v in stats.items():
-                            acc = self._stats_acc
-                            acc[k] = v if k not in acc else acc[k] + v
-                    if self.step % 10 == 0 or self.step == 1:
-                        summed = psum_moments(self._stats_acc)  # over ranks: one collective
-                        self._stats_acc = None
-                        self.collector.update({k: v.cpu() for k, v in summed.items()})
-                        # a zero count means no observation in the window
-                        scalars = {n: self.collector[n] for n in self.collector.names()
-                                   if self.collector.num(n) > 0}
-                        now = time.time()
-                        scalars["imgs_per_sec"] = ((self.step - step_window) * self.batch_size
-                                                   / max(now - t_window, 1e-9))
-                        scalars["imgs_per_sec_cum"] = (self.step * self.batch_size
-                                                       / max(now - t0, 1e-9))
-                        if host_sec:
-                            scalars["host_io_sec"] = host_sec
-                        t_window, step_window, host_sec = now, self.step, 0.0
-                        self._log(scalars)
-                        self.collector.reset()
-                    if self.step % save_interval == 0:
-                        t_io = time.time()
-                        self.save()
-                        host_sec += time.time() - t_io
-                    if sample_interval and self.step % sample_interval == 0 and self.rank == 0:
-                        t_io = time.time()
-                        self.log_image(meta)
-                        self.log_weights()
-                        host_sec += time.time() - t_io
+                        # every step's moments are summed on the device (no host
+                        # sync), so phase-gated stats such as r1 (slots 3 and 7)
+                        # are not lost between the pulls every 10 steps
+                        if self._stats_acc is None:
+                            self._stats_acc = dict(stats)
+                        else:
+                            for k, v in stats.items():
+                                acc = self._stats_acc
+                                acc[k] = v if k not in acc else acc[k] + v
+                        if self.step % 10 == 0 or self.step == 1:
+                            with trace.span("trainer.stats_pull"):
+                                t_window, step_window = self._pull_stats(t0, t_window,
+                                                                         step_window, host_sec)
+                            host_sec = 0.0
+                        if self.step % save_interval == 0:
+                            t_io = time.time()
+                            self.save()
+                            host_sec += time.time() - t_io
+                        if sample_interval and self.step % sample_interval == 0 and self.rank == 0:
+                            t_io = time.time()
+                            self.log_image(meta)
+                            self.log_weights()
+                            host_sec += time.time() - t_io
             finally:
                 batches.close()
         if self._saved_step != self.step:

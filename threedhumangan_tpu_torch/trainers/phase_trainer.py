@@ -44,6 +44,11 @@ after the micro-batches and before the grad-norm stats and Adam, as the
 JAX step's ``pmean``; the stats stay per rank (the trainer sums them).
 Not ``DistributedDataParallel``: its hooks fire on ``.backward()``, which
 these steps never call.
+
+Each stage (``preprocess``, ``d_real_inputs``, ``d_fakes``, ``d_step``,
+``d_r1``, ``d_optimizer``, ``g_forward``, ``g_backward``, ``g_optimizer``)
+is the port's span of its name (``utils.trace``), around the caller's
+``stage(name)`` hook where one is given.
 """
 
 from __future__ import annotations
@@ -69,6 +74,7 @@ from threedhumangan_tpu_torch.trainers.optim import (
 )
 from threedhumangan_tpu_torch.utils.ema import ema_init, ema_update
 from threedhumangan_tpu_torch.utils.image import resize_bilinear
+from threedhumangan_tpu_torch.utils import trace
 from threedhumangan_tpu_torch.utils.misc import normalize_2nd_moment, resolve_device, take_draw
 
 
@@ -208,7 +214,7 @@ def d_train_step(ts: TrainState, data: Dict, generator: torch.Generator, lr: flo
                  nerf_noise: float, preprocessor, meta: Dict, phase: Dict,
                  draws: Optional[Dict] = None, stage=None, ada_p: float = 0.0):
     """One discriminator step, in place; returns (ts, stats)."""
-    stage = stage or (lambda name: contextlib.nullcontext())
+    stage = trace.staged(stage)
     cdt = compute_dtype(meta)
     gan_lambda, seg_lambda = meta["gan_lambda"], meta["segmentation_lambda"]
     latent_lambda = meta.get("latent_lambda", 0)
@@ -298,7 +304,7 @@ def g_train_step(ts: TrainState, data: Dict, generator: torch.Generator, lr: flo
                  nerf_noise: float, preprocessor, meta: Dict, phase: Dict,
                  draws: Optional[Dict] = None, stage=None, ada_p: float = 0.0):
     """One generator step with the EMA update, in place; returns (ts, stats)."""
-    stage = stage or (lambda name: contextlib.nullcontext())
+    stage = trace.staged(stage)
     cdt = compute_dtype(meta)
     gan_lambda = meta["gan_lambda"] if phase["uncond"] else 0
     perceptual_lambda = meta.get("perceptual_lambda", [0])
