@@ -136,11 +136,15 @@ def test_every_generator_stage_reaches_the_log_and_the_hook(train):
     assert hooked and len(set(hooked)) == len(hooked)
     (root,) = [s for s in spans if s.name == "generator.forward"]
     assert root.root == root.id and all(s.root == root.id for s in spans)
-    own = {"generator.forward", "synthesis.glue"}
+    own = {"generator.forward", "synthesis.glue", "synthesis.operands"}
     assert sorted(s.name for s in spans if s.name not in own) == sorted(hooked)
     stage_spans = [s for s in spans if s.name not in own]
     assert all(s.parent == root.id for s in stage_spans)
     assert ("synthesis.glue" in {s.name for s in spans}) == (not train)
+    # a new generator builds K3's operands once, inside the glue
+    glue = {s.id for s in spans if s.name == "synthesis.glue"}
+    built = [s for s in spans if s.name == "synthesis.operands"]
+    assert len(built) == (not train) and all(s.parent in glue for s in built)
 
 
 def _nano_trainer(out, **kw):

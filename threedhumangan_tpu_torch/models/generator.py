@@ -104,7 +104,7 @@ from threedhumangan_tpu_torch.ops.geo import build_vertex_features
 from threedhumangan_tpu_torch.ops.raymarch import (fused_field_render, fused_field_render_geo,
                                                   pack_field_inputs)
 from threedhumangan_tpu_torch.ops.raymarch_bwd import field_render_trainable
-from threedhumangan_tpu_torch.ops.synthesis_kernel import fold_synthesis_params, fused_synthesis
+from threedhumangan_tpu_torch.ops.synthesis_kernel import fused_synthesis, synthesis_operands
 from threedhumangan_tpu_torch.utils import image, trace
 from threedhumangan_tpu_torch.utils.misc import resolve_device, take_draw
 
@@ -516,11 +516,13 @@ def _eval_forward(gen, z, conditions, meta, generator, compute_dtype, truncation
             net = gen.synthesis_network
             norm = net.spatial_normalization
             if fused_synthesis_eval(meta, norm):
+                nb, mods = meta["synthesis_blocks"], tuple(meta["mod_blocks"])
+                mode = meta.get("map3d_mode", "isolated")
                 with trace.span("synthesis.glue"):  # K3's operands: here and in its wrapper
-                    folded = fold_synthesis_params(net, gen.synthesis_input, norm)
-                rgbs = fused_synthesis(folded, feature_maps, styles, meta["synthesis_blocks"],
-                                       tuple(meta["mod_blocks"]),
-                                       meta.get("map3d_mode", "isolated"), compute_dtype)
+                    folded, tables = synthesis_operands(net, gen.synthesis_input, norm, nb, mods,
+                                                        mode)
+                rgbs = fused_synthesis(folded, feature_maps, styles, nb, mods, mode, compute_dtype,
+                                       tables=tables)
             else:
                 x = _synthesis_input(gen, meta, conditions, latent, B, gen_h, gen_w,
                                      compute_dtype)

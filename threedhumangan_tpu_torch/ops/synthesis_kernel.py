@@ -12,15 +12,20 @@ per-image fixed vector (isolated/mixed non-mod blocks) collapse to per-image
 
 ``fused_synthesis`` launches csrc/synthesis.cu on CUDA tensors and runs
 ``synthesis_plain`` — the JAX kernel's math, rounding to the compute dtype
-where it does — on CPU tensors.  Before each launch ``pack_weight_stream``
-lays every weight the kernel reads out on the device as one bf16 stream of
-16-row chunk images, in the order and the shared-memory layout the kernel
-consumes them, so its producer warp only copies contiguous chunks; the
-biases, rank-1 rows, input and ToRGB weights stay float32 tables.
+where it does — on CPU tensors.  The kernel reads every weight from one
+bf16 stream of 16-row chunk images (``pack_weight_stream``), in the order
+and the shared-memory layout it consumes them, so its producer warp only
+copies contiguous chunks; the biases, input and ToRGB weights are float32
+tables (``weight_tables``).  ``synthesis_operands`` builds the fold and
+those tables once per set of weights and keeps them on the network, keyed
+on its parameters' and buffers' addresses and versions; per launch only
+the rank-1 rows and the style casts are made.  Given a folded dict alone,
+``synthesis_cuda`` builds the tables inside the call.
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Dict
 
 import torch
@@ -31,6 +36,8 @@ from threedhumangan_tpu_torch.utils import trace
 from threedhumangan_tpu_torch.utils.misc import mm, pad_to, round16
 
 launches = 0  # K3 launches (the CUDA path only)
+operand_builds = 0  # builds of the cached weight operands (``synthesis_operands``)
+operand_hits = 0  # reuses of them
 
 
 def fold_synthesis_params(network, syn_input, normalization: str = "batch_norm") -> Dict:
@@ -67,23 +74,30 @@ def rank1_blocks_of(num_blocks: int, mod_blocks, map3d_mode: str):
     return [] if map3d_mode == "all" else [i for i in range(num_blocks) if i not in mod_blocks]
 
 
-def rank1_rows(folded: Dict, fixed_style, rank1_blocks, compute_dtype=torch.bfloat16):
+def rank1_weights(folded: Dict, rank1_blocks, compute_dtype=torch.bfloat16) -> Dict:
+    """The SPADE weights ``rank1_rows`` multiplies, rounded to
+    ``compute_dtype`` (float32 values)."""
+    return {f"b{i}_sp{si}_{k}": folded[f"b{i}_sp{si}_{k}"].to(compute_dtype).float()
+            for i in rank1_blocks for si in (0, 1) for k in ("sh_w", "g_w", "bt_w")}
+
+
+def rank1_rows(folded: Dict, fixed_style, rank1_blocks, compute_dtype=torch.bfloat16,
+               weights=None):
     """Per-image (gamma, beta) rows of the fixed-style blocks: (B, 4*n,
-    hidden) float32, rows [ga0, gb0, ga1, gb1] per block."""
-    cd = compute_dtype
+    hidden) float32, rows [ga0, gb0, ga1, gb1] per block.  ``weights``:
+    ``rank1_weights`` of ``folded``, made here when None."""
     B = fixed_style.shape[0]
-    fx = fixed_style.reshape(B, -1)
-
-    def mmr(x, w):  # the JAX wrapper's bare `@` rounds its product to cd
-        return mm(x, w, cd).to(cd).float()
-
+    # the JAX wrapper rounds each operand, and each bare `@` product, to cd
+    rnd = lambda t: t.to(compute_dtype).float()
+    w = rank1_weights(folded, rank1_blocks, compute_dtype) if weights is None else weights
+    fx = rnd(fixed_style.reshape(B, -1))
     rows = []
     for i in rank1_blocks:
         for si in (0, 1):
-            actv = torch.relu(mmr(fx, folded[f"b{i}_sp{si}_sh_w"])
-                              + folded[f"b{i}_sp{si}_sh_b"]).to(cd)
-            rows.append(mmr(actv, folded[f"b{i}_sp{si}_g_w"]) + folded[f"b{i}_sp{si}_g_b"])
-            rows.append(mmr(actv, folded[f"b{i}_sp{si}_bt_w"]) + folded[f"b{i}_sp{si}_bt_b"])
+            k = f"b{i}_sp{si}"
+            actv = rnd(torch.relu(rnd(fx @ w[f"{k}_sh_w"]) + folded[f"{k}_sh_b"]))
+            rows.append(rnd(actv @ w[f"{k}_g_w"]) + folded[f"{k}_g_b"])
+            rows.append(rnd(actv @ w[f"{k}_bt_w"]) + folded[f"{k}_bt_b"])
     return torch.stack(rows, 1).float()
 
 
@@ -145,10 +159,11 @@ def synthesis_plain(folded: Dict, style_map, fixed_style, num_blocks: int, mod_b
 
 
 def fused_synthesis(folded: Dict, style_map, fixed_style, num_blocks: int, mod_blocks,
-                    map3d_mode: str, compute_dtype=torch.bfloat16):
+                    map3d_mode: str, compute_dtype=torch.bfloat16, tables=None):
     """rgb (B, H, W, 3) float32 from the upsampled style map (B, H, W, F)
-    and the fixed style (B, 1, F).  CUDA tensors launch K3 (bf16 only); CPU
-    tensors take ``synthesis_plain``."""
+    and the fixed style (B, 1, F).  CUDA tensors launch K3 (bf16 only; with
+    ``tables``, ``synthesis_operands``' tables of ``folded``); CPU tensors
+    take ``synthesis_plain``."""
     if style_map.device.type == "cpu":
         return synthesis_plain(folded, style_map, fixed_style, num_blocks, mod_blocks,
                                map3d_mode, compute_dtype)
@@ -156,7 +171,8 @@ def fused_synthesis(folded: Dict, style_map, fixed_style, num_blocks: int, mod_b
         raise ValueError(f"fused_synthesis: unsupported device {style_map.device}")
     if compute_dtype != torch.bfloat16:
         raise ValueError("the synthesis kernel computes in bfloat16 only")
-    return synthesis_cuda(folded, style_map, fixed_style, num_blocks, mod_blocks, map3d_mode)
+    return synthesis_cuda(folded, style_map, fixed_style, num_blocks, mod_blocks, map3d_mode,
+                          tables)
 
 
 PIXELS_PER_CTA = 64  # pixels one CTA of the kernel holds
@@ -217,7 +233,91 @@ def _stack_pad(ts, shape, dtype):
     return torch.stack([pad_to(t, shape, dtype) for t in ts], 0)
 
 
-def synthesis_cuda(folded, style_map, fixed_style, num_blocks, mod_blocks, map3d_mode):
+def mod_blocks_of(num_blocks: int, mod_blocks, map3d_mode: str):
+    rank1 = rank1_blocks_of(num_blocks, mod_blocks, map3d_mode)
+    return [i for i in range(num_blocks) if i not in rank1]
+
+
+def weight_tables(folded: Dict, num_blocks: int, mods) -> Dict:
+    """K3's operands that depend on the weights alone: the bf16 weight stream,
+    the float32 tables of the conv biases, of the SPADE biases of the blocks
+    in ``mods`` (``sp``), and of the padded input and ToRGB weights and
+    biases; and the other blocks' ``rank1_weights``."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    hp = fp = round16(folded["b0_conv0_w"].shape[1])
+    stream, _ = pack_weight_stream(folded, num_blocks, mods, hp, fp)
+    cb = [folded[f"b{i}_conv{ci}_b"][0] for i in range(num_blocks) for ci in (0, 1)]
+    spk = lambda k: [folded[f"b{i}_sp{si}_{k}"][0] for i in mods for si in (0, 1)]
+    rnd = lambda t: t.to(bf16).float()  # operands the kernel reads as bf16 values
+    if mods:
+        sp = [_stack_pad(spk("sh_b"), (SPADE_HIDDEN,), f32), _stack_pad(spk("g_b"), (hp,), f32),
+              _stack_pad(spk("bt_b"), (hp,), f32)]
+    else:
+        sp = [torch.zeros(16, dtype=f32, device=stream.device)] * 3
+    rank1 = [i for i in range(num_blocks) if i not in mods]
+    return {
+        "rank1_w": rank1_weights(folded, rank1, bf16),
+        "in_w": pad_to(rnd(folded["in_w"]), (2, hp), f32),
+        "in_b": pad_to(folded["in_b"][0], (hp,), f32),
+        "stream": stream,
+        "conv_b": _stack_pad(cb, (hp,), f32),
+        "sp": sp,
+        "rgb_w": _stack_pad([rnd(folded[f"b{i}_rgb_w"]) for i in range(num_blocks)], (hp, 3), f32),
+        "rgb_b": torch.stack([folded[f"b{i}_rgb_b"][0].float() for i in range(num_blocks)], 0),
+    }
+
+
+_ENTRY = "_k3_operands"  # the cached operands' attribute on a SynthesisNetwork
+
+
+def _state_tensors(module, out):
+    """``out`` with every parameter and buffer of ``module`` and its children
+    appended: the walk of ``parameters()`` and ``buffers()`` without their
+    names, a fifth of their host time."""
+    out.extend(t for t in itertools.chain(module._parameters.values(),
+                                          module._buffers.values()) if t is not None)
+    for child in module._modules.values():
+        if child is not None:
+            _state_tensors(child, out)
+    return out
+
+
+def synthesis_operands(network, syn_input, normalization: str, num_blocks: int, mod_blocks,
+                       map3d_mode: str):
+    """K3's weight operands for ``network`` and ``syn_input``: (the folded
+    dict, and on CUDA ``weight_tables``; None elsewhere), built once per set
+    of weights.  They stay on ``network`` as a plain attribute (in no state
+    dict), keyed on the address and the version of every parameter and
+    buffer of both modules: ``load_state_dict``, an optimizer or EMA step, a
+    running-stats update, the spectral norm's ``u`` in train mode (each
+    bumps a version), ``.to()`` and ``p.data = ...`` (each moves a storage)
+    rebuild them; a write through ``p.data`` bumps no version and is not
+    seen.  The entry holds those storages, so no address of its key can
+    belong to another tensor while it lives."""
+    global operand_builds, operand_hits
+    tensors = _state_tensors(syn_input, _state_tensors(network, []))
+    key = (normalization, tensors[0].device, tensors[0].dtype, num_blocks, tuple(mod_blocks),
+           map3d_mode, tuple((t.data_ptr(), t._version) for t in tensors))
+    entry = network.__dict__.get(_ENTRY)
+    if entry is not None and entry[0] == key:
+        operand_hits += 1
+        return entry[2], entry[3]
+    with trace.span("synthesis.operands"):
+        network.__dict__.pop(_ENTRY, None)  # the old operands go before the new are built
+        folded = fold_synthesis_params(network, syn_input, normalization)
+        tables = None
+        if tensors[0].device.type == "cuda":
+            tables = weight_tables(folded, num_blocks,
+                                   mod_blocks_of(num_blocks, mod_blocks, map3d_mode))
+        setattr(network, _ENTRY, (key, [t.detach() for t in tensors], folded, tables))
+    operand_builds += 1
+    return folded, tables
+
+
+def synthesis_cuda(folded, style_map, fixed_style, num_blocks, mod_blocks, map3d_mode,
+                   tables=None):
+    """K3 on the card; ``tables``: ``weight_tables`` of ``folded``, built
+    here when None."""
     global launches
     with trace.span("synthesis.glue"):  # the operands, up to the C call
         bf16, f32 = torch.bfloat16, torch.float32
@@ -231,35 +331,28 @@ def synthesis_cuda(folded, style_map, fixed_style, num_blocks, mod_blocks, map3d
             raise ValueError(f"synthesis kernel needs H*W divisible by {PIXELS_PER_CTA}")
         hp = fp = round16(hidden)
         rank1 = rank1_blocks_of(num_blocks, mod_blocks, map3d_mode)
-        mods = [i for i in range(num_blocks) if i not in rank1]
+        mods = mod_blocks_of(num_blocks, mod_blocks, map3d_mode)
         if num_blocks > 32:
             raise ValueError(f"synthesis kernel takes at most 32 blocks, got {num_blocks}")
-        dummy = torch.zeros(16, dtype=f32, device=dev)
+        if tables is None:
+            tables = weight_tables(folded, num_blocks, mods)
         if rank1:
-            gab = rank1_rows(folded, fixed_style, rank1, bf16)
+            gab = rank1_rows(folded, fixed_style, rank1, bf16, tables["rank1_w"])
             gab = pad_to(gab.to(bf16).float(), (B, gab.shape[1], hp), f32)
         else:
-            gab = dummy
-        stream, _ = pack_weight_stream(folded, num_blocks, mods, hp, fp)
-        cb = [folded[f"b{i}_conv{ci}_b"][0] for i in range(num_blocks) for ci in (0, 1)]
-        spk = lambda k: [folded[f"b{i}_sp{si}_{k}"][0] for i in mods for si in (0, 1)]
-        rnd = lambda t: t.to(bf16).float()  # operands the kernel reads as bf16 values
-        if mods:
-            sp = [_stack_pad(spk("sh_b"), (SPADE_HIDDEN,), f32), _stack_pad(spk("g_b"), (hp,), f32),
-                  _stack_pad(spk("bt_b"), (hp,), f32)]
-        else:
-            sp = [dummy] * 3
+            gab = torch.zeros(16, dtype=f32, device=dev)
+        stream = tables["stream"]
         args = [
             style_map.to(bf16).contiguous(),
             fixed_style.reshape(B, F).to(bf16).contiguous(),
             gab,
-            pad_to(rnd(folded["in_w"]), (2, hp), f32),
-            pad_to(folded["in_b"][0], (hp,), f32),
+            tables["in_w"],
+            tables["in_b"],
             stream,
-            _stack_pad(cb, (hp,), f32),
-            *sp,
-            _stack_pad([rnd(folded[f"b{i}_rgb_w"]) for i in range(num_blocks)], (hp, 3), f32),
-            torch.stack([folded[f"b{i}_rgb_b"][0].float() for i in range(num_blocks)], 0),
+            tables["conv_b"],
+            *tables["sp"],
+            tables["rgb_w"],
+            tables["rgb_b"],
         ]
         for t in args:
             if t.device != dev:
