@@ -8,9 +8,15 @@ channel count changes); channels [in, 128, 128, 256, 256, 512, ...],
 heads: a per-pixel real/fake logit, a per-pixel ``label_dim`` segmentation,
 and a global latent regressed from the bottleneck by a full-size conv.
 
-Images are NHWC at the API, as in the JAX package; inside the convolutions
-run NCHW (cuDNN on the card: the JAX package has no kernel here).  A conv
-rounds its operands to the compute dtype and stores its output there.
+Images are NHWC at the API, as in the JAX package, and D stays channels-last
+(NCHW-shaped tensors with NHWC strides) from the input to the heads: every
+activation, and each conv's weight as it reaches ``F.conv2d``.  So cuDNN (the
+JAX package has no kernel here) runs the convolutions and their gradients on
+its NHWC tensor-core kernels, with no layout change between layers; on NCHW
+bf16 operands it picks its CUDA-core implicit-GEMM kernels.  A conv's gradient
+w.r.t. its input is ``conv_transpose2d`` (``_Conv2d``), so that R1's double
+backward runs on the same kernels.  The parameters stay OIHW-contiguous.  A
+conv rounds its operands to the compute dtype and stores its output there.
 Spectral-norm ``u`` vectors are buffers, updated in place when ``train``.
 Keys: ``down.{i}.conv1.weight_orig`` (OIHW) / ``.bias`` / ``.weight_u``,
 ``up.{i}...``, ``layer_up_last``, ``output_layer``, ``latent_layer``.
@@ -58,7 +64,7 @@ class Conv(nn.Module):
                 self.weight_u.copy_(u / (torch.linalg.norm(u) + 1e-12))
 
     def forward(self, x, compute_dtype=torch.float32, train: bool = False, padding="same"):
-        """x NCHW -> NCHW in the compute dtype."""
+        """x (B, C, H, W) channels-last -> channels-last, in the compute dtype."""
         if self.sn:
             w = self.weight_orig
             cout = w.shape[0]
@@ -66,12 +72,45 @@ class Conv(nn.Module):
             w = w2d.t().reshape(w.shape)
         else:
             w = self.weight
-        y = F.conv2d(x.to(compute_dtype), w.to(compute_dtype), padding=padding)
+        w = w.to(compute_dtype, memory_format=torch.channels_last)
+        pad = (w.shape[2] // 2, w.shape[3] // 2) if padding == "same" else (0, 0)
+        y = _Conv2d.apply(x.to(compute_dtype), w, pad)
         return y + self.bias.to(y.dtype)[:, None, None]
 
 
+class _Conv2d(torch.autograd.Function):
+    """``F.conv2d(x, w, padding=pad)`` whose gradient w.r.t. ``x`` is
+    ``conv_transpose2d(grad, w)``.  R1 differentiates that gradient once
+    more: the derivative of ``conv_transpose2d`` is cuDNN's own convolution
+    and weight gradient, where that of ``convolution_backward`` (``F.conv2d``'s
+    backward) forms the weight's term as a convolution over batch-transposed
+    operands, which cuDNN runs on its CUDA-core kernels.  One node runs in
+    every backward that reaches the conv and frees what it saved, so it forms
+    the weight's gradient whenever the weight requires one: a custom function
+    cannot tell which of its inputs a backward pass asks for."""
+
+    @staticmethod
+    def forward(ctx, x, w, pad):
+        ctx.save_for_backward(x, w)
+        ctx.pad = pad
+        return F.conv2d(x, w, padding=pad)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = F.conv_transpose2d(grad, w, padding=ctx.pad)
+        if ctx.needs_input_grad[1]:
+            gw = torch.ops.aten.convolution_backward(
+                grad, x, w, None, (1, 1), ctx.pad, (1, 1), False, (0, 0), 1,
+                (False, True, False))[1]
+        return gx, gw, None
+
+
 def _upsample2x(x):
-    return x.repeat_interleave(2, 2).repeat_interleave(2, 3)
+    """Nearest 2x, in the input's layout."""
+    return F.interpolate(x, scale_factor=2, mode="nearest")
 
 
 def _avgpool2(x):
@@ -155,7 +194,7 @@ class UNetDiscriminator(nn.Module):
     def forward(self, images, compute_dtype=torch.float32, train: bool = False) -> Dict:
         """images NHWC in [-1, 1] -> {'prediction' (B, H, W, 1), 'segments'
         (B, H, W, label_dim), 'latents' (B, latent_dim)[, 'semantics']}."""
-        x = images.permute(0, 3, 1, 2)
+        x = images.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         enc = []
         for blk in self.down:
             x = blk(x, compute_dtype, train)
